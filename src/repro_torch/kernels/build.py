@@ -1,0 +1,94 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source under ``repro_torch/csrc/`` is compiled on its own by
+``nvcc`` into a shared library with a plain C interface, and loaded with
+``ctypes``.  A library's file name carries a digest of its source and
+flags, so an edited source is rebuilt and a stale library is never
+loaded.  Builds go to ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``); nothing is compiled when a module is
+imported, only at a kernel's first launch or when :func:`build` is
+called.  Triton's cache is pointed at the same directory.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("flash_attention", "decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc's output for each library built by this process (``-Xptxas -v``
+# lists every kernel's registers, shared memory and spills).
+BUILD_LOGS: Dict[str, str] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}.{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> None:
+    """Compile every named source whose library is missing: one ``nvcc``
+    per source, all started together.  Raises with the compiler's output
+    if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        log = proc.communicate()[0]
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of library ``lib``, built on first
+    use, with its argument types declared (pointers and the stream as
+    ``c_void_p``, so none is cut to 32 bits)."""
+    fn = _FUNCS.get((lib, symbol))
+    if fn is None:
+        build((lib,))
+        fn = getattr(ctypes.CDLL(str(library_path(lib))), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[(lib, symbol)] = fn
+    return fn
+
+
+def triton_env() -> None:
+    """Keep Triton's compile cache inside the checkout's build
+    directory; called before ``triton`` is imported."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -1,0 +1,66 @@
+"""Static rules of the port, read from its sources:
+
+- no module of ``repro_torch`` and no line of ``chip_smoke.py`` imports
+  ``jax`` (or ``jaxlib``) or the reference package ``repro``;
+- nothing in ``repro_torch`` calls a library attention or
+  ``torch.compile``;
+- the kernel modules hold no ``try`` — a CUDA tensor launches the kernel
+  or raises, nothing gives way to the plain version;
+- ``triton`` is imported only inside the function that launches.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py"))
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(root, line) for root, line in _imported_roots(tree)
+           if root in FORBIDDEN_ROOTS]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_package_is_not_empty():
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
+    assert {"kernels/ops.py", "models/model.py", "serving/pool.py",
+            "core/policy_vec.py", "router/router.py"} <= names
+    assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
+        "flash_attention.cu", "decode_attention.cu"}
+
+
+def test_no_library_attention_or_compile_in_port():
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("scaled_dot_product_attention",
+                                         "compile"), \
+                    f"{path.name}:{node.lineno} uses {node.attr}"
+
+
+def test_kernel_modules_have_no_fallback_and_import_triton_lazily():
+    for path in sorted((PORT / "kernels").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), \
+            f"{path.name} holds a try statement"
+        top = [r for n in tree.body if isinstance(n, (ast.Import,
+                                                      ast.ImportFrom))
+               for r, _ in _imported_roots(n)]
+        assert "triton" not in top, f"{path.name} imports triton at top level"

@@ -1,0 +1,299 @@
+"""The port's kernel modules against the reference: the plain PyTorch
+version behind each wrapper (what a CPU tensor runs) against the
+reference's Pallas kernels in interpret mode and against its jnp
+oracles, on the same inputs made from a numpy seed.
+
+Tolerances: float32 rtol/atol 2e-5 (both sides compute in fp32; only
+summation order differs), bfloat16 2e-2 (one bf16 rounding of the
+output); masks and picks exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.policy_select import (DevicePool, _fused_select,
+                                               masks_device)
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _pair(x: np.ndarray, dtype):
+    """The same values as a jnp array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(x, jnp.float32)
+    t = torch.from_numpy(np.array(x, np.float32))
+    if dtype == "bf16":
+        return j.astype(jnp.bfloat16), t.to(torch.bfloat16)
+    return j, t
+
+
+def _close(port, expect, dtype):
+    np.testing.assert_allclose(
+        port.to(torch.float32).numpy(), np.asarray(expect, np.float32),
+        **(BF16_TOL if dtype == "bf16" else F32_TOL))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (1, 4, 2, 128, 32, 0),      # GQA causal
+    (2, 4, 1, 128, 16, 32),     # MQA sliding window
+])
+def test_flash_plain_matches_pallas(dtype, B, H, KV, S, hd, window):
+    rng = np.random.default_rng(0)
+    q, tq = _pair(rng.standard_normal((B, H, S, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, KV, S, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, KV, S, hd)), dtype)
+    expect = jops.flash_attention(q, k, v, causal=True, window=window,
+                                  block_q=64, block_k=64)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    _close(out, expect, dtype)
+
+
+@pytest.mark.parametrize("S,window", [(77, 0), (144, 0), (200, 0),
+                                      (130, 40)])
+def test_flash_ragged_matches_oracle(S, window):
+    """Lengths the Pallas kernel's block asserts refuse (the server's
+    144, the smoke's 200) against the jnp oracle."""
+    rng = np.random.default_rng(S)
+    B, H, KV, hd = 2, 6, 2, 32
+    q, tq = _pair(rng.standard_normal((B, H, S, hd)), "f32")
+    k, tk = _pair(rng.standard_normal((B, KV, S, hd)), "f32")
+    v, tv = _pair(rng.standard_normal((B, KV, S, hd)), "f32")
+    expect = jref.flash_attention_ref(q, k, v, causal=True, window=window)
+    _close(ops.flash_attention(tq, tk, tv, causal=True, window=window),
+           expect, "f32")
+
+
+def test_flash_takes_strided_views():
+    """The model hands (B,S,H,hd) activations as transposed views."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 6, 32)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 40, 2, 32)).astype(np.float32))
+    got = ops.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
+                              kv.transpose(1, 2))
+    want = ops.flash_attention(x.transpose(1, 2).contiguous(),
+                               kv.transpose(1, 2).contiguous(),
+                               kv.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,S,hd,window", [
+    (2, 2, 2, 128, 32, 0),
+    (3, 2, 3, 128, 16, 48),
+])
+def test_decode_plain_matches_pallas(dtype, B, KV, G, S, hd, window):
+    rng = np.random.default_rng(2)
+    q, tq = _pair(rng.standard_normal((B, KV, G, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, KV, S, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, KV, S, hd)), dtype)
+    pos = rng.integers(1, S, B).astype(np.int32)
+    expect = jops.decode_attention(q, k, v, jnp.asarray(pos), window=window,
+                                   block_k=64)
+    out = ops.decode_attention(tq, tk, tv, torch.from_numpy(pos),
+                               window=window)
+    _close(out, expect, dtype)
+
+
+def test_decode_ragged_cache_matches_oracle():
+    """The server's cache of 144 slots, read through the model's
+    (B, C, KV, hd) layout, with pos in [128, 143]."""
+    rng = np.random.default_rng(3)
+    B, KV, G, C, hd = 4, 2, 6, 144, 32
+    q, tq = _pair(rng.standard_normal((B, KV, G, hd)), "f32")
+    cache_k = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
+    cache_v = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
+    pos = rng.integers(128, 144, B).astype(np.int32)
+    expect = jref.decode_attention_ref(
+        q, jnp.asarray(cache_k.transpose(0, 2, 1, 3)),
+        jnp.asarray(cache_v.transpose(0, 2, 1, 3)), jnp.asarray(pos))
+    out = ops.decode_attention(
+        tq, torch.from_numpy(cache_k).permute(0, 2, 1, 3),
+        torch.from_numpy(cache_v).permute(0, 2, 1, 3), torch.from_numpy(pos))
+    _close(out, expect, "f32")
+
+
+def _pool_arrays(rng, n):
+    mu = rng.uniform(5.0, 60.0, n).astype(np.float32)
+    sig = rng.uniform(0.0, 6.0, n).astype(np.float32)
+    acc = rng.uniform(0.3, 0.95, n).astype(np.float32)
+    return mu, sig, acc
+
+
+@pytest.mark.parametrize("n,gamma", [(2, 1.0), (3, 1.0), (8, 2.0)])
+def test_probs_plain_matches_pallas(n, gamma):
+    rng = np.random.default_rng(n)
+    B = 300
+    mu, sig, acc = _pool_arrays(rng, n)
+    t_u = rng.uniform(-5.0, 90.0, B).astype(np.float32)
+    t_l = (t_u - 25.0).astype(np.float32)
+    elig = (rng.random((B, n)) > 0.4).astype(np.float32)
+    elig[:5] = 0.0                     # rows with no eligible model
+    t_u[5:9] = mu.min() - 50.0         # negative mass: uniform fallback
+    t_l[5:9] = t_u[5:9] - 25.0
+    args = (mu, sig, acc, t_u, t_l, elig)
+    expect = jops.modipick_probs(*map(jnp.asarray, args), gamma=gamma)
+    oracle = jref.policy_probs_ref(*map(jnp.asarray, args), gamma=gamma)
+    out = ops.modipick_probs(*(torch.from_numpy(a) for a in args),
+                             gamma=gamma)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), **F32_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle), **F32_TOL)
+
+
+def _jax_pool(mu, sig, acc):
+    from repro.kernels.policy_select import DevicePool as JaxPool
+    order = np.argsort(-acc, kind="stable")
+    return JaxPool(mu, sig, acc, order, int(np.argmin(mu))), order
+
+
+def test_masks_match_oracle_and_numpy_reference():
+    from repro.core.policy_vec import modipick_masks
+    from repro.core.profiles import ModelProfile, ProfileStore
+    rng = np.random.default_rng(7)
+    n, B = 5, 257
+    mu, sig, acc = _pool_arrays(rng, n)
+    t_u = rng.uniform(0.0, 90.0, B).astype(np.float32)
+    t_l = t_u - 20.0
+    jpool, order = _jax_pool(mu, sig, acc)
+    rank = np.asarray(jpool.rank)
+    jb, jh, je = jref.modipick_masks_ref(jnp.asarray(mu), jnp.asarray(sig),
+                                         jnp.asarray(rank), jnp.asarray(t_u),
+                                         jnp.asarray(t_l))
+    pool = DevicePool(mu, sig, acc, order, int(np.argmin(mu)), device="cpu")
+    base, has, elig = masks_device(pool, t_u, t_l)
+    np.testing.assert_array_equal(has, np.asarray(jh))
+    np.testing.assert_array_equal(base[has], np.asarray(jb)[has])
+    np.testing.assert_array_equal(elig, np.asarray(je))
+    # and the host numpy stages 1-2 (float64 table from the same values)
+    store = ProfileStore([ModelProfile(f"m{i}", float(a), mu=float(m),
+                                       var=float(s) ** 2)
+                          for i, (m, s, a) in enumerate(zip(mu, sig, acc))])
+    nb, nh, ne, _ = modipick_masks(store.table(), t_u.astype(np.float64),
+                                   t_l.astype(np.float64))
+    np.testing.assert_array_equal(has, nh)
+    np.testing.assert_array_equal(elig, ne)
+
+
+@pytest.mark.parametrize("n,seed,gamma", [(3, 11, 1.0), (6, 12345, 1.0),
+                                          (4, 7, 2.0)])
+def test_fused_select_picks_equal_reference(n, seed, gamma):
+    """Fed the reference's own uniforms, the port's stages 1-3 and draw
+    pick exactly what the reference's ``_fused_select`` picks."""
+    from repro.kernels.policy_select import _fused_select as jax_fused
+    rng = np.random.default_rng(seed)
+    bpad = 512
+    mu, sig, acc = _pool_arrays(rng, n)
+    t_u = rng.uniform(0.0, 90.0, bpad).astype(np.float32)
+    t_l = t_u - 25.0
+    jpool, order = _jax_pool(mu, sig, acc)
+    expect = jax_fused(jpool.mu, jpool.sigma, jpool.acc, jpool.rank,
+                       jnp.asarray(t_u), jnp.asarray(t_l), np.uint32(seed),
+                       gamma=gamma, block_b=256, use_pallas=False)
+    r01 = jax.random.uniform(jax.random.PRNGKey(seed), (bpad,),
+                             dtype=jnp.float32)
+    pool = DevicePool(mu, sig, acc, order, int(np.argmin(mu)), device="cpu")
+    got = _fused_select(pool.mu, pool.sigma, pool.acc, pool.rank,
+                        torch.from_numpy(t_u), torch.from_numpy(t_l),
+                        torch.from_numpy(np.array(r01)), gamma=gamma)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+    assert (got.numpy() >= 0).any() and (got.numpy() < 0).any()
+
+
+# ----------------------------------------------------------------------
+# The wrappers refuse what the kernels do not take, on every device.
+# ----------------------------------------------------------------------
+def _attn_args(dtype=torch.float32, device="cpu"):
+    q = torch.zeros(1, 4, 8, 32, dtype=dtype, device=device)
+    k = torch.zeros(1, 2, 8, 32, dtype=dtype, device=device)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("case", ["meta", "f16", "f64", "hd48", "heads",
+                                  "stride", "window"])
+def test_flash_wrapper_raises(case):
+    q, k, v = _attn_args()
+    kw = {}
+    if case == "meta":
+        q, k, v = _attn_args(device="meta")
+    elif case in ("f16", "f64"):
+        dt = torch.float16 if case == "f16" else torch.float64
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    elif case == "hd48":
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
+    elif case == "heads":
+        q = torch.zeros(1, 3, 8, 32)
+    elif case == "stride":
+        q = torch.zeros(1, 4, 32, 8).transpose(2, 3)
+    else:
+        kw = dict(window=-1)
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("case", ["meta", "bf16_mixed", "pos64", "group9",
+                                  "q_strided"])
+def test_decode_wrapper_raises(case):
+    q = torch.zeros(2, 2, 3, 32)
+    k = torch.zeros(2, 2, 16, 32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    if case == "meta":
+        q, k, pos = q.to("meta"), k.to("meta"), pos.to("meta")
+    elif case == "bf16_mixed":
+        q = q.to(torch.bfloat16)
+    elif case == "pos64":
+        pos = pos.to(torch.int64)
+    elif case == "group9":
+        q = torch.zeros(2, 2, 9, 32)
+    else:
+        q = torch.zeros(2, 2, 32, 3).transpose(2, 3)
+    with pytest.raises((ValueError, TypeError)):
+        ops.decode_attention(q, k, k, pos)
+
+
+@pytest.mark.parametrize("case", ["meta", "f64", "shape", "pool"])
+def test_probs_wrapper_raises(case):
+    B, n = 4, 3
+    args = [torch.zeros(n), torch.zeros(n), torch.ones(n), torch.ones(B),
+            torch.ones(B), torch.ones(B, n)]
+    if case == "meta":
+        args = [a.to("meta") for a in args]
+    elif case == "f64":
+        args[3] = args[3].double()
+    elif case == "shape":
+        args[0] = torch.zeros(n + 1)
+    else:
+        args = [torch.zeros(200), torch.zeros(200), torch.ones(200),
+                torch.ones(B), torch.ones(B), torch.ones(B, 200)]
+    with pytest.raises((ValueError, TypeError)):
+        ops.modipick_probs(*args)
+
+
+def test_cpu_path_launches_nothing():
+    ops.reset_launch_counts()
+    q, k, v = _attn_args()
+    ops.flash_attention(q, k, v)
+    ops.decode_attention(q.reshape(1, 2, 16, 32)[:, :, :2].contiguous(),
+                         k, v, torch.zeros(1, dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "decode_attention": 0,
+                                   "modipick_probs": 0}
+
+
+def test_plain_versions_are_the_reference_twins():
+    """ref.* on random shapes against the jnp oracles."""
+    rng = np.random.default_rng(5)
+    q, tq = _pair(rng.standard_normal((1, 4, 33, 16)), "f32")
+    k, tk = _pair(rng.standard_normal((1, 2, 33, 16)), "f32")
+    _close(ref.flash_attention_ref(tq, tk, tk, causal=False),
+           jref.flash_attention_ref(q, k, k, causal=False), "f32")
+    pos = np.array([20], np.int32)
+    qd, tqd = _pair(rng.standard_normal((1, 2, 2, 16)), "f32")
+    _close(ref.decode_attention_ref(tqd, tk, tk, torch.from_numpy(pos),
+                                    window=8),
+           jref.decode_attention_ref(qd, k, k, jnp.asarray(pos), window=8),
+           "f32")
