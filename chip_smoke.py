@@ -9,19 +9,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``nvcc`` per source, in parallel) and print their register use;
 2. hold each kernel against its plain PyTorch version on the card at
    the server's shapes, with the stated tolerance, and time the kernel,
-   the plain version and one PyTorch library call as a yardstick;
-3. serve: a pool of full-width qwen2-1.5b variants (widths 0.5 and 1.0,
-   bf16, random weights from a seed) behind PoolExecutor → Router →
-   ModiPick, answering requests; the launch counters are zeroed just
-   before and read just after, and must show the prefill and decode
-   kernels ran on every layer of every request; the full-width variant's
-   logits on the kernel path are held against the plain path;
+   the plain version and, where there is one, a PyTorch library call as
+   a yardstick; the SSD scan (with its final state) and the RG-LRU scan
+   also at a ragged multi-chunk length, and the attention kernels also
+   at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head);
+3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
+   pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
+   random weights from a seed) behind PoolExecutor → Router → ModiPick,
+   answering requests; the launch counters are zeroed just before and
+   read just after, and must show that every layer of every request ran
+   its kernels (prefill attention per attention layer, decode attention
+   per attention layer and decode step, the SSD scan per SSD layer, the
+   RG-LRU scan per RG-LRU layer); the full-width variant's logits on the
+   kernel path are held against the plain path, for prefill and one
+   decode step;
 4. the batched selection entry point ``ModiPick.select_batch`` on the
-   executor's profile store at B = 8192 on the card: the stage-3
+   qwen2 executor's profile store at B = 8192 on the card: the stage-3
    kernel's counter must grow, and its picks must equal the plain
    path's on the same uniforms;
-5. timings for the record: per-variant warm prefill / prefill+decode and
-   selection throughput (numpy vs the card);
+5. timings for the record: per-variant warm prefill / prefill+decode
+   with a profiler trace, and selection throughput (numpy vs the card);
 
 then prints the ``kernels`` JSON line, the card's name and power limit,
 and the result line.  Without a card it exits non-zero and prints no
@@ -41,11 +48,37 @@ import torch
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
             torch.float32: 67e12}          # fp32 outside the tensor cores
-SEQ, BATCH, N_DECODE, N_REQUESTS = 128, 4, 2, 24
+SEQ, BATCH, N_DECODE = 128, 4, 2
+N_REQUESTS = {"qwen2-1.5b": 24, "mamba2-1.3b": 12, "recurrentgemma-2b": 12}
+# The published dims each pool's full-width variant must have: layers,
+# d_model, vocab and padded vocab, then the family's own widths.
+PUBLISHED = {
+    "qwen2-1.5b": dict(n_layers=28, d_model=1536, vocab_size=151_936,
+                       padded_vocab=152_064, n_heads=12, n_kv_heads=2,
+                       resolved_head_dim=128, d_ff=8960),
+    "mamba2-1.3b": dict(n_layers=48, d_model=2048, vocab_size=50_280,
+                        padded_vocab=50_432, d_inner=4096, ssm_heads=64,
+                        ssm=(128, 64, 2, 256, 4, 1)),
+    "recurrentgemma-2b": dict(n_layers=26, d_model=2560,
+                              vocab_size=256_000, padded_vocab=256_000,
+                              n_heads=10, n_kv_heads=1,
+                              resolved_head_dim=256, d_ff=7680,
+                              window=2048, lru_width=2560),
+}
 T_SLA_MS, THRESHOLD_MS = 120.0, 25.0
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),   # summation order only
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}  # ~1 bf16 ulp of |x| ≤ 2
 LOGIT_RTOL = 3e-2   # full model, bf16: kernel vs plain path, of max |logit|
+# The families whose free-running kernel-path logits are held to
+# LOGIT_RTOL.  The random-weight mamba2 and recurrentgemma stacks amplify
+# a bf16 rounding difference layer by layer, so after 48 (26) layers the
+# two paths' logits are unrelated whatever the kernels do; the
+# layer-by-layer check holds every family instead.
+FREE_RUNNING = ("qwen2-1.5b",)
+# The SSD scan relative to max |y| (the chunked kernel and the sequential
+# plain version sum in different orders; tests/test_kernels.py's bounds).
+SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
 def log(*a):
@@ -82,6 +115,23 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scaled(name, got, want, tol) -> float:
+    """Max error relative to max(max |want|, 1), held to ``tol``."""
+    scale = max(float(want.float().abs().max()), 1.0)
+    err = float((got.float() - want.float()).abs().max()) / scale
+    if not torch.allclose(got.float() / scale, want.float() / scale, **tol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max err {err} of max |y|, tol {tol})")
+    return err
+
+
+def extra(name, ms, plain_ms, b, library_ms=None) -> None:
+    """A kernel's numbers at a shape beside the row of its kernels line."""
+    log(f"[extra] {name}: ms={ms:.5g} plain_ms={plain_ms:.5g} "
+        f"bound_ms={b[0]:.4g} ({b[1]}) library_ms="
+        + ("null" if library_ms is None else f"{library_ms:.5g}"))
 
 
 def check(name, got, want, tol) -> float:
@@ -175,6 +225,116 @@ def phase_kernels(ops, ref, policy_select, gen):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qs, kc, vc, attn_mask=mask, enable_gqa=True)))
 
+    # K2 and K3 at recurrentgemma's local layers: hd 256, 10 query heads
+    # over one KV head (G = 10), window 2048; K3 over a 144-slot ring
+    # that has wrapped (every slot valid: pos_eff = C - 1, no window).
+    B, H, KV, hd, dtype = BATCH, 10, 1, 256, torch.bfloat16
+    q = randn(B, SEQ, H, hd, dtype=dtype).transpose(1, 2)
+    k = randn(B, SEQ, KV, hd, dtype=dtype).transpose(1, 2)
+    v = randn(B, SEQ, KV, hd, dtype=dtype).transpose(1, 2)
+    err = check("flash_attention hd=256 H=10 KV=1",
+                ops.flash_attention(q, k, v, window=2048),
+                ref.flash_attention_ref(q, k, v, window=2048), TOL[dtype])
+    log(f"K2 flash_attention B={B} H={H} KV={KV} S={SEQ} hd={hd} "
+        f"window=2048 {dtype}: max_abs_err={err:.3g} tol={TOL[dtype]}")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    pairs = SEQ * (SEQ + 1) // 2
+    extra(f"flash_attention B={B} H={H} KV={KV} S={SEQ} hd={hd} bf16",
+          time_ms(lambda: ops.flash_attention(q, k, v, window=2048)),
+          time_ms(lambda: ref.flash_attention_ref(q, k, v, window=2048)),
+          bound(2 * (2 * q.numel() + 2 * k.numel()),
+                4 * hd * pairs * B * H, dtype),
+          time_ms(lambda: F.scaled_dot_product_attention(
+              qc, kc, vc, is_causal=True, enable_gqa=True)))
+    C, G = SEQ + 16, H // KV
+    q = randn(B, 1, H + 2 * KV, hd, dtype=dtype)[:, :, :H].reshape(B, KV, G,
+                                                                    hd)
+    ck = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    cv = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    pos = torch.full((B,), C - 1, dtype=torch.int32, device="cuda")
+    err = check("decode_attention G=10 hd=256",
+                ops.decode_attention(q, ck, cv, pos),
+                ref.decode_attention_ref(q, ck, cv, pos), TOL[dtype])
+    log(f"K3 decode_attention B={B} KV={KV} G={G} C={C} hd={hd} wrapped "
+        f"ring (pos_eff={C - 1}) {dtype}: max_abs_err={err:.3g} "
+        f"tol={TOL[dtype]}")
+    qs = q.reshape(B, H, 1, hd).contiguous()
+    kc, vc = ck.contiguous(), cv.contiguous()
+    extra(f"decode_attention B={B} KV={KV} G={G} C={C} hd={hd} bf16",
+          time_ms(lambda: ops.decode_attention(q, ck, cv, pos)),
+          time_ms(lambda: ref.decode_attention_ref(q, ck, cv, pos)),
+          bound(2 * (2 * q.numel() + 2 * B * KV * C * hd) + 4 * B,
+                4 * G * hd * B * KV * C, dtype),
+          time_ms(lambda: F.scaled_dot_product_attention(
+              qs, kc, vc, enable_gqa=True)))
+
+    # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
+    # G 1, chunk 256), inputs as the model hands them: transposed views
+    # of its (B, S, H, hd), (B, S, H) and (B, S, G, N) activations.  Also
+    # at S = 600 (chunks 256 + 256 + 88) in both types, y and final state.
+    def ssd_args(B, S, H, hd, N, G, dtype):
+        x = (randn(B, S, H, hd, dtype=torch.float32) * 0.5).to(dtype)
+        dt = F.softplus(randn(B, S, H, dtype=torch.float32) - 2.0)
+        A = -torch.exp(randn(H, dtype=torch.float32) * 0.3)
+        bc = (randn(B, S, 2 * G * N, dtype=torch.float32) * 0.3).to(dtype)
+        Bm = bc[..., :G * N].view(B, S, G, N)
+        Cm = bc[..., G * N:].view(B, S, G, N)
+        return (x.transpose(1, 2), dt.transpose(1, 2), A,
+                Bm.transpose(1, 2), Cm.transpose(1, 2))
+
+    H, hd, N, G, chunk = 64, 64, 128, 1, 256
+    for S, dtype in ((SEQ, torch.bfloat16), (600, torch.bfloat16),
+                     (600, torch.float32)):
+        args = ssd_args(BATCH, S, H, hd, N, G, dtype)
+        y, st = ops.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, st_ref = ref.ssd_scan_ref(*args, chunk=chunk)
+        err = check_scaled(f"ssd_scan S={S} {dtype} y", y, y_ref,
+                           SSD_TOL[dtype])
+        err_st = check_scaled(f"ssd_scan S={S} {dtype} final state", st,
+                              st_ref, SSD_TOL[dtype])
+        log(f"K4 ssd_scan B={BATCH} H={H} S={S} hd={hd} N={N} G={G} "
+            f"chunk={chunk} {dtype}: max err of max|y| y={err:.3g} "
+            f"state={err_st:.3g} tol={SSD_TOL[dtype]}")
+        if (S, dtype) != (SEQ, torch.bfloat16):
+            continue
+        esize, B = 2, BATCH
+        nbytes = (esize * (2 * B * H * S * hd + 2 * B * G * S * N)
+                  + 4 * (B * H * S + H + B * H * hd * N))
+        pairs = S * (S + 1) // 2  # one chunk: the whole prompt
+        ops_ = 2 * B * G * pairs * N + 2 * B * H * (pairs * hd
+                                                     + 2 * S * hd * N)
+        b = bound(nbytes, ops_, dtype)
+        rows["ssd_scan"] = dict(
+            name="ssd_scan", route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:21",
+            max_abs_err=max(err, err_st),
+            ms=time_ms(lambda: ops.ssd_scan(*args, chunk=chunk)),
+            plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args), iters=5),
+            bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+    # K5: the RG-LRU scan at recurrentgemma-2b's width (W 2560, f32, as
+    # the model's gates produce a and b), and at a ragged S = 600.
+    W = 2560
+    for S in (SEQ, 600):
+        a = torch.sigmoid(randn(BATCH, S, W, dtype=torch.float32)) * 0.98
+        bb = randn(BATCH, S, W, dtype=torch.float32) * 0.1
+        err = check(f"rglru_scan S={S}", ops.rglru_scan(a, bb),
+                    ref.rglru_scan_ref(a, bb), TOL[torch.float32])
+        log(f"K5 rglru_scan B={BATCH} S={S} W={W} float32: "
+            f"max_abs_err={err:.3g} tol={TOL[torch.float32]}")
+        if S != SEQ:
+            continue
+        b = bound(4 * 3 * a.numel(), 2 * a.numel(), torch.float32)
+        rows["rglru_scan"] = dict(
+            name="rglru_scan", route="cuda",
+            source="src/repro_torch/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:21",
+            max_abs_err=err, ms=time_ms(lambda: ops.rglru_scan(a, bb)),
+            plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bb), iters=10),
+            bound_ms=b[0], bound_by=b[1], library_ms=None)
+
     # K1: stage 3 on the stage-2 eligibility of a synthetic 3-model pool
     # (the server's own 2-model store is checked in the selection phase).
     rng = np.random.default_rng(0)
@@ -248,8 +408,30 @@ def trace_request(v, tokens) -> None:
             for e in top))
 
 
-def build_pool(Variant, get_config, gen):
-    base = get_config("qwen2-1.5b")
+def published_dims(cfg) -> dict:
+    """The dims of ``cfg`` that ``PUBLISHED`` names for its arch."""
+    out = {k: getattr(cfg, k) for k in ("n_layers", "d_model", "vocab_size",
+                                        "padded_vocab", "n_heads",
+                                        "n_kv_heads", "resolved_head_dim",
+                                        "d_ff", "window")}
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out["ssm"] = (s.d_state, s.head_dim, s.expand, s.chunk_size,
+                      s.conv_width, s.n_groups)
+        out["d_inner"], out["ssm_heads"] = (s.d_inner(cfg.d_model),
+                                            s.n_heads(cfg.d_model))
+    if cfg.rglru is not None:
+        out["lru_width"] = cfg.rglru.width(cfg.d_model)
+    return out
+
+
+def build_pool(arch, gen):
+    """Widths 0.5 and 1.0 of the published config of ``arch``, at full
+    depth, bf16, random weights from ``gen``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.pool import Variant
+
+    base = get_config(arch)
     pool = []
     for w in (0.5, 1.0):
         cfg = base.scaled(w, name=f"{base.name}-w{w:g}")
@@ -258,12 +440,176 @@ def build_pool(Variant, get_config, gen):
                     cache_len=SEQ + 16)
         v.build(gen, torch.bfloat16)
         pool.append(v)
-    full = pool[-1].cfg
-    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
-            full.resolved_head_dim, full.d_ff, full.vocab_size,
-            full.padded_vocab) == (28, 1536, 12, 2, 128, 8960, 151_936,
-                                   152_064), full
+    dims = published_dims(pool[-1].cfg)
+    want = PUBLISHED[arch]
+    got = {k: dims[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{arch} full width is not the published "
+                             f"config: {got} != {want}")
     return pool
+
+
+def expected_launches(cfgs) -> dict:
+    """The kernel launches of one request (prefill + N_DECODE steps) on
+    each config: prefill and decode attention per attention layer (and
+    decode step), the SSD scan per SSD layer, the RG-LRU scan per RG-LRU
+    layer; no selection kernel on the scalar path."""
+    want = dict(flash_attention=0, decode_attention=0, ssd_scan=0,
+                rglru_scan=0, modipick_probs=0)
+    for cfg in cfgs:
+        kinds = cfg.block_kinds
+        n_attn = sum(k in ("attn", "local") for k in kinds)
+        want["flash_attention"] += n_attn
+        want["decode_attention"] += n_attn * N_DECODE
+        want["ssd_scan"] += kinds.count("ssd")
+        want["rglru_scan"] += kinds.count("rglru")
+    return want
+
+
+def logits_err(what, lk, lp, vocab) -> tuple:
+    """(max |kernel − plain|, max |plain|) over the real vocabulary, and
+    a log line; raises on non-finite kernel logits."""
+    lk, lp = lk.float()[:, :vocab], lp.float()[:, :vocab]
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"{what} logits are not finite")
+    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"{what} logits, kernel vs plain path: max_abs_err={err:.4g} "
+        f"max|logit|={scale:.4g} tol={LOGIT_RTOL}*max|logit| "
+        f"greedy_agreement={agree:.3f}")
+    return err, scale
+
+
+def free_running(arch, v, M, ops, tokens) -> None:
+    """Prefill and one decode step of the full-width variant, once on
+    the kernel path and once on the plain path, each on its own.  Held
+    to LOGIT_RTOL only where FREE_RUNNING says so."""
+    tok = torch.as_tensor(tokens, device="cuda")
+    pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+    outs, nxt = {}, None
+    for label, impl in (("plain", ops.PLAIN), ("kernel", ops.KERNELS)):
+        cache, logits = M.prefill(v.cfg, v.params, tok, v.cache_len,
+                                  impl=impl)
+        if nxt is None:  # both paths decode the same next tokens
+            nxt = torch.argmax(logits, -1)
+        step, _ = M.decode_step(v.cfg, v.params, cache, nxt, pos, impl=impl)
+        outs[label] = (logits, step)
+    for i, what in enumerate(("prefill", "decode step")):
+        err, scale = logits_err(f"[serve {arch}] free-running {what}",
+                                outs["kernel"][i], outs["plain"][i],
+                                v.cfg.vocab_size)
+        if arch in FREE_RUNNING and err > LOGIT_RTOL * scale:
+            raise AssertionError(f"{arch} free-running {what} logits "
+                                 f"disagree: {err} > {LOGIT_RTOL} * {scale}")
+
+
+def layer_by_layer(arch, v, M, ops, tokens) -> None:
+    """Prefill and one decode step of the full-width variant with every
+    layer run on both paths from the plain path's input to it: each
+    layer's output, and the logits of the last layer's output, held to
+    LOGIT_RTOL of their largest magnitude.  This bounds what each
+    layer's kernels change without the depth amplifying it."""
+    cfg, params = v.cfg, v.params
+    layers = list(enumerate(zip(cfg.block_kinds, params["layers"])))
+
+    def held(label, x_k, x_p) -> float:
+        err = float((x_k.float() - x_p.float()).abs().max())
+        scale = float(x_p.float().abs().max())
+        if err > LOGIT_RTOL * scale:
+            raise AssertionError(f"{arch} layer by layer {label} disagrees: "
+                                 f"{err} > {LOGIT_RTOL} * {scale}")
+        return err / scale
+
+    def report(label, worst, x_k, x_p) -> None:
+        log(f"[serve {arch}] layer by layer {label}: worst layer output "
+            f"err {worst:.4g} of its max |x| over {cfg.n_layers} layers")
+        err, scale = logits_err(f"[serve {arch}] layer by layer {label}",
+                                M.final_logits(cfg, params, x_k),
+                                M.final_logits(cfg, params, x_p),
+                                cfg.vocab_size)
+        if err > LOGIT_RTOL * scale:
+            raise AssertionError(f"{arch} layer-by-layer {label} logits "
+                                 f"disagree: {err} > {LOGIT_RTOL} * {scale}")
+
+    tok = torch.as_tensor(tokens, device="cuda")
+    positions = torch.arange(SEQ, device="cuda")[None, :].expand(BATCH, SEQ)
+    tables = M.rope_for(cfg, positions)
+    x = M.embed_tokens(cfg, params, tok)
+    caches, worst = [], 0.0
+    for i, (kind, p) in layers:
+        x_k, _ = M.block_prefill(cfg, kind, p, x, tables, v.cache_len,
+                                 ops.KERNELS)
+        x, c = M.block_prefill(cfg, kind, p, x, tables, v.cache_len,
+                               ops.PLAIN)
+        worst = max(worst, held(f"prefill layer {i} ({kind})", x_k, x))
+        caches.append(c)
+    report("prefill", worst, x_k, x)
+
+    nxt = torch.argmax(M.final_logits(cfg, params, x), -1)
+    pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+    tables = M.rope_for(cfg, pos[:, None])
+    x = M.embed_tokens(cfg, params, nxt[:, None])
+    worst = 0.0
+    for i, (kind, p) in layers:
+        # an attention cache is written in place: the kernel path gets a copy
+        copy = {k: t.clone() for k, t in caches[i].items()}
+        x_k, _ = M.block_decode(cfg, kind, p, x, copy, pos, tables,
+                                ops.KERNELS)
+        x, _ = M.block_decode(cfg, kind, p, x, caches[i], pos, tables,
+                              ops.PLAIN)
+        worst = max(worst, held(f"decode layer {i} ({kind})", x_k, x))
+    report("decode step", worst, x_k, x)
+
+
+def serve_family(arch, gen, tokens):
+    """Serve ``N_REQUESTS[arch]`` requests from a pool of ``arch``
+    through PoolExecutor → Router → ModiPick, with the launch counters
+    zeroed just before and read just after; hold the full-width logits
+    on the kernel path against the plain path; time each variant.
+    Returns (executor, the launch counts of the serve run)."""
+    from repro_torch.core.netmodel import NetworkModel
+    from repro_torch.core.policy import ModiPick
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.executor import PoolExecutor
+
+    t0 = time.perf_counter()
+    pool = build_pool(arch, gen)
+    ex = PoolExecutor(pool, NetworkModel.from_cv(20.0, 0.5),
+                      ModiPick(THRESHOLD_MS))
+    ex.warm_up(tokens, n_decode=N_DECODE)
+    log(f"[serve {arch}] pool built and warmed in "
+        f"{time.perf_counter() - t0:.1f}s: "
+        + ", ".join(f"{v.name} d={v.cfg.d_model} L={v.cfg.n_layers} "
+                    f"kinds={sorted(set(v.cfg.block_kinds))}" for v in pool))
+    n = N_REQUESTS[arch]
+    ops.reset_launch_counts()
+    results = [ex.execute(tokens, t_sla=T_SLA_MS, n_decode=N_DECODE)
+               for _ in range(n)]
+    counts = ops.launch_counts()
+    summary = ex.summary()
+    log(f"[serve {arch}] summary " + json.dumps(summary))
+    log(f"[serve {arch}] launches " + json.dumps(counts))
+    want = expected_launches(ex.by_name[r.variant].cfg for r in results)
+    if counts != want:
+        raise AssertionError(f"{arch} serve launches {counts} != {want}")
+    if summary["n"] != n or not all(
+            np.isfinite(r.t_infer_ms) and r.t_infer_ms > 0 for r in results):
+        raise AssertionError(f"{arch} serve phase returned bad results")
+
+    with torch.inference_mode():
+        free_running(arch, pool[-1], M, ops, tokens)
+        layer_by_layer(arch, pool[-1], M, ops, tokens)
+
+    for v in pool:
+        pre = wall_ms(lambda: v.run(tokens, n_decode=0))
+        both = wall_ms(lambda: v.run(tokens, n_decode=N_DECODE))
+        log(f"[perf] {v.name}: warm prefill {pre:.3f} ms, prefill + "
+            f"{N_DECODE} decode {both:.3f} ms (B={BATCH}, S={SEQ}, "
+            f"median of 7)")
+        trace_request(v, tokens)
+        v.params = None  # free the card for the next family
+    return ex, counts
 
 
 def main() -> int:
@@ -271,14 +617,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.netmodel import NetworkModel
-    from repro_torch.core.policy import ModiPick
     from repro_torch.kernels import build, ops, policy_select, ref
-    from repro_torch.models import model as M
-    from repro_torch.models.attention import KERNELS, PLAIN
-    from repro_torch.serving.executor import PoolExecutor
-    from repro_torch.serving.pool import Variant
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -299,61 +638,16 @@ def main() -> int:
     # 2. kernels against their plain versions
     rows = phase_kernels(ops, ref, policy_select, gen)
 
-    # 3. serve full-width qwen2-1.5b through PoolExecutor → Router → ModiPick
-    t0 = time.perf_counter()
-    pool = build_pool(Variant, get_config, gen)
+    # 3. serve each family through PoolExecutor → Router → ModiPick
     tokens = np.random.default_rng(0).integers(0, 500, (BATCH, SEQ),
                                                dtype=np.int32)
-    ex = PoolExecutor(pool, NetworkModel.from_cv(20.0, 0.5),
-                      ModiPick(THRESHOLD_MS))
-    ex.warm_up(tokens, n_decode=N_DECODE)
-    log(f"[serve] pool built and warmed in {time.perf_counter() - t0:.1f}s: "
-        + ", ".join(f"{v.name} d={v.cfg.d_model} L={v.cfg.n_layers} "
-                    f"hd={v.cfg.resolved_head_dim}" for v in pool))
-    ops.reset_launch_counts()
-    results = [ex.execute(tokens, t_sla=T_SLA_MS, n_decode=N_DECODE)
-               for _ in range(N_REQUESTS)]
-    serve_counts = ops.launch_counts()
-    summary = ex.summary()
-    log("[serve] summary " + json.dumps(summary))
-    log("[serve] launches " + json.dumps(serve_counts))
-    layers = [ex.by_name[r.variant].cfg.n_layers for r in results]
-    want = {"flash_attention": sum(layers),
-            "decode_attention": N_DECODE * sum(layers),
-            "modipick_probs": 0}
-    if serve_counts != want:
-        raise AssertionError(f"serve launches {serve_counts} != {want}")
-    if summary["n"] != N_REQUESTS or not all(
-            np.isfinite(r.t_infer_ms) and r.t_infer_ms > 0 for r in results):
-        raise AssertionError("serve phase returned bad results")
-
-    full = pool[-1]
-    with torch.inference_mode():
-        tok = torch.as_tensor(tokens, device="cuda")
-        pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
-        outs, nxt = {}, None
-        for label, impl in (("plain", PLAIN), ("kernel", KERNELS)):
-            cache, logits = M.prefill(full.cfg, full.params, tok,
-                                      full.cache_len, impl=impl)
-            if nxt is None:  # both paths decode the same next tokens
-                nxt = torch.argmax(logits, -1)
-            step, _ = M.decode_step(full.cfg, full.params, cache, nxt, pos,
-                                    impl=impl)
-            outs[label] = (logits.float(), step.float())
-    for i, what in enumerate(("prefill", "decode step")):
-        lk, lp = outs["kernel"][i], outs["plain"][i]
-        vs = full.cfg.vocab_size
-        if not torch.isfinite(lk[:, :vs]).all():
-            raise AssertionError(f"{what} logits are not finite")
-        err = float((lk - lp).abs().max())
-        scale = float(lp[:, :vs].abs().max())
-        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-        log(f"[serve] full-width {what} logits, kernel vs plain path: "
-            f"max_abs_err={err:.4g} max|logit|={scale:.4g} "
-            f"tol={LOGIT_RTOL}*max|logit| greedy_agreement={agree:.3f}")
-        if err > LOGIT_RTOL * scale:
-            raise AssertionError(f"{what} logits disagree: {err} > "
-                                 f"{LOGIT_RTOL} * {scale}")
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    executors = {}
+    for arch in N_REQUESTS:
+        executors[arch], counts = serve_family(arch, gen, tokens)
+        for name, c in counts.items():
+            launches[name] += c
+    ex = executors["qwen2-1.5b"]
 
     # 4. batched selection on the executor's store, on the card
     rng = np.random.default_rng(1)
@@ -373,18 +667,13 @@ def main() -> int:
                          budgets, gen)
     log(f"[select] executor store n={len(tab)}: stage-3 max_abs_err={err:.3g}, "
         "picks equal with kernel and plain stage 3")
-    launches = dict(serve_counts, modipick_probs=sel_counts["modipick_probs"])
+    launches["modipick_probs"] += sel_counts["modipick_probs"]
     for name, row in rows.items():
         row["launches"] = launches[name]
+        if not row["launches"] > 0:
+            raise AssertionError(f"{name} was not launched on the main path")
 
     # 5. timings for the record
-    for v in pool:
-        pre = wall_ms(lambda: v.run(tokens, n_decode=0))
-        both = wall_ms(lambda: v.run(tokens, n_decode=N_DECODE))
-        log(f"[perf] {v.name}: warm prefill {pre:.3f} ms, prefill + "
-            f"{N_DECODE} decode {both:.3f} ms (B={BATCH}, S={SEQ}, "
-            f"median of 7)")
-        trace_request(v, tokens)
     for B in (1000, 8192, 100_000):
         b = T_SLA_MS - 2.0 * ex.network.sample(rng, B)
         for backend in ("numpy", "cuda"):
@@ -398,7 +687,8 @@ def main() -> int:
             if row[key] is not None and not row[key] > 0:
                 raise AssertionError(f"{row['name']}: bad {key} {row[key]}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
-    order = ("flash_attention", "decode_attention", "modipick_probs")
+    order = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+             "modipick_probs")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}

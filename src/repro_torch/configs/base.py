@@ -1,11 +1,12 @@
-"""Model configuration for the port: the dense decoder subset of the
+"""Model configuration for the port: the decoder-only subset of the
 reference's config system.
 
 A :class:`ModelConfig` carries the same fields, defaults and derived
 sizes as the reference's, for the block kinds this package implements
-(dense attention decoders); ``reduced`` and ``scaled`` give the same
-shapes the reference gives, so a port model and a reference model built
-from the same arguments hold the same parameters.
+(global and sliding-window attention, Mamba-2 SSD, RG-LRU); ``reduced``
+and ``scaled`` give the same shapes the reference gives, so a port model
+and a reference model built from the same arguments hold the same
+parameters.
 """
 from __future__ import annotations
 
@@ -18,9 +19,37 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) mixer parameters."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk_size: int = 256
+    conv_width: int = 4
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU recurrent block parameters."""
+    lru_width: Optional[int] = None  # default: d_model
+    conv_width: int = 4
+    c_exponent: float = 8.0
+
+    def width(self, d_model: int) -> int:
+        return self.lru_width or d_model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family this package implements)
+    family: str  # dense | ssm | hybrid (the families this package implements)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,7 +57,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
-    # Layer pattern; every layer of a dense decoder is "attn".
+    # Superblock pattern of block kinds; layers = pattern repeated + tail.
     pattern: Tuple[str, ...] = ("attn",)
     window: int = 1024  # sliding window for "local" blocks
     rope_theta: float = 10_000.0
@@ -39,6 +68,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model)
     norm_eps: float = 1e-6
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     dtype: str = "bfloat16"
     kv_cache_dtype: str = "bf16"
     # Accuracy proxy used by ModiPick pools (top-1-style score in [0,1]).
@@ -54,11 +85,26 @@ class ModelConfig:
         way so the table shards evenly)."""
         return _ceil_to(self.vocab_size, 256)
 
+    @property
+    def block_kinds(self) -> Tuple[str, ...]:
+        """Per-layer kinds: pattern repeated with the remainder as a tail."""
+        reps = self.n_layers // len(self.pattern)
+        tail = self.n_layers - reps * len(self.pattern)
+        return self.pattern * reps + self.pattern[:tail]
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def tail_kinds(self) -> Tuple[str, ...]:
+        return self.pattern[: self.n_layers - self.n_superblocks * len(self.pattern)]
+
     def reduced(self) -> "ModelConfig":
         """Small same-family variant for CPU smoke tests."""
         pat = len(self.pattern)
         n_layers = max(2 * pat, pat + 1) if pat > 1 else 2
-        return replace(
+        cfg = replace(
             self,
             name=self.name + "-reduced",
             n_layers=n_layers,
@@ -70,10 +116,18 @@ class ModelConfig:
             vocab_size=512,
             window=min(self.window, 64),
         )
+        if self.ssm is not None:
+            cfg = replace(cfg, ssm=SSMConfig(d_state=16, head_dim=16,
+                                             chunk_size=32))
+        if self.rglru is not None:
+            cfg = replace(cfg, rglru=RGLRUConfig(lru_width=128))
+        return cfg
 
     def scaled(self, width_mult: float, depth_mult: float = 1.0,
                name: str = "") -> "ModelConfig":
-        """Scale width/depth — used to build ModiPick accuracy/latency pools."""
+        """Scale width/depth — used to build ModiPick accuracy/latency pools.
+        As in the reference, neither ``ssm.head_dim`` nor
+        ``rglru.lru_width`` is scaled."""
         d_model = _ceil_to(int(self.d_model * width_mult), 64)
         return replace(
             self,

@@ -8,8 +8,12 @@
 // and skipped blocks past `pos`.  Here one block owns one (batch, KV
 // head) and its G query rows; its warps split the cache positions
 // 0..pos between them (warp w takes positions w, w + 4, ...), each warp
-// keeps its own online-softmax state for all G rows, and the warps'
-// states are merged through shared memory at the end.  The loop stops at
+// keeps its own online-softmax state for up to kMaxG rows in registers,
+// and the warps' states are merged through shared memory at the end.  A
+// larger group (recurrentgemma's 10 query heads over one KV head) is
+// walked kMaxG rows at a time, each pass reading the cache again (from
+// L2): the per-row state of 10 rows at hd 256 would not fit in
+// registers without spilling.  The loop stops at
 // `pos` itself, so no tile rounding is needed and any cache length S
 // (144 at the server's default) is taken as it is.
 //
@@ -70,84 +74,88 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d0 = lane * DPL;
   const bool active = d0 < HD;
 
-  const T* qb = q + b * qsb + kvh * qsh;
-  float qr[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      qr[g][i] = (g < G && active) ? to_f32(qb[g * qsg + d0 + i]) : 0.f;
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  }
-
   const int p = pos[b];
   const int hi = min(p, S - 1);
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
   const T* kb = k + b * ksb + kvh * ksh;
   const T* vb = v + b * vsb + kvh * vsh;
-
-  for (int j = lo + warp; j <= hi; j += kWarps) {
-    float kr[DPL], vr[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      kr[i] = active ? to_f32(kb[j * kss + d0 + i]) : 0.f;
-      vr[i] = active ? to_f32(vb[j * vss + d0 + i]) : 0.f;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) part += qr[g][i] * kr[i];
-      const float s = warp_sum(part) * scale;
-      const float m_new = fmaxf(m[g], s);
-      const float pj = expf(s - m_new);
-      const float alpha = expf(m[g] - m_new);
-      l[g] = l[g] * alpha + pj;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] = acc[g][i] * alpha + pj * vr[i];
-      m[g] = m_new;
-    }
-  }
-
-  // Merge the warps' partial softmax states.
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      sm[warp][g] = m[g];
-      sl[warp][g] = l[g];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      if (active) sacc[warp][g][d0 + i] = acc[g][i];
-  }
-  __syncthreads();
-
   const long long ooff = ((long long)b * KV + kvh) * G * HD;
-  for (int idx = threadIdx.x; idx < G * HD; idx += kWarps * 32) {
-    const int g = idx / HD, d = idx % HD;
-    float mx = kNegInf;
+
+  for (int g0 = 0; g0 < G; g0 += kMaxG) {
+    const int gn = min(kMaxG, G - g0);  // query rows of this pass
+    const T* qb = q + b * qsb + kvh * qsh + g0 * qsg;
+    float qr[kMaxG][DPL];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][g]);
-    float den = 0.f, num = 0.f;
+    for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm[w][g] - mx);
-      den += sl[w][g] * f;
-      num += sacc[w][g][d] * f;
+      for (int i = 0; i < DPL; ++i)
+        qr[g][i] = (g < gn && active) ? to_f32(qb[g * qsg + d0 + i]) : 0.f;
+
+    float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
     }
-    o[ooff + idx] = from_f32<T>(num / fmaxf(den, 1e-30f));
+
+    for (int j = lo + warp; j <= hi; j += kWarps) {
+      float kr[DPL], vr[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        kr[i] = active ? to_f32(kb[j * kss + d0 + i]) : 0.f;
+        vr[i] = active ? to_f32(vb[j * vss + d0 + i]) : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= gn) break;
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) part += qr[g][i] * kr[i];
+        const float s = warp_sum(part) * scale;
+        const float m_new = fmaxf(m[g], s);
+        const float pj = expf(s - m_new);
+        const float alpha = expf(m[g] - m_new);
+        l[g] = l[g] * alpha + pj;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[g][i] = acc[g][i] * alpha + pj * vr[i];
+        m[g] = m_new;
+      }
+    }
+
+    // Merge the warps' partial softmax states.
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        sm[warp][g] = m[g];
+        sl[warp][g] = l[g];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= gn) break;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i)
+        if (active) sacc[warp][g][d0 + i] = acc[g][i];
+    }
+    __syncthreads();
+
+    for (int idx = threadIdx.x; idx < gn * HD; idx += kWarps * 32) {
+      const int g = idx / HD, d = idx % HD;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][g]);
+      float den = 0.f, num = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(sm[w][g] - mx);
+        den += sl[w][g] * f;
+        num += sacc[w][g][d] * f;
+      }
+      o[ooff + g0 * HD + idx] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    }
+    __syncthreads();  // the next pass reuses sm, sl and sacc
   }
 }
 
@@ -183,7 +191,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements: the
 // (batch, head, row) strides of q, then of k, then of v.  Returns
 // cudaGetLastError() after the launch, or -1 for an unsupported
-// dtype / head size / group size.
+// dtype / head size, or a group size below 1.
 extern "C" int decode_attention_fwd(int dtype, int hd, const void* q,
                                     const void* k, const void* v,
                                     const void* pos, void* o, int B, int KV,
@@ -193,7 +201,7 @@ extern "C" int decode_attention_fwd(int dtype, int hd, const void* q,
                                     long long vsb, long long vsh,
                                     long long vss, int window, float scale,
                                     void* stream) {
-  if (G < 1 || G > kMaxG) return -1;
+  if (G < 1) return -1;
   const long long st[9] = {qsb, qsh, qsg, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);

@@ -9,17 +9,40 @@ and nowhere else.
 | ------------------ | ------------------------------- | -------------------------------------------- |
 | ``flash_attention``  | ``csrc/flash_attention.cu`` (CUDA)  | ``kernels/flash_attention.py`` ``_flash_kernel``  |
 | ``decode_attention`` | ``csrc/decode_attention.cu`` (CUDA) | ``kernels/decode_attention.py`` ``_decode_kernel`` |
+| ``ssd_scan``         | ``csrc/ssd_scan.cu`` (CUDA)         | ``kernels/ssd_scan.py`` ``_ssd_kernel``           |
+| ``rglru_scan``       | ``csrc/rglru_scan.cu`` (CUDA)       | ``kernels/rglru_scan.py`` ``_rglru_kernel``       |
 | ``modipick_probs``   | ``kernels/policy_select.py`` (Triton) | ``kernels/policy_select.py`` ``_probs_kernel``   |
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.policy_select import modipick_probs
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-WRAPPERS = (flash_attention, decode_attention, modipick_probs)
+WRAPPERS = (flash_attention, decode_attention, ssd_scan, rglru_scan,
+            modipick_probs)
+
+
+class ModelKernels(NamedTuple):
+    """The kernel functions a forward pass calls, with the signatures of
+    the wrappers of the same names."""
+    flash_attention: Callable
+    decode_attention: Callable
+    ssd_scan: Callable
+    rglru_scan: Callable
+
+
+# The kernel wrappers: what the model runs.
+KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan,
+                       rglru_scan)
+# The plain versions on any device: what a check holds the model against.
+PLAIN = ModelKernels(ref.flash_attention_ref, ref.decode_attention_ref,
+                     ref.ssd_scan_ref, ref.rglru_scan_ref)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -96,3 +96,43 @@ def modipick_masks_ref(mu, sigma, rank, t_u, t_l, *, pad_rank=1e9):
     eligible = natural | (idx[None, :] == base[:, None])
     eligible &= has_base[:, None]
     return base, has_base, eligible
+
+
+def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 256):
+    """Sequential SSD recurrence.  x: (B,H,S,hd); dt: (B,H,S); A: (H,);
+    B_, C_: (B,G,S,N) shared by the H // G heads of each group.
+    h_t = exp(dt·A)·h + dt·B⊗x ; y = C·h, in fp32.
+
+    Returns ``(y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) fp32)``.
+    ``chunk`` is the kernel's tile length along S; the recurrence has no
+    chunks and ignores it (it is taken so that the two are
+    interchangeable)."""
+    Bb, H, S, hd = x.shape
+    group = H // B_.shape[1]
+    Bx = B_.repeat_interleave(group, dim=1).float()  # (B,H,S,N)
+    Cx = C_.repeat_interleave(group, dim=1).float()
+    xf = x.float()
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None, :, None])  # (B,H,S)
+    h = torch.zeros((Bb, H, hd, Bx.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        upd = (dtf[:, :, t, None, None] * xf[:, :, t, :, None]
+               * Bx[:, :, t, None, :])
+        h = h * decay[:, :, t, None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cx[:, :, t]))
+    return torch.stack(ys, dim=2).to(x.dtype), h
+
+
+def rglru_scan_ref(a, b):
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t over axis 1,
+    in fp32.  a, b: (B,S,W) → h (B,S,W) in a.dtype."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)

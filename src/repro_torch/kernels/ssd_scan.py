@@ -1,0 +1,117 @@
+"""Mamba-2 SSD chunked scan: the wrapper of the hand-written CUDA kernel
+``csrc/ssd_scan.cu`` (the port of the Pallas ``_ssd_kernel``).
+
+The public layout is the reference's: x (B,H,S,hd), dt (B,H,S)
+post-softplus, A (H,) negative, B_ and C_ (B,G,S,N) shared by the
+H // G heads of each group.  The kernel reads x, B_ and C_ through their
+strides (last dimension contiguous) and dt through any strides, so the
+model passes transposed views of its (B,S,H,hd) and (B,S,G,N)
+activations and nothing is copied; y is laid out as (B,S,H,hd) in memory
+and returned as its (B,H,S,hd) view.  Any S is taken: the last chunk may
+be short.
+
+Returns ``(y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) float32)``.
+On a CPU tensor the wrapper runs the plain version
+(``ref.ssd_scan_ref``); on a CUDA tensor it launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import DTYPES
+
+HEAD_DIMS = (16, 32, 64, 128)
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
+_TILE = 64            # rows per tile in csrc/ssd_scan.cu (kT)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = ([_I, _I] + [_P] * 7 + [_I] * 6
+             + [ctypes.POINTER(ctypes.c_longlong), _P])
+
+
+def smem_bytes(hd: int, N: int, cs: int) -> int:
+    """Shared memory of one block of the kernel (``smem_floats`` in
+    ``csrc/ssd_scan.cu``): the (hd, N) state, C and B tiles, an x tile,
+    a score tile and the chunk's dt and running decay, in fp32, rows
+    padded by one float."""
+    NP = N + 1
+    return 4 * (hd * NP + 2 * _TILE * NP + _TILE * (hd + 1)
+                + _TILE * (_TILE + 1) + 2 * cs)
+
+
+def _check(x, dt, A, B_, C_, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_.dim() != 4 \
+            or C_.dim() != 4:
+        raise ValueError("ssd_scan wants x (B,H,S,hd), dt (B,H,S), A (H,) "
+                         f"and B_, C_ (B,G,S,N); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(B_.shape)}, {tuple(C_.shape)}")
+    Bb, H, S, hd = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    if dt.shape != (Bb, H, S) or A.shape != (H,) or C_.shape != B_.shape \
+            or B_.shape[0] != Bb or B_.shape[2] != S:
+        raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B_ "
+                         f"{tuple(B_.shape)} or C_ {tuple(C_.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"{H} heads do not group over {G} groups")
+    if Bb == 0 or S == 0 or N == 0:
+        raise ValueError("ssd_scan needs non-empty B, S and N")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported; one of {HEAD_DIMS}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if smem_bytes(hd, N, min(chunk, S)) > SMEM_LIMIT:
+        raise ValueError(f"hd {hd}, N {N} and chunk {chunk} need more "
+                         "shared memory than a block has")
+    if x.dtype not in DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype:
+        raise TypeError("ssd_scan takes float32 or bfloat16 x, B_, C_ of "
+                        f"one dtype; got {x.dtype}, {B_.dtype}, {C_.dtype}")
+    if dt.dtype not in (torch.float32, x.dtype) or A.dtype != torch.float32:
+        raise TypeError(f"dt must be float32 or {x.dtype} and A float32; "
+                        f"got {dt.dtype} and {A.dtype}")
+    if not (x.device == dt.device == A.device == B_.device == C_.device):
+        raise ValueError("x, dt, A, B_ and C_ must lie on one device")
+    if x.stride(3) != 1 or B_.stride(3) != 1 or C_.stride(3) != 1:
+        raise ValueError("ssd_scan needs the last dimension of x, B_ and "
+                         "C_ contiguous (stride 1)")
+
+
+def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 256):
+    """x: (B,H,S,hd); dt: (B,H,S) post-softplus; A: (H,) negative;
+    B_, C_: (B,G,S,N) with H % G == 0.  ``chunk`` is the length of the
+    chunks the kernel walks.
+
+    Returns (y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) float32);
+    the D-skip and the gating are the caller's."""
+    _check(x, dt, A, B_, C_, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan has no path for {x.device}")
+    fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    Bb, H, S, hd = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    dt = dt.float()  # the model's dt is float32 already: no copy
+    y = torch.empty((Bb, S, H, hd), dtype=x.dtype,
+                    device=x.device).transpose(1, 2)
+    state = torch.empty((Bb, H, hd, N), dtype=torch.float32,
+                        device=x.device)
+    strides = (ctypes.c_longlong * 15)(
+        *x.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
+        *y.stride()[:3])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(DTYPES[x.dtype], hd, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+             B_.data_ptr(), C_.data_ptr(), y.data_ptr(), state.data_ptr(),
+             Bb, H, G, S, N, min(chunk, S), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed (error {err})")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

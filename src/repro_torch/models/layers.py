@@ -23,6 +23,33 @@ def init_normal(shape, generator: torch.Generator, dtype, *,
     return (x * std).to(dtype)
 
 
+def init_rglru_lambda(shape, generator: torch.Generator,
+                      dtype) -> torch.Tensor:
+    """The RG-LRU's Λ: drawn so that a = sigmoid(Λ)^c spreads over
+    (0.9, 0.999), as the reference's ``rglru_lambda`` rule draws it."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32) * (0.999 - 0.9) + 0.9
+    return (torch.log(u ** -2.0 - 1.0) * 0.5).to(dtype)
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal convolution.  x: (B,S,C); w: (W,C); b: (C,).
+    Summed tap by tap in x.dtype, as the reference sums it."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = xp[:, :S] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + b
+
+
+def conv_step(hist, new, w, b):
+    """One causal-conv decode step.  hist: (B, W−1, C) previous inputs;
+    new: (B, C).  Returns (out (B, C), new history (B, W−1, C))."""
+    h = torch.cat([hist, new[:, None]], dim=1)
+    return torch.einsum("bwc,wc->bc", h, w) + b, h[:, 1:]
+
+
 # ----------------------------------------------------------------------
 # Norms
 # ----------------------------------------------------------------------

@@ -6,14 +6,23 @@ on a machine with only PyTorch:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 atol/rtol 2e-5 (summation order only), bfloat16
-1e-2 (about one bf16 rounding of values up to 2); stage-3 probabilities
-exactly and picks exactly (same operations in the same order).
+1e-2 (about one bf16 rounding of values up to 2); the SSD scan relative
+to max |y| (2e-5 in float32, 2e-2 in bfloat16, as
+``tests/test_kernels.py`` holds the Pallas kernel: the chunked kernel
+and the sequential plain version sum in different orders); stage-3
+probabilities exactly and picks exactly (same operations in the same
+order).
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops, policy_select, ref
+from repro_torch.models import attention
+from repro_torch.models.layers import rope_tables
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -37,7 +46,8 @@ def _randn(gen, *shape, dtype):
 @pytest.mark.parametrize("B,H,KV,S,hd,window", [
     (4, 12, 2, 128, 128, 0), (4, 12, 2, 200, 128, 0), (2, 12, 2, 144, 64, 0),
     (1, 4, 2, 77, 32, 0), (2, 4, 1, 130, 16, 0), (1, 8, 4, 300, 64, 50),
-    (1, 2, 2, 40, 256, 0)])
+    (1, 2, 2, 40, 256, 0), (4, 10, 1, 128, 256, 2048),
+    (1, 10, 1, 300, 256, 64)])
 def test_flash_kernel_matches_plain(gen, dtype, B, H, KV, S, hd, window):
     q = _randn(gen, B, S, H, hd, dtype=dtype).transpose(1, 2)
     k = _randn(gen, B, S, KV, hd, dtype=dtype).transpose(1, 2)
@@ -54,7 +64,8 @@ def test_flash_kernel_matches_plain(gen, dtype, B, H, KV, S, hd, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,KV,G,C,hd,window", [
     (4, 2, 6, 144, 128, 0), (4, 2, 6, 144, 64, 0), (3, 2, 2, 100, 32, 0),
-    (2, 1, 8, 300, 256, 40), (2, 2, 3, 50, 16, 0)])
+    (2, 1, 8, 300, 256, 40), (2, 2, 3, 50, 16, 0), (4, 1, 10, 144, 256, 0),
+    (2, 1, 17, 64, 64, 0)])
 def test_decode_kernel_matches_plain(gen, dtype, B, KV, G, C, hd, window):
     # q as the model hands it: a view into the fused projection output
     q = _randn(gen, B, KV, G + 2, hd, dtype=dtype)[:, :, 1:G + 1]
@@ -67,6 +78,85 @@ def test_decode_kernel_matches_plain(gen, dtype, B, KV, G, C, hd, window):
     torch.testing.assert_close(
         out, ref.decode_attention_ref(q, k, v, pos, window=window),
         **TOL[dtype])
+
+
+def test_decode_kernel_over_a_local_ring(gen):
+    """recurrentgemma's local layer at half width with a 64-slot ring:
+    one sequence past the wrap (every slot valid) and one before it
+    (slots past pos hold stale values that must not be read), through
+    the model's call with pos_eff = min(pos, C − 1) and no window."""
+    cfg = replace(get_config("recurrentgemma-2b").scaled(0.5), window=64)
+    hd, KV, H, D = (cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads,
+                    cfg.d_model)
+    B, C = 2, cfg.window
+    p = {"wqkv": _randn(gen, D, (H + 2 * KV) * hd, dtype=torch.float32) / 30,
+         "wo": _randn(gen, H * hd, D, dtype=torch.float32) / 30}
+    x = _randn(gen, B, 1, D, dtype=torch.float32)
+    k = _randn(gen, B, C, KV, hd, dtype=torch.float32)
+    v = _randn(gen, B, C, KV, hd, dtype=torch.float32)
+    pos = torch.tensor([100, 30], dtype=torch.int32, device="cuda")
+    tables = rope_tables(pos[:, None], cfg.rope_theta, hd)
+    before = ops.decode_attention.launches
+    outs = [attention.decode_attention(p, {"k": k.clone(), "v": v.clone()},
+                                       x, pos, tables, cfg, "local",
+                                       impl=impl)[0]
+            for impl in (ops.KERNELS, ops.PLAIN)]
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    torch.testing.assert_close(outs[0], outs[1], **TOL[torch.float32])
+
+
+def _ssd_inputs(gen, B, H, G, S, hd, N, dtype):
+    """SSD inputs laid out as the model hands them: (B,S,H,hd),
+    (B,S,H) and (B,S,G,N) activations seen through transposed views."""
+    x = (_randn(gen, B, S, H, hd, dtype=torch.float32) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(
+        _randn(gen, B, S, H, dtype=torch.float32))
+    A = -torch.exp(_randn(gen, H, dtype=torch.float32) * 0.3)
+    Bm = (_randn(gen, B, S, G, N, dtype=torch.float32) * 0.3).to(dtype)
+    Cm = (_randn(gen, B, S, G, N, dtype=torch.float32) * 0.3).to(dtype)
+    return (x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2),
+            Cm.transpose(1, 2))
+
+
+SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,hd,N,chunk", [
+    (4, 64, 1, 128, 64, 128, 256),   # mamba2-1.3b at the server's shape
+    (1, 8, 1, 600, 64, 128, 256),    # three chunks, the last one ragged
+    (2, 4, 2, 96, 16, 16, 32),       # two groups, three chunks
+    (1, 4, 1, 40, 16, 16, 32),       # the reduced config: ragged tail
+    (1, 4, 2, 130, 128, 64, 64),     # hd 128, ragged
+    (1, 2, 1, 70, 32, 32, 100),      # one short chunk
+])
+def test_ssd_kernel_matches_plain(gen, dtype, B, H, G, S, hd, N, chunk):
+    args = _ssd_inputs(gen, B, H, G, S, hd, N, dtype)
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    y_ref, st_ref = ops.PLAIN.ssd_scan(*args, chunk=chunk)
+    for got, want in ((y, y_ref), (state, st_ref)):
+        scale = max(float(want.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   **SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(4, 128, 2560), (2, 600, 300),
+                                   (1, 1, 7), (3, 77, 128)])
+def test_rglru_kernel_matches_plain(gen, dtype, B, S, W):
+    a = torch.sigmoid(_randn(gen, B, S, W, dtype=torch.float32)) * 0.98
+    b = _randn(gen, B, S, W, dtype=torch.float32) * 0.1
+    a, b = a.to(dtype), b.to(dtype)
+    before = ops.rglru_scan.launches
+    h = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    torch.testing.assert_close(h, ops.PLAIN.rglru_scan(a, b), **TOL[dtype])
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -100,6 +190,19 @@ def test_wrappers_raise_on_cuda_tensors_they_do_not_take(gen):
     k = torch.zeros(1, 2, 8, 32, device="cuda")
     with pytest.raises(ValueError):
         ops.decode_attention(qd, k, k, torch.zeros(1, dtype=torch.int32))
+    xs = torch.zeros(1, 2, 8, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(xs, torch.zeros(1, 2, 8, device="cuda"),
+                     torch.zeros(2, device="cuda"), xs[:, :1], xs[:, :1])
+    with pytest.raises(ValueError):
+        ops.ssd_scan(xs.float(), torch.zeros(1, 2, 8, device="cuda"),
+                     torch.zeros(2, device="cuda"),
+                     torch.zeros(1, 1, 8, 8, device="cuda"),
+                     torch.zeros(1, 1, 8, 8, device="cuda"), chunk=0)
+    with pytest.raises(TypeError):
+        ops.rglru_scan(xs[0], xs[0])
+    with pytest.raises(ValueError):
+        ops.rglru_scan(xs[0].float(), xs[0].float()[:, :4])
     with pytest.raises(TypeError):
         ops.modipick_probs(*(torch.ones(3, device="cuda", dtype=torch.float64),) * 3,
                            torch.ones(4, device="cuda"),

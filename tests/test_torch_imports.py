@@ -40,9 +40,12 @@ def test_no_jax_or_reference_import(path):
 def test_port_package_is_not_empty():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     assert {"kernels/ops.py", "models/model.py", "serving/pool.py",
-            "core/policy_vec.py", "router/router.py"} <= names
+            "core/policy_vec.py", "router/router.py", "models/ssm.py",
+            "models/rglru.py", "kernels/ssd_scan.py",
+            "kernels/rglru_scan.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
-        "flash_attention.cu", "decode_attention.cu"}
+        "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
+        "rglru_scan.cu"}
 
 
 def test_no_library_attention_or_compile_in_port():

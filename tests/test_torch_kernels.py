@@ -235,7 +235,7 @@ def test_flash_wrapper_raises(case):
         ops.flash_attention(q, k, v, **kw)
 
 
-@pytest.mark.parametrize("case", ["meta", "bf16_mixed", "pos64", "group9",
+@pytest.mark.parametrize("case", ["meta", "bf16_mixed", "pos64", "group0",
                                   "q_strided"])
 def test_decode_wrapper_raises(case):
     q = torch.zeros(2, 2, 3, 32)
@@ -247,8 +247,8 @@ def test_decode_wrapper_raises(case):
         q = q.to(torch.bfloat16)
     elif case == "pos64":
         pos = pos.to(torch.int64)
-    elif case == "group9":
-        q = torch.zeros(2, 2, 9, 32)
+    elif case == "group0":
+        q = torch.zeros(2, 2, 0, 32)
     else:
         q = torch.zeros(2, 2, 32, 3).transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
@@ -279,8 +279,13 @@ def test_cpu_path_launches_nothing():
     ops.flash_attention(q, k, v)
     ops.decode_attention(q.reshape(1, 2, 16, 32)[:, :, :2].contiguous(),
                          k, v, torch.zeros(1, dtype=torch.int32))
+    ops.ssd_scan(torch.zeros(1, 2, 5, 16), torch.zeros(1, 2, 5),
+                 torch.zeros(2), torch.zeros(1, 1, 5, 8),
+                 torch.zeros(1, 1, 5, 8))
+    ops.rglru_scan(torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
+                                   "ssd_scan": 0, "rglru_scan": 0,
                                    "modipick_probs": 0}
 
 

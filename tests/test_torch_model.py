@@ -167,7 +167,7 @@ def test_unsupported_configs_raise():
     from dataclasses import replace
     cfg = get_config("qwen2-1.5b").reduced()
     for bad in (dict(kv_cache_dtype="int8"), dict(family="moe"),
-                dict(pattern=("attn", "local"))):
+                dict(family="encdec")):
         with pytest.raises(NotImplementedError):
             M.init_params(replace(cfg, **bad), torch.Generator(),
                           device="cpu")
