@@ -6,7 +6,9 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and print their register use;
+   ``nvcc`` per source, in parallel) and print their register use; every
+   bf16 instantiation of the attention kernels (K2, K3) must show no
+   spills;
 2. hold each kernel against its plain PyTorch version on the card at
    the server's shapes, with the stated tolerance, and time the kernel,
    the plain version and, where there is one, a PyTorch library call as
@@ -37,6 +39,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,19 +88,66 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters=50, warmup=5) -> float:
-    """Mean device time of one call, by CUDA events over ``iters``."""
+HOST_PACED = {}  # label → host-paced ms, host µs, device µs, kernels per call
+
+
+def device_us(fn, iters=20) -> tuple:
+    """(device µs, kernels) per call: the summed durations of the device
+    kernels that ``iters`` calls ran under torch.profiler, without the
+    gaps between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in kernels) / iters,
+            len(kernels) / iters)
+
+
+def time_ms(fn, iters=50, warmup=5, label=None) -> float:
+    """Mean device time of one call, by CUDA events over ``iters`` calls
+    that run back to back: a sleep kernel holds the device while the
+    host queues all of them, so the host's own time per call (Python,
+    argument checks, the launch) does not pace the device.  If the
+    device still reaches the first event before the host has queued the
+    last call, the sleep is doubled and the run repeated (up to four
+    times; after that the queue cannot be filled ahead, and the time is
+    the host-paced one).  With ``label``, also records in HOST_PACED the
+    time per call when the host paces the calls, the host's own time per
+    call, and ``device_us``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_s = time.perf_counter() - t0
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    paced = start.elapsed_time(end) / iters
+    if label is not None:
+        HOST_PACED[label] = (paced, host_s / iters * 1e6, *device_us(fn))
+    sleep_s = 2 * host_s + 1e-3
+    for _ in range(4):
+        torch.cuda._sleep(int(sleep_s * 2e9))  # ~2 GHz SM clock
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        sleep_s *= 2
+    return paced
 
 
 def wall_ms(fn, reps=7) -> float:
@@ -142,6 +192,45 @@ def check(name, got, want, tol) -> float:
     return err
 
 
+def attention_ptxas(logs) -> None:
+    """Log each bf16 K2/K3 instantiation's registers, static shared
+    memory and spills as ptxas reports them; fail on any spill."""
+    seen = 0
+    for lib in ("flash_attention", "decode_attention"):
+        entry = None
+        for line in logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1) if "bfloat16" in m.group(1) else None
+                spill = None
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if not m:
+                continue
+            smem = re.search(r"(\d+) bytes smem", line)
+            kern = re.search(r"(flash_bf16_kernel|decode_kernel)", entry)
+            hd = re.search(r"Li(\d+)E", entry)
+            log(f"[ptxas bf16] {kern.group(1)} hd={hd.group(1)}: "
+                f"registers={m.group(1)} static_smem="
+                f"{smem.group(1) if smem else 0} bytes spill_stores="
+                f"{spill[0]} spill_loads={spill[1]}")
+            if spill != (0, 0):
+                raise AssertionError(f"{kern.group(1)} hd={hd.group(1)} "
+                                     f"spills: {spill}")
+            seen += 1
+            entry = None
+    if seen != 2 * 5:  # K2 and K3, five head sizes each
+        raise AssertionError(f"ptxas reported on {seen} bf16 attention "
+                             "instantiations, not 10")
+
+
 def phase_kernels(ops, ref, policy_select, gen):
     """Each kernel against its plain version at the server's shapes."""
     import torch.nn.functional as F
@@ -177,15 +266,30 @@ def phase_kernels(ops, ref, policy_select, gen):
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:28",
                 max_abs_err=err,
-                ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+                ms=time_ms(lambda: ops.flash_attention(q, k, v),
+                           label="K2 qwen2 kernel"),
                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
                 bound_ms=b[0], bound_by=b[1],
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=True, enable_gqa=True)))
+                    qc, kc, vc, is_causal=True, enable_gqa=True),
+                    label="K2 qwen2 SDPA"))
+
+    # K2 against SDPA over prompt lengths at qwen2's heads: how each
+    # grows with the work.
+    for S in (16, 64, 128, 200):
+        q = randn(B, S, H, 128, dtype=torch.bfloat16).transpose(1, 2)
+        k = randn(B, S, KV, 128, dtype=torch.bfloat16).transpose(1, 2)
+        qc, kc = q.contiguous(), k.contiguous()
+        ms = time_ms(lambda: ops.flash_attention(q, k, k))
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, kc, is_causal=True, enable_gqa=True))
+        log(f"[scaling] K2 B={B} H={H} KV={KV} S={S} hd=128 bf16: "
+            f"ms={ms:.5g} SDPA ms={sdpa:.5g}")
 
     # K3: decode attention over the server's 144-slot cache, read through
     # the model's (B, C, KV, hd) layout, pos in [128, 143].
     C, G = SEQ + 16, H // KV
+    log_split(B, KV, G, C)
     for dtype in (torch.bfloat16, torch.float32):
         for hd in (128, 64):
             # q as the model hands it: the query heads of the fused
@@ -218,12 +322,14 @@ def phase_kernels(ops, ref, policy_select, gen):
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:22",
                 max_abs_err=err,
-                ms=time_ms(lambda: ops.decode_attention(q, ck, cv, pos)),
+                ms=time_ms(lambda: ops.decode_attention(q, ck, cv, pos),
+                           label="K3 qwen2 kernel"),
                 plain_ms=time_ms(
                     lambda: ref.decode_attention_ref(q, ck, cv, pos)),
                 bound_ms=b[0], bound_by=b[1],
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qs, kc, vc, attn_mask=mask, enable_gqa=True)))
+                    qs, kc, vc, attn_mask=mask, enable_gqa=True),
+                    label="K3 qwen2 SDPA"))
 
     # K2 and K3 at recurrentgemma's local layers: hd 256, 10 query heads
     # over one KV head (G = 10), window 2048; K3 over a 144-slot ring
@@ -240,18 +346,21 @@ def phase_kernels(ops, ref, policy_select, gen):
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     pairs = SEQ * (SEQ + 1) // 2
     extra(f"flash_attention B={B} H={H} KV={KV} S={SEQ} hd={hd} bf16",
-          time_ms(lambda: ops.flash_attention(q, k, v, window=2048)),
+          time_ms(lambda: ops.flash_attention(q, k, v, window=2048),
+                  label="K2 hd256 kernel"),
           time_ms(lambda: ref.flash_attention_ref(q, k, v, window=2048)),
           bound(2 * (2 * q.numel() + 2 * k.numel()),
                 4 * hd * pairs * B * H, dtype),
           time_ms(lambda: F.scaled_dot_product_attention(
-              qc, kc, vc, is_causal=True, enable_gqa=True)))
+              qc, kc, vc, is_causal=True, enable_gqa=True),
+              label="K2 hd256 SDPA"))
     C, G = SEQ + 16, H // KV
     q = randn(B, 1, H + 2 * KV, hd, dtype=dtype)[:, :, :H].reshape(B, KV, G,
                                                                     hd)
     ck = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
     cv = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
     pos = torch.full((B,), C - 1, dtype=torch.int32, device="cuda")
+    log_split(B, KV, G, C)
     err = check("decode_attention G=10 hd=256",
                 ops.decode_attention(q, ck, cv, pos),
                 ref.decode_attention_ref(q, ck, cv, pos), TOL[dtype])
@@ -261,12 +370,15 @@ def phase_kernels(ops, ref, policy_select, gen):
     qs = q.reshape(B, H, 1, hd).contiguous()
     kc, vc = ck.contiguous(), cv.contiguous()
     extra(f"decode_attention B={B} KV={KV} G={G} C={C} hd={hd} bf16",
-          time_ms(lambda: ops.decode_attention(q, ck, cv, pos)),
+          time_ms(lambda: ops.decode_attention(q, ck, cv, pos),
+                  label="K3 G10 kernel"),
           time_ms(lambda: ref.decode_attention_ref(q, ck, cv, pos)),
           bound(2 * (2 * q.numel() + 2 * B * KV * C * hd) + 4 * B,
                 4 * G * hd * B * KV * C, dtype),
           time_ms(lambda: F.scaled_dot_product_attention(
-              qs, kc, vc, enable_gqa=True)))
+              qs, kc, vc, enable_gqa=True), label="K3 G10 SDPA"))
+
+    attention_edges(ops, ref, randn)
 
     # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
     # G 1, chunk 256), inputs as the model hands them: transposed views
@@ -310,7 +422,8 @@ def phase_kernels(ops, ref, policy_select, gen):
             source="src/repro_torch/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:21",
             max_abs_err=max(err, err_st),
-            ms=time_ms(lambda: ops.ssd_scan(*args, chunk=chunk)),
+            ms=time_ms(lambda: ops.ssd_scan(*args, chunk=chunk),
+                       label="K4 kernel"),
             plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args), iters=5),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
 
@@ -331,7 +444,8 @@ def phase_kernels(ops, ref, policy_select, gen):
             name="rglru_scan", route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu",
             replaces="src/repro/kernels/rglru_scan.py:21",
-            max_abs_err=err, ms=time_ms(lambda: ops.rglru_scan(a, bb)),
+            max_abs_err=err, ms=time_ms(lambda: ops.rglru_scan(a, bb),
+                                        label="K5 kernel"),
             plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bb), iters=10),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
 
@@ -356,7 +470,61 @@ def phase_kernels(ops, ref, policy_select, gen):
         replaces="src/repro/kernels/policy_select.py:51",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
         bound_by=b[1], library_ms=None)
+    for label, (paced, host_us, dev_us, n) in HOST_PACED.items():
+        log(f"[timing] {label}: host-paced {paced:.5g} ms per call (as "
+            f"timed before the queue was filled ahead), host "
+            f"{host_us:.1f} us per call, device kernels {dev_us:.2f} us "
+            f"per call ({n:g} kernels, profiler)")
     return rows
+
+
+def log_split(B, KV, G, C) -> None:
+    from repro_torch.kernels.decode_attention import split_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk, n_split = split_plan(B, KV, C, sms)
+    log(f"K3 split B={B} KV={KV} G={G} C={C}: n_split={n_split} "
+        f"chunk={chunk} blocks={B * KV * n_split} on {sms} SMs")
+    if n_split < 2:
+        raise AssertionError("K3 does not split the serve-shape cache")
+
+
+def attention_edges(ops, ref, randn) -> None:
+    """K2 and K3 at their edges: K2 at hd 256 with a window of 64 over
+    Sq 16, 17 and 200; K3 with pos at 0, at both sides of the first
+    chunk boundary and at the last slot, for G 1, 6, 10 and 17, with
+    and without a window that drops whole chunks."""
+    from repro_torch.kernels.decode_attention import split_plan
+    dtype = torch.bfloat16
+    for S in (16, 17, 200):
+        q = randn(2, S, 10, 256, dtype=dtype).transpose(1, 2)
+        k = randn(2, S, 1, 256, dtype=dtype).transpose(1, 2)
+        v = randn(2, S, 1, 256, dtype=dtype).transpose(1, 2)
+        err = check(f"flash_attention S={S} hd=256 window=64",
+                    ops.flash_attention(q, k, v, window=64),
+                    ref.flash_attention_ref(q, k, v, window=64), TOL[dtype])
+        log(f"K2 flash_attention edge B=2 H=10 KV=1 S={S} hd=256 window=64 "
+            f"{dtype}: max_abs_err={err:.3g} tol={TOL[dtype]}")
+    B, KV, C = 4, 2, SEQ + 16
+    chunk, _ = split_plan(B, KV, C,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    pos = torch.tensor([0, chunk - 1, chunk, C - 1], dtype=torch.int32,
+                       device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        for G in (1, 6, 10, 17):
+            for hd, window in ((128, 0), (256, 0), (64, 20)):
+                q = randn(B, KV, G, hd, dtype=dt)
+                k = randn(B, C, KV, hd, dtype=dt).permute(0, 2, 1, 3)
+                v = randn(B, C, KV, hd, dtype=dt).permute(0, 2, 1, 3)
+                worst = max(worst, check(
+                    f"decode_attention edge G={G} hd={hd} window={window} "
+                    f"{dt}", ops.decode_attention(q, k, v, pos, window=window),
+                    ref.decode_attention_ref(q, k, v, pos, window=window),
+                    TOL[dt]))
+        log(f"K3 decode_attention edges B={B} KV={KV} C={C} "
+            f"pos={pos.tolist()} G=1,6,10,17 hd=128,256,64(window 20) "
+            f"{dt}: worst max_abs_err={worst:.3g} tol={TOL[dt]}")
 
 
 def k1_check(ops, ref, policy_select, pool, budgets, gen):
@@ -380,7 +548,8 @@ def k1_check(ops, ref, policy_select, pool, budgets, gen):
     if not torch.equal(*fused):
         raise AssertionError("select_fused picks differ between the stage-3 "
                              "kernel and its plain version")
-    return (err, time_ms(lambda: ops.modipick_probs(*args)),
+    return (err, time_ms(lambda: ops.modipick_probs(*args),
+                         label="K1 kernel"),
             time_ms(lambda: ref.policy_probs_ref(*args)))
 
 
@@ -623,14 +792,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    # 1. build (always anew, so that ptxas reports on every kernel)
     t0 = time.perf_counter()
-    build.build()
+    build.build(force=True)
     log(f"[build] {time.perf_counter() - t0:.1f}s")
     for name, out in build.BUILD_LOGS.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line and "0 bytes spill stores" not in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    attention_ptxas(build.BUILD_LOGS)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -44,16 +44,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> None:
-    """Compile every named source whose library is missing: one ``nvcc``
-    per source, all started together.  Raises with the compiler's output
-    if any fails."""
+def build(names: Iterable[str] = SOURCES, *, force: bool = False) -> None:
+    """Compile every named source whose library is missing (every one
+    with ``force``): one ``nvcc`` per source, all started together.
+    Raises with the compiler's output if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and not force:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

@@ -10,6 +10,16 @@ projection output and ``cache.permute(0, 2, 1, 3)`` views of its
 Slots past ``pos`` (and outside the window) are not read; any S and
 any group size G are taken.
 
+The kernel splits the cache across blocks: :func:`split_plan` cuts the
+cache length into ``n_split`` chunks, the blocks of one (batch, KV head)
+write partial softmax states to scratch, and the last of them merges
+those into the output, all in one launch.  The scratch and the
+per-(batch, KV head) arrival counters are kept per device and stream,
+so a call allocates nothing but its output (the counters start at zero
+and every launch leaves them at zero).  The
+kernel reads rows with 16-byte copies, so on the card every row of q, k
+and v must start on 16 bytes.
+
 On a CPU tensor the wrapper runs the plain version
 (``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel
 or raises.
@@ -17,15 +27,57 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+                                                 check_aligned)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I]
+_ARGTYPES = ([_I, _I] + [_P] * 8 + [_I] * 6
              + [_L] * 9 + [_I, ctypes.c_float, _P])
+
+TILE = 16        # positions a block loads at a time (kT in the kernel)
+MAX_SPLIT = 64   # bounds the scratch and the merge's reads
+H100_SMS = 132
+
+
+def split_plan(B: int, KV: int, C: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(chunk, n_split) for a cache of C slots: the fewest chunks, each a
+    multiple of TILE positions, that make B·KV·n_split blocks cover
+    ``sms`` SMs, with no more chunks than tiles and at most MAX_SPLIT.
+    The grid is (n_split, KV, B)."""
+    tiles = -(-C // TILE)
+    want = -(-sms // (B * KV))
+    per = max(1, tiles // want, -(-tiles // MAX_SPLIT))  # tiles a chunk
+    return per * TILE, -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device, stream: int, pairs: int, floats: int):
+    """(counters, partials) for launches on ``stream``: at least ``pairs``
+    int32 arrival counters, zero between launches, and ``floats`` float32
+    of partial-state scratch.  Launches on one stream run in order, so
+    they can share both."""
+    key = (device.index, stream)
+    bufs = _SCRATCH.get(key)
+    if bufs is None or bufs[0].numel() < pairs or bufs[1].numel() < floats:
+        bufs = (torch.zeros(max(pairs, 256), dtype=torch.int32,
+                            device=device),
+                torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                            device=device))
+        _SCRATCH[key] = bufs
+    return bufs
 
 
 def _check(q, k, v, pos, window: int) -> None:
@@ -72,14 +124,23 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
         return ref.decode_attention_ref(q, k, v, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention has no path for {q.device}")
+    check_aligned("decode_attention", q, k, v)
     fn = build.function("decode_attention", "decode_attention_fwd",
                         _ARGTYPES)
     B, KV, G, hd = q.shape
     S = k.shape[2]
+    chunk, n_split = split_plan(B, KV, S, _sm_count(q.device.index))
     out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_o = part_ml = counters = None
+    if n_split > 1:
+        n_part = B * KV * n_split * G
+        cnt, part = _scratch(q.device, stream, B * KV, n_part * (hd + 2))
+        counters, part_o = cnt.data_ptr(), part.data_ptr()
+        part_ml = part_o + 4 * n_part * hd  # bytes past the partial acc
     err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             pos.data_ptr(), out.data_ptr(), B, KV, G, S, *q.stride()[:3],
+             pos.data_ptr(), out.data_ptr(), part_o, part_ml, counters,
+             B, KV, G, S, chunk, n_split, *q.stride()[:3],
              *k.stride()[:3], *v.stride()[:3], window, hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (error {err})")

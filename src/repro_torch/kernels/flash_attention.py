@@ -8,6 +8,8 @@ a caller holding (B,S,H,hd) activations passes ``x.transpose(1, 2)``
 views and nothing is copied; the output is laid out as (B,Sq,H,hd) in
 memory and returned as its (B,H,Sq,hd) view, so the inverse transpose is
 free too.  Any Sq and Sk are taken — the kernel masks the ragged edge.
+The bfloat16 kernel copies rows with 16-byte loads, so on the card every
+row of its q, k and v must start on 16 bytes (:func:`check_aligned`).
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.flash_attention_ref``); on a CUDA tensor it launches the kernel
@@ -57,6 +59,23 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def check_aligned(name: str, q, k, v) -> None:
+    """Raise ValueError unless every row (the last dimension) of the 4-D
+    tensors q, k and v starts on 16 bytes: each address, and each of the
+    three leading strides of a dimension longer than 1, is a multiple of
+    16 bytes."""
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        st, n = t.stride(), t.shape
+        # 16 bytes hold a power of two of elements, so one OR tests all
+        lead = ((st[0] if n[0] > 1 else 0) | (st[1] if n[1] > 1 else 0)
+                | (st[2] if n[2] > 1 else 0))
+        if t.data_ptr() % 16 or lead % (16 // t.element_size()):
+            raise ValueError(
+                f"{name} needs every row of {key} on 16 bytes; got address "
+                f"{t.data_ptr()} and strides {st} of {t.element_size()}-byte "
+                "elements")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,Sq,hd); k, v: (B,KV,Sk,hd). window=0 ⇒ unbounded.
 
@@ -66,6 +85,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no path for {q.device}")
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q, k, v)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops, policy_select, ref
+from repro_torch.kernels.decode_attention import split_plan
 from repro_torch.models import attention
 from repro_torch.models.layers import rope_tables
 
@@ -47,7 +48,8 @@ def _randn(gen, *shape, dtype):
     (4, 12, 2, 128, 128, 0), (4, 12, 2, 200, 128, 0), (2, 12, 2, 144, 64, 0),
     (1, 4, 2, 77, 32, 0), (2, 4, 1, 130, 16, 0), (1, 8, 4, 300, 64, 50),
     (1, 2, 2, 40, 256, 0), (4, 10, 1, 128, 256, 2048),
-    (1, 10, 1, 300, 256, 64)])
+    (1, 10, 1, 300, 256, 64), (1, 10, 1, 16, 256, 64),
+    (2, 10, 1, 17, 256, 64), (1, 10, 1, 200, 256, 64)])
 def test_flash_kernel_matches_plain(gen, dtype, B, H, KV, S, hd, window):
     q = _randn(gen, B, S, H, hd, dtype=dtype).transpose(1, 2)
     k = _randn(gen, B, S, KV, hd, dtype=dtype).transpose(1, 2)
@@ -78,6 +80,31 @@ def test_decode_kernel_matches_plain(gen, dtype, B, KV, G, C, hd, window):
     torch.testing.assert_close(
         out, ref.decode_attention_ref(q, k, v, pos, window=window),
         **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 6, 10, 17])
+@pytest.mark.parametrize("hd,window", [(128, 0), (256, 0), (64, 20)])
+def test_decode_kernel_at_split_edges(gen, dtype, G, hd, window):
+    """pos at 0, at the last slot of the first chunk, at the first slot of
+    the second and at the last slot, in one batch; with a window the
+    first and last case drop whole chunks."""
+    B, KV, C = 4, 2, 144
+    chunk, n_split = split_plan(B, KV, C)
+    assert n_split > 1
+    q = _randn(gen, B, KV, G, hd, dtype=dtype)
+    k = _randn(gen, B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    v = _randn(gen, B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    pos = torch.tensor([0, chunk - 1, chunk, C - 1], dtype=torch.int32,
+                       device="cuda")
+    before = ops.decode_attention.launches
+    for _ in range(2):  # the second launch finds the counters reset
+        out = ops.decode_attention(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out, ref.decode_attention_ref(q, k, v, pos, window=window),
+            **TOL[dtype])
+    assert ops.decode_attention.launches == before + 2
 
 
 def test_decode_kernel_over_a_local_ring(gen):
@@ -180,6 +207,31 @@ def test_stage3_kernel_matches_plain_bit_for_bit(gen, n):
                                          stage3=s3)
              for s3 in (ops.modipick_probs, ref.policy_probs_ref)]
     assert torch.equal(*picks)
+
+
+@pytest.mark.parametrize("which", ["flash", "decode"])
+def test_misaligned_views_raise_on_the_card(gen, which):
+    """A row that does not start on 16 bytes (a view that drops the first
+    element of each row) is refused, not read."""
+    bad = torch.zeros(2, 2, 8, 33, device="cuda",
+                      dtype=torch.bfloat16)[..., 1:]
+    good = torch.zeros(2, 2, 8, 32, device="cuda", dtype=torch.bfloat16)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        if which == "flash":
+            ops.flash_attention(bad, good, good)
+        else:
+            ops.decode_attention(bad[:, :, :3], good, good,
+                                 torch.zeros(2, dtype=torch.int32,
+                                             device="cuda"))
+    with pytest.raises(ValueError, match="16 bytes"):
+        if which == "flash":
+            ops.flash_attention(good, good, bad)
+        else:
+            ops.decode_attention(good[:, :, :3], bad, good,
+                                 torch.zeros(2, dtype=torch.int32,
+                                             device="cuda"))
+    assert ops.launch_counts() == before
 
 
 def test_wrappers_raise_on_cuda_tensors_they_do_not_take(gen):

@@ -16,6 +16,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import MAX_SPLIT, TILE, split_plan
+from repro_torch.kernels.flash_attention import check_aligned
 from repro_torch.kernels.policy_select import (DevicePool, _fused_select,
                                                masks_device)
 
@@ -302,3 +304,57 @@ def test_plain_versions_are_the_reference_twins():
                                     window=8),
            jref.decode_attention_ref(qd, k, k, jnp.asarray(pos), window=8),
            "f32")
+
+
+@pytest.mark.parametrize("B,KV,C,sms", [
+    (4, 2, 144, 132),      # qwen2 at the server's shape
+    (4, 1, 144, 132),      # recurrentgemma's local layers
+    (2, 1, 300, 132),
+    (1, 1, 1, 132),
+    (64, 8, 144, 132),     # enough (batch, KV head) pairs: no split
+    (1, 1, 100_000, 132),  # a long cache: MAX_SPLIT chunks
+    (3, 2, 50, 16),
+])
+def test_decode_split_plan_covers_the_cache(B, KV, C, sms):
+    """Each slot lies in exactly one chunk, no chunk is empty, chunks are
+    whole tiles, and the blocks cover the SMs where the cache allows."""
+    chunk, n_split = split_plan(B, KV, C, sms)
+    tiles = -(-C // TILE)
+    assert chunk % TILE == 0 and 1 <= n_split <= MAX_SPLIT
+    assert (n_split - 1) * chunk < C <= n_split * chunk
+    assert B * KV * n_split >= sms or n_split == min(tiles, MAX_SPLIT)
+    if (B, KV, C) in ((4, 2, 144), (4, 1, 144)):
+        assert n_split > 1
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("contiguous", True), ("model_q_view", True), ("permuted_cache", True),
+    ("f32_hd4", True), ("single_row", True), ("dropped_first", False),
+    ("odd_offset", False), ("odd_row_stride", False)])
+def test_check_aligned(case, ok):
+    """Rows must start on 16 bytes: the model's views pass, a view that
+    drops a row's first element does not."""
+    bf = torch.bfloat16
+    if case == "contiguous":
+        t = torch.zeros(2, 2, 3, 64, dtype=bf)
+    elif case == "model_q_view":  # (B, 1, H + 2 KV, hd) → (B, KV, G, hd)
+        t = torch.zeros(2, 1, 14, 128, dtype=bf)[:, :, :12].reshape(2, 2, 6,
+                                                                    128)
+    elif case == "permuted_cache":
+        t = torch.zeros(2, 144, 2, 128, dtype=bf).permute(0, 2, 1, 3)
+    elif case == "f32_hd4":
+        t = torch.zeros(2, 3, 8, 4)
+    elif case == "single_row":  # a length-1 dimension's stride is unused
+        t = torch.zeros(64, dtype=bf).as_strided((1, 2, 1, 8), (3, 16, 5, 1))
+    elif case == "dropped_first":
+        t = torch.zeros(2, 2, 3, 33, dtype=bf)[..., 1:]
+    elif case == "odd_offset":
+        t = torch.zeros(2 * 2 * 3 * 64 + 1, dtype=bf)[1:].view(2, 2, 3, 64)
+    else:
+        t = torch.zeros(2, 1, 3, 68, dtype=bf)[..., :64]
+    good = torch.zeros(1, 1, 2, 8, dtype=t.dtype)
+    if ok:
+        check_aligned("kernel", good, t, good)
+    else:
+        with pytest.raises(ValueError, match="k on 16 bytes"):
+            check_aligned("kernel", good, t, good)
