@@ -7,14 +7,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. build the hand-written kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print their register use; every
-   bf16 instantiation of the attention kernels (K2, K3) must show no
-   spills;
+   bf16 instantiation of the tensor-core kernels (K2, K3, K4) must show
+   no spills;
 2. hold each kernel against its plain PyTorch version on the card at
    the server's shapes, with the stated tolerance, and time the kernel,
    the plain version and, where there is one, a PyTorch library call as
    a yardstick; the SSD scan (with its final state) and the RG-LRU scan
    also at a ragged multi-chunk length, and the attention kernels also
    at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head);
+   K4's occupancy (two blocks an SM at the serve shape) and its time
+   over S; K5's segment plan;
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -192,16 +194,27 @@ def check(name, got, want, tol) -> float:
     return err
 
 
-def attention_ptxas(logs) -> None:
-    """Log each bf16 K2/K3 instantiation's registers, static shared
-    memory and spills as ptxas reports them; fail on any spill."""
-    seen = 0
-    for lib in ("flash_attention", "decode_attention"):
-        entry = None
+# The bf16 tensor-core kernels ptxas must report on without a spill:
+# library → (kernel, instantiations): K2 and K3 at five head sizes, K4
+# at four.
+BF16_KERNELS = {"flash_attention": ("flash_bf16_kernel", 5),
+                "decode_attention": ("decode_kernel", 5),
+                "ssd_scan": ("ssd_bf16_kernel", 4)}
+
+
+def bf16_ptxas(logs) -> None:
+    """Log each bf16 K2/K3/K4 instantiation's registers, static shared
+    memory and spills as ptxas reports them; fail on any spill or a
+    missing report."""
+    for lib, (kern, want) in BF16_KERNELS.items():
+        entry, seen = None, 0
         for line in logs.get(lib, "").splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                entry = m.group(1) if "bfloat16" in m.group(1) else None
+                name = m.group(1)
+                ok = kern in name and (kern == "ssd_bf16_kernel"
+                                       or "bfloat16" in name)
+                entry = name if ok else None
                 spill = None
                 continue
             if entry is None:
@@ -215,20 +228,17 @@ def attention_ptxas(logs) -> None:
             if not m:
                 continue
             smem = re.search(r"(\d+) bytes smem", line)
-            kern = re.search(r"(flash_bf16_kernel|decode_kernel)", entry)
-            hd = re.search(r"Li(\d+)E", entry)
-            log(f"[ptxas bf16] {kern.group(1)} hd={hd.group(1)}: "
-                f"registers={m.group(1)} static_smem="
-                f"{smem.group(1) if smem else 0} bytes spill_stores="
-                f"{spill[0]} spill_loads={spill[1]}")
+            tmpl = ",".join(re.findall(r"Li(\d+)E", entry))
+            log(f"[ptxas bf16] {kern} <{tmpl}>: registers={m.group(1)} "
+                f"static_smem={smem.group(1) if smem else 0} bytes "
+                f"spill_stores={spill[0]} spill_loads={spill[1]}")
             if spill != (0, 0):
-                raise AssertionError(f"{kern.group(1)} hd={hd.group(1)} "
-                                     f"spills: {spill}")
+                raise AssertionError(f"{kern} <{tmpl}> spills: {spill}")
             seen += 1
             entry = None
-    if seen != 2 * 5:  # K2 and K3, five head sizes each
-        raise AssertionError(f"ptxas reported on {seen} bf16 attention "
-                             "instantiations, not 10")
+        if seen != want:
+            raise AssertionError(f"ptxas reported on {seen} bf16 {kern} "
+                                 f"instantiations, not {want}")
 
 
 def phase_kernels(ops, ref, policy_select, gen):
@@ -382,8 +392,9 @@ def phase_kernels(ops, ref, policy_select, gen):
 
     # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
     # G 1, chunk 256), inputs as the model hands them: transposed views
-    # of its (B, S, H, hd), (B, S, H) and (B, S, G, N) activations.  Also
-    # at S = 600 (chunks 256 + 256 + 88) in both types, y and final state.
+    # of its (B, S, H, hd), (B, S, H) and (B, S, G, N) activations.  At
+    # S = 128 and 600 (chunks 256 + 256 + 88) in both types, y and final
+    # state.
     def ssd_args(B, S, H, hd, N, G, dtype):
         x = (randn(B, S, H, hd, dtype=torch.float32) * 0.5).to(dtype)
         dt = F.softplus(randn(B, S, H, dtype=torch.float32) - 2.0)
@@ -395,8 +406,9 @@ def phase_kernels(ops, ref, policy_select, gen):
                 Bm.transpose(1, 2), Cm.transpose(1, 2))
 
     H, hd, N, G, chunk = 64, 64, 128, 1, 256
+    log_ssd_occupancy(hd, N, chunk)
     for S, dtype in ((SEQ, torch.bfloat16), (600, torch.bfloat16),
-                     (600, torch.float32)):
+                     (SEQ, torch.float32), (600, torch.float32)):
         args = ssd_args(BATCH, S, H, hd, N, G, dtype)
         y, st = ops.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
@@ -410,13 +422,7 @@ def phase_kernels(ops, ref, policy_select, gen):
             f"state={err_st:.3g} tol={SSD_TOL[dtype]}")
         if (S, dtype) != (SEQ, torch.bfloat16):
             continue
-        esize, B = 2, BATCH
-        nbytes = (esize * (2 * B * H * S * hd + 2 * B * G * S * N)
-                  + 4 * (B * H * S + H + B * H * hd * N))
-        pairs = S * (S + 1) // 2  # one chunk: the whole prompt
-        ops_ = 2 * B * G * pairs * N + 2 * B * H * (pairs * hd
-                                                     + 2 * S * hd * N)
-        b = bound(nbytes, ops_, dtype)
+        b = ssd_bound(BATCH, H, G, S, hd, N, chunk, dtype)
         rows["ssd_scan"] = dict(
             name="ssd_scan", route="cuda",
             source="src/repro_torch/csrc/ssd_scan.cu",
@@ -427,16 +433,29 @@ def phase_kernels(ops, ref, policy_select, gen):
             plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args), iters=5),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
 
+    # K4 over S at mamba2's heads: 1 to 8 chunks, the state carried
+    for S in (128, 256, 600, 1024, 2048):
+        args = ssd_args(BATCH, S, H, hd, N, G, torch.bfloat16)
+        ms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk))
+        b = ssd_bound(BATCH, H, G, S, hd, N, chunk, torch.bfloat16)
+        log(f"[scaling] K4 B={BATCH} H={H} S={S} hd={hd} N={N} chunk={chunk} "
+            f"({-(-S // chunk)} chunks) bf16: ms={ms:.5g} bound_ms={b[0]:.4g} "
+            f"({b[1]}) share of bound={b[0] / ms:.3f}")
+
     # K5: the RG-LRU scan at recurrentgemma-2b's width (W 2560, f32, as
-    # the model's gates produce a and b), and at a ragged S = 600.
+    # the model's gates produce a and b), and at a ragged S = 600 in both
+    # types.
     W = 2560
-    for S in (SEQ, 600):
-        a = torch.sigmoid(randn(BATCH, S, W, dtype=torch.float32)) * 0.98
-        bb = randn(BATCH, S, W, dtype=torch.float32) * 0.1
-        err = check(f"rglru_scan S={S}", ops.rglru_scan(a, bb),
-                    ref.rglru_scan_ref(a, bb), TOL[torch.float32])
-        log(f"K5 rglru_scan B={BATCH} S={S} W={W} float32: "
-            f"max_abs_err={err:.3g} tol={TOL[torch.float32]}")
+    for S, dtype in ((SEQ, torch.float32), (600, torch.float32),
+                     (600, torch.bfloat16)):
+        log_segments(BATCH, S, W)
+        a = (torch.sigmoid(randn(BATCH, S, W, dtype=torch.float32))
+             * 0.98).to(dtype)
+        bb = (randn(BATCH, S, W, dtype=torch.float32) * 0.1).to(dtype)
+        err = check(f"rglru_scan S={S} {dtype}", ops.rglru_scan(a, bb),
+                    ref.rglru_scan_ref(a, bb), TOL[dtype])
+        log(f"K5 rglru_scan B={BATCH} S={S} W={W} {dtype}: "
+            f"max_abs_err={err:.3g} tol={TOL[dtype]}")
         if S != SEQ:
             continue
         b = bound(4 * 3 * a.numel(), 2 * a.numel(), torch.float32)
@@ -476,6 +495,56 @@ def phase_kernels(ops, ref, policy_select, gen):
             f"{host_us:.1f} us per call, device kernels {dev_us:.2f} us "
             f"per call ({n:g} kernels, profiler)")
     return rows
+
+
+def ssd_bound(B, H, G, S, hd, N, chunk, dtype) -> tuple:
+    """K4's bound: x, B_, C_, dt, A read once, y and the final state
+    written once; the scores once per (batch, group) and chunk, M.X and
+    the state update per head and chunk, and the inter-chunk term on
+    every chunk but the first (where the state is zero)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (esize * (2 * B * H * S * hd + 2 * B * G * S * N)
+              + 4 * (B * H * S + H + B * H * hd * N))
+    ops_ = 0
+    for s0 in range(0, S, chunk):
+        ln = min(chunk, S - s0)
+        pairs = ln * (ln + 1) // 2
+        ops_ += 2 * B * G * pairs * N + 2 * B * H * (
+            pairs * hd + ln * hd * N * (2 if s0 else 1))
+    return bound(nbytes, ops_, dtype)
+
+
+def log_ssd_occupancy(hd, N, chunk) -> None:
+    """K4's shared memory a block and blocks an SM, as the card reports
+    them, at the serve shape's chunk length (S = 128) and a full chunk;
+    fails unless two bf16 blocks of one head share an SM at S = 128 and
+    the wrapper's smem_bytes mirrors the kernel."""
+    from repro_torch.kernels.ssd_scan import occupancy, smem_bytes
+    for dtype in (torch.bfloat16, torch.float32):
+        for cs in (SEQ, chunk):
+            smem, blocks = occupancy(dtype, hd, N, cs)
+            log(f"[occupancy] K4 {dtype} hd={hd} N={N} chunk length {cs}: "
+                f"{smem} bytes of shared memory a block, {blocks} blocks "
+                "an SM")
+            if smem != smem_bytes(hd, N, cs, dtype):
+                raise AssertionError("smem_bytes does not mirror the K4 "
+                                     f"kernel: {smem} bytes")
+            if (dtype, cs) == (torch.bfloat16, SEQ) and blocks < 2:
+                raise AssertionError(f"K4 runs {blocks} block an SM at the "
+                                     "serve shape")
+
+
+def log_segments(B, S, W) -> None:
+    """K5's segment plan; fails unless it reaches its warp target at the
+    serve shape."""
+    from repro_torch.kernels.rglru_scan import WARPS_PER_SM, segment_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seg, n_seg = segment_plan(B, S, W, sms)
+    warps = B * -(-W // 32) * n_seg
+    log(f"[plan] K5 B={B} S={S} W={W}: {n_seg} segments of {seg} steps, "
+        f"{warps} warps = {warps / sms:.1f} an SM on {sms} SMs")
+    if S == SEQ and warps < WARPS_PER_SM * sms:
+        raise AssertionError("K5's segment plan misses its warp target")
 
 
 def log_split(B, KV, G, C) -> None:
@@ -800,7 +869,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line and "0 bytes spill stores" not in line:
                 log(f"[ptxas {name}] {line.strip()}")
-    attention_ptxas(build.BUILD_LOGS)
+    bf16_ptxas(build.BUILD_LOGS)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -3,15 +3,11 @@
 // Replaces the Pallas TPU kernel `_ssd_kernel`
 // (src/repro/kernels/ssd_scan.py).  That kernel's grid walked the chunks
 // of one (batch, head) in order and carried the (hd x N) fp32 state in
-// VMEM scratch between grid steps; a whole chunk's working set (x, B, C,
-// the cs x cs scores and the state: cs^2 + 3 cs N + hd N floats) sat in
+// VMEM scratch between grid steps, with a whole chunk's working set in
 // VMEM at once.  Blocks of a CUDA grid run in no order, so here one block
 // owns one (batch, head) and walks its chunks in a loop, with the state
-// in shared memory for the whole walk.  At mamba2's chunk 256, N 128 and
-// hd 64 the Pallas working set is about 690 KB, three times what a block
-// may hold, so every chunk is tiled: 64-row tiles of C (rows i) against
-// 64-row tiles of B and x (columns j), the scores of one tile pair kept
-// in shared memory.  Per chunk of length len (the last one may be short):
+// in shared memory for the whole walk.  Per chunk of length len (the
+// last one may be short):
 //
 //   cum_i  = sum_{k <= i} dt_k A                      (running log-decay)
 //   y_i    = exp(cum_i) C_i . state                   (inter-chunk)
@@ -19,32 +15,69 @@
 //   state  = exp(cum_last) state + sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
 //
 // with every exponent clipped to [-60, 0] as the reference clips it.
-// Rows past S are never loaded or stored: the ragged tail is masked, not
-// padded, so any S is taken.  The final state is a second output (the
-// decode cache starts from it).
+// Rows past S are never stored: the ragged tail is masked, not padded,
+// so any S is taken.  The final state is a second output (the decode
+// cache starts from it).
 //
-// What bounds it: operations.  Per (batch, head) and chunk the scores
-// take len^2 N, the y product len^2 hd and the inter term and the state
-// update 2 len hd N multiply-adds (about half of the square terms are
-// masked and skipped tile by tile), all in fp32 on CUDA cores; the bytes
-// (x, B, C read once, y written once) are a few MB.  Each thread holds a
-// 4 x (hd/16) tile of y and a 4 x 4 tile of scores in registers, so a
-// multiply-add costs half a shared-memory load; shared rows are padded by
-// one float so that 16 lanes reading 16 rows hit 16 banks.  wgmma for
-// the two chunk products is later work.
+// What bounds it on this card: at mamba2-1.3b's serve shape (B 4, H 64,
+// G 1, S 128, hd 64, N 128) a call moves about 17 MB and does about
+// 2.3 GFLOP: bytes bound (5 us at 3.35 TB/s) if the products run on the
+// bf16 tensor cores (2.3 us at 989 TFLOP/s), operations bound seven
+// times over (34 us) if they run as fp32 FMAs on CUDA cores, as the
+// first port did.  The bf16 body:
+// - All four products run on `mma.sync.m16n8k16` (bf16 in, fp32 out):
+//   the scores C.B^T; M.X, where M = scores * L * dt is formed on the
+//   score fragments and repacked in registers as the A operand (the
+//   P -> P.V step of csrc/flash_attention.cu); the inter-chunk
+//   C.state^T, with the fp32 state split into bf16 hi + lo parts read
+//   straight from shared memory into B fragments; and the state update
+//   (x w)^T.B, where w = exp(total - cum) dt scales the A fragments in
+//   registers.
+// - A block of four warps walks a chunk in passes of 128 rows i (64 at
+//   hd 128): each warp holds the C rows of two 16-row m-tiles as A
+//   fragments in registers for the whole pass, so every B and x
+//   fragment it loads serves both.  The pass streams 64-row (B, x)
+//   tiles j through a two-tile ring, the next tile in flight while this
+//   one is computed, and skips the 16-column steps right of the warp's
+//   last row.  The last pass of a chunk streams all of its tiles and
+//   adds each tile's share of the state update as it goes, so every
+//   tile is copied once per pass; at S <= 128 a call is one pass over
+//   two tiles.
+// - C, B and x arrive as bf16 rows by 16-byte `cp.async` from the
+//   model's strided views; C is staged in the ring before the pass's
+//   tiles.  Rows past len (and the columns that pad N to 16) are
+//   zero-filled by the copy.  Rows are padded by 16 bytes so that the
+//   eight rows an `ldmatrix` reads fall in eight bank groups.  y is
+//   staged in the ring too and stored as whole rows of 16-byte vectors:
+//   storing the fragments straight to the (B, S, H, hd) output wrote
+//   half sectors and cost more than the products.
+// - Tiles stay bf16 and the state fp32 in shared memory: 89.6 KB a
+//   block at the serve shape, so two blocks share an SM and the 256
+//   blocks run in one wave.
+// - The inter-chunk term is not computed while the state is zero (the
+//   first chunk, which at S <= chunk is the whole call).
+// - One block owns one head.  Packing two heads of a group into a block,
+//   so that the scores are computed once for both, was slower at the
+//   serve shape: each head keeps its own fp32 state, so only one such
+//   block fits on an SM (PERF.md).
+// The fp32 body keeps fp32 CUDA-core FMAs (TF32 would not hold 2e-5):
+// 64-row tiles of C against 64-row tiles of B and x, each thread a
+// 4 x (hd/16) tile of y and a 4 x 4 tile of scores in registers.
 //
 // Layout: x (B, H, S, hd), dt (B, H, S) fp32, B_ and C_ (B, G, S, N) and
 // y (B, H, S, hd) are addressed through their (batch, head, seq) strides
 // with the last dimension contiguous, so the model passes transposed
 // views of its (B, S, H, hd) and (B, S, G, N) activations and nothing is
-// copied.  Head h reads group h / (H / G).  A (H,) fp32; the final state
-// (B, H, hd, N) fp32 contiguous.
+// copied; for bf16 every row starts on 16 bytes and N is a multiple of 8
+// and at most 128 (the wrapper checks).  Head h reads group h / (H / G).  A (H,) fp32;
+// the final state (B, H, hd, N) fp32 contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// fp32 body: CUDA-core FMAs.
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kT = 64;         // rows i (and columns j) per tile
 constexpr int kRA = kT / 16;   // tile rows per thread
@@ -86,7 +119,7 @@ size_t smem_floats(int P, int N, int cs) {
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) ssd_f32_kernel(Args a) {
   constexpr int PB = P / 16;  // y columns (and state rows) per thread
   const int N = a.N, NP = N + 1, cs = a.cs;
   extern __shared__ float smem[];
@@ -293,25 +326,457 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
     so[idx] = sState[(idx / N) * NP + idx % N];
 }
 
-template <typename T, int P>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(P, a.N, a.cs);
-  auto kern = ssd_kernel<T, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.H, B);
-  kern<<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------
+// bf16 body: tensor cores.
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+// m-tiles of 16 rows a warp: two, so that each B and x fragment serves
+// both; one at hd 128, where two would not fit the registers.
+template <int P>
+__host__ __device__ constexpr int tc_mtiles() { return P <= 64 ? 2 : 1; }
+template <int P>  // rows i of a pass
+__host__ __device__ constexpr int tc_rows() { return kTcWarps * 16 * tc_mtiles<P>(); }
+constexpr int kTj = 64;    // rows j of a (B, x) tile
+constexpr int kMaxNK = 8;  // mma k-steps over N held in registers (N <= 128)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// c (16x8, fp32) += a (16x16, bf16) . b (16x8, bf16).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+// Two bf16 values scaled by (s0, s1), rounded back to bf16.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s0, float s1) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  return pack_bf16(f.x * s0, f.y * s1);
+}
+// The fp32 pair (v.x, v.y) as bf16 hi and lo parts: hi + lo = v to
+// about 2^-16 of |v|.
+__device__ __forceinline__ void split_bf16(float2 v, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v.x - hf.x, v.y - hf.y);
 }
 
-template <typename T>
-int dispatch_hd(int hd, const Args& a, int B, cudaStream_t s) {
+// Shared-memory layout of the bf16 body, in elements: N padded to 16
+// (the mma depth); bf16 rows of B and C (ldn) and of x (ldx) padded by
+// 16 bytes; fp32 state rows (lds) padded by 8 floats, so the fragment
+// reads of 16 lanes (4 rows x 4 pairs) hit 32 banks; the chunk's dt,
+// cum and w over csp = cs rounded up to a pass.
+struct TcLayout {
+  int npad, ldn, ldx, lds, csp;
+};
+template <int P>
+__host__ __device__ inline TcLayout tc_layout(int N, int cs) {
+  constexpr int R = tc_rows<P>();
+  const int npad = (N + 15) / 16 * 16;
+  return TcLayout{npad, npad + 8, P + 8, npad + 8, (cs + R - 1) / R * R};
+}
+// Bytes of shared memory of one block (`kernels/ssd_scan.py`
+// `smem_bytes` mirrors it): the fp32 state, dt / cum / w, and a ring
+// of two (B, x) tiles, where each pass also stages its C and y rows.
+template <int P>
+size_t tc_smem_bytes(int N, int cs) {
+  const TcLayout L = tc_layout<P>(N, cs);
+  return 4 * ((size_t)P * L.lds + 3 * L.csp) + 2 * (size_t)2 * kTj * (L.ldn + L.ldx);
+}
+
+// Rows of one chunk, copied by the block's threads.
+struct ChunkRows {
+  int s0, len, tid;
+  // n rows from chunk row r_lo into dst (pitch ld elements): nv 16-byte
+  // vectors of data and nvp in all a row; rows past len and vectors past
+  // nv are zero-filled.
+  __device__ __forceinline__ void copy(__nv_bfloat16* dst, int ld,
+                                       const __nv_bfloat16* src, long long st,
+                                       int r_lo, int n, int nv, int nvp) const {
+    for (int e = tid; e < n * nvp; e += kTcThreads) {
+      const int r = e / nvp, v = e % nvp;
+      const bool ok = r_lo + r < len && v < nv;
+      cp_async16(dst + r * ld + v * 8,
+                 src + (ok ? (long long)(s0 + r_lo + r) * st + v * 8 : 0), ok);
+    }
+  }
+};
+
+// The B and x rows of j-tile t into ring slot t % 2, as one group.
+template <int P>
+__device__ __forceinline__ void load_tile(const ChunkRows& rows, __nv_bfloat16* ring,
+                                          const TcLayout& L, int NV,
+                                          const __nv_bfloat16* Bb, long long bst,
+                                          const __nv_bfloat16* xb, long long xst, int t) {
+  __nv_bfloat16* dst = ring + (t & 1) * kTj * (L.ldn + L.ldx);
+  rows.copy(dst, L.ldn, Bb, bst, t * kTj, kTj, NV, L.npad / 8);
+  rows.copy(dst + kTj * L.ldn, L.ldx, xb, xst, t * kTj, kTj, P / 8, P / 8);
+  cp_async_commit();
+}
+
+// One block: one (batch, head), four warps.
+template <int P>
+__global__ void __launch_bounds__(kTcThreads) ssd_bf16_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int PT = P / 8;   // y n-tiles
+  constexpr int MT = P / 16;  // state row tiles
+  constexpr int MI = tc_mtiles<P>();
+  constexpr int kRows = tc_rows<P>();
+  const int N = a.N, cs = a.cs;
+  const TcLayout L = tc_layout<P>(N, cs);
+  const int NV = N / 8, NVP = L.npad / 8;  // 16-byte vectors a row
+  const int nk = L.npad / 16;              // mma k-steps over N
+  const int NG = (L.npad + 63) / 64;       // 64-column slabs of the state
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sState = reinterpret_cast<float*>(smem_raw);  // [P][lds]
+  float* sCum = sState + P * L.lds;                    // [csp]
+  float* sDt = sCum + L.csp;                           // [csp]
+  float* sW = sDt + L.csp;                             // [csp]
+  bf16* sRing = reinterpret_cast<bf16*>(sW + L.csp);   // [2][kTj][ldn + ldx]
+  bf16* sC = sRing;  // [kRows][ldn]: a pass's C rows, staged in the ring
+  bf16* sY = sRing;  // [kRows][ldx]: a pass's y rows, staged in the ring
+  const int slot_elems = kTj * (L.ldn + L.ldx);  // one (B, x) tile pair
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int grp = h / (a.H / a.G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // fragment row, column pair
+  const int lr = lane & 7, mb0 = (lane >> 3) & 1, mb1 = lane >> 4;
+  const float A = a.A[h];
+  const bf16* xb = static_cast<const bf16*>(a.x) + b * a.xs.b + h * a.xs.h;
+  const float* db = a.dt + b * a.ds.b + h * a.ds.h;
+  const bf16* Bb = static_cast<const bf16*>(a.Bm) + b * a.bs.b + grp * a.bs.h;
+  const bf16* Cb = static_cast<const bf16*>(a.Cm) + b * a.cs_.b + grp * a.cs_.h;
+  bf16* yb = static_cast<bf16*>(a.y) + b * a.ys.b + h * a.ys.h;
+
+  for (int i = tid; i < P * L.lds; i += kTcThreads) sState[i] = 0.f;
+
+  for (int s0 = 0; s0 < a.S; s0 += cs) {
+    const int len = min(cs, a.S - s0);
+    const int n_pass = (len + kRows - 1) / kRows;
+    const ChunkRows rows{s0, len, tid};
+
+    __syncthreads();  // the previous chunk is done with every buffer
+    rows.copy(sC, L.ldn, Cb, a.cs_.s, 0, kRows, NV, NVP);
+    cp_async_commit();
+    for (int r = tid; r < L.csp; r += kTcThreads)
+      sDt[r] = r < len ? db[(long long)(s0 + r) * a.ds.s] : 0.f;
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of dt * A: each lane a run, then the warp
+      const int per = L.csp / 32;
+      const int lo = lane * per;
+      float run = 0.f;
+      for (int i = lo; i < lo + per; ++i) {
+        run += sDt[i] * A;
+        sCum[i] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      for (int i = lo; i < lo + per; ++i) sCum[i] += incl - run;
+    }
+    __syncthreads();
+    const float total = sCum[len - 1];
+    for (int r = tid; r < L.csp; r += kTcThreads)
+      sW[r] = r < len ? clip_exp(total - sCum[r]) * sDt[r] : 0.f;
+
+    for (int q = 0; q < n_pass; ++q) {
+      // The pass's rows: warp w owns MI m-tiles of 16 rows from
+      // i0 + 16 MI w, their C rows as A fragments in registers.
+      const int i0 = q * kRows;
+      const int wr = i0 + warp * 16 * MI;  // the warp's first row
+      const bool live = wr < len;
+      const int last_row = min(wr + 16 * MI - 1, len - 1);
+      const bool last = q == n_pass - 1;
+      // j-tiles: those left of the pass's rows, or all of the chunk in
+      // the last pass, which also updates the state
+      const int n_tiles = last ? (len + kTj - 1) / kTj : (i0 + kRows) / kTj;
+      if (q > 0) {
+        __syncthreads();  // the previous pass is done with the ring
+        rows.copy(sC, L.ldn, Cb, a.cs_.s, i0, kRows, NV, NVP);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      uint32_t cf[MI][kMaxNK][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int k = 0; k < kMaxNK; ++k)
+          if (k < nk)
+            ldmatrix_x4(cf[mi][k], sC + (wr - i0 + mi * 16 + lr + mb0 * 8) * L.ldn +
+                                       k * 16 + mb1 * 8);
+      __syncthreads();  // every warp holds its C: the ring is free
+      load_tile<P>(rows, sRing, L, NV, Bb, a.bs.s, xb, a.xs.s, 0);
+      if (n_tiles > 1) load_tile<P>(rows, sRing, L, NV, Bb, a.bs.s, xb, a.xs.s, 1);
+
+      float ci[MI][2];  // cum at rows (mi, g) and (mi, g + 8)
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        ci[mi][0] = sCum[wr + mi * 16 + g];
+        ci[mi][1] = sCum[wr + mi * 16 + g + 8];
+      }
+      float acc[MI][PT][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int n = 0; n < PT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+      if (live && s0 > 0) {
+        // inter-chunk: exp(cum_i) C_i . state, state as bf16 hi + lo
+        const float* st = sState + g * L.lds + c2;
+#pragma unroll
+        for (int k = 0; k < kMaxNK; ++k) {
+          if (k >= nk) break;
+#pragma unroll
+          for (int n = 0; n < PT; ++n) {
+            uint32_t hi0, lo0, hi1, lo1;
+            split_bf16(*reinterpret_cast<const float2*>(st + n * 8 * L.lds + k * 16), hi0, lo0);
+            split_bf16(*reinterpret_cast<const float2*>(st + n * 8 * L.lds + k * 16 + 8), hi1, lo1);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+              mma_bf16(acc[mi][n], cf[mi][k], hi0, hi1);
+              mma_bf16(acc[mi][n], cf[mi][k], lo0, lo1);
+            }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const float e0 = clip_exp(ci[mi][0]), e1 = clip_exp(ci[mi][1]);
+#pragma unroll
+          for (int n = 0; n < PT; ++n) {
+            acc[mi][n][0] *= e0;
+            acc[mi][n][1] *= e0;
+            acc[mi][n][2] *= e1;
+            acc[mi][n][3] *= e1;
+          }
+        }
+      }
+
+      for (int t = 0; t < n_tiles; ++t) {
+        // tile t has landed for every thread, and every warp is done
+        // with tile t - 1 (and with its inter-chunk reads of the state)
+        if (t == 0 && n_tiles > 1)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        __syncthreads();
+        if (t >= 1 && t + 1 < n_tiles)
+          load_tile<P>(rows, sRing, L, NV, Bb, a.bs.s, xb, a.xs.s, t + 1);
+        const bf16* tB = sRing + (t & 1) * slot_elems;
+        const bf16* tX = tB + kTj * L.ldn;
+        const int j0 = t * kTj;
+
+        // intra-chunk, 16 columns j at a time: scores C_i . B_j^T, then
+        // M = scores * L * dt (masked) as a bf16 A fragment, times x_j;
+        // each B and x fragment serves the warp's m-tiles
+        const int kk_end = live && last_row >= j0 ? min(4, (last_row - j0) / 16 + 1) : 0;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk >= kk_end) break;
+          float s[MI][2][4] = {};
+#pragma unroll
+          for (int k = 0; k < kMaxNK; ++k) {
+            if (k >= nk) break;
+            uint32_t bk[4];
+            ldmatrix_x4(bk, tB + (kk * 16 + lr + mb1 * 8) * L.ldn + k * 16 + mb0 * 8);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+              mma_bf16(s[mi][0], cf[mi][k], bk[0], bk[1]);
+              mma_bf16(s[mi][1], cf[mi][k], bk[2], bk[3]);
+            }
+          }
+          uint32_t pa[MI][4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j = j0 + kk * 16 + half * 8 + c2;
+            const float2 cj = *reinterpret_cast<const float2*>(sCum + j);
+            const float2 dj = *reinterpret_cast<const float2*>(sDt + j);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+              float m[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = wr + mi * 16 + g + (e < 2 ? 0 : 8);
+                const float d = fminf(fmaxf(ci[mi][e >> 1] - (e & 1 ? cj.y : cj.x), -60.f), 0.f);
+                m[e] = j + (e & 1) <= i && i < len
+                           ? s[mi][half][e] * __expf(d) * (e & 1 ? dj.y : dj.x)
+                           : 0.f;
+              }
+              pa[mi][2 * half] = pack_bf16(m[0], m[1]);
+              pa[mi][2 * half + 1] = pack_bf16(m[2], m[3]);
+            }
+          }
+#pragma unroll
+          for (int dn = 0; dn < P / 16; ++dn) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, tX + (kk * 16 + lr + mb0 * 8) * L.ldx + dn * 16 + mb1 * 8);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) {
+              mma_bf16(acc[mi][2 * dn], pa[mi], bv[0], bv[1]);
+              mma_bf16(acc[mi][2 * dn + 1], pa[mi], bv[2], bv[3]);
+            }
+          }
+        }
+
+        if (!last) continue;
+        // state = exp(total) state + (x w)^T . B, this tile's share; each
+        // warp owns 16 x 64 slabs of the state and adds into them in place
+        const float* w = sW + j0 + c2;
+        const int kmax = min(4, (len - j0 + 15) / 16);
+        const float f = t == 0 ? clip_exp(total) : 1.f;
+        for (int sl = warp; sl < MT * NG; sl += kTcWarps) {
+          const int p0 = (sl % MT) * 16, n0 = (sl / MT) * 64;
+          float up[8][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            if (kk >= kmax) break;
+            uint32_t ax[4];  // (x w)^T: rows p, columns j
+            ldmatrix_x4_trans(ax, tX + (kk * 16 + lr + mb1 * 8) * L.ldx + p0 + mb0 * 8);
+            const float2 w0 = *reinterpret_cast<const float2*>(w + kk * 16);
+            const float2 w1 = *reinterpret_cast<const float2*>(w + kk * 16 + 8);
+            ax[0] = scale_bf16x2(ax[0], w0.x, w0.y);
+            ax[1] = scale_bf16x2(ax[1], w0.x, w0.y);
+            ax[2] = scale_bf16x2(ax[2], w1.x, w1.y);
+            ax[3] = scale_bf16x2(ax[3], w1.x, w1.y);
+#pragma unroll
+            for (int np = 0; np < 4; ++np) {
+              if (n0 + np * 16 >= L.npad) break;
+              uint32_t bb[4];
+              ldmatrix_x4_trans(bb, tB + (kk * 16 + lr + mb0 * 8) * L.ldn + n0 + np * 16 + mb1 * 8);
+              mma_bf16(up[2 * np], ax, bb[0], bb[1]);
+              mma_bf16(up[2 * np + 1], ax, bb[2], bb[3]);
+            }
+          }
+          float* st = sState + (p0 + g) * L.lds + n0 + c2;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            if (n0 + n * 8 >= L.npad) break;
+            float2* q0 = reinterpret_cast<float2*>(st + n * 8);
+            float2* q1 = reinterpret_cast<float2*>(st + 8 * L.lds + n * 8);
+            float2 v0 = *q0, v1 = *q1;
+            v0.x = v0.x * f + up[n][0];
+            v0.y = v0.y * f + up[n][1];
+            v1.x = v1.x * f + up[n][2];
+            v1.y = v1.y * f + up[n][3];
+            *q0 = v0;
+            *q1 = v1;
+          }
+        }
+      }
+
+      // y: staged in the ring as bf16 rows, then stored a 16-byte vector
+      // a thread, whole rows at a time
+      __syncthreads();  // every warp is done with the last tile
+      if (live) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int n = 0; n < PT; ++n) {
+            bf16* yr = sY + (wr - i0 + mi * 16 + g) * L.ldx + n * 8 + c2;
+            *reinterpret_cast<__nv_bfloat162*>(yr) =
+                __floats2bfloat162_rn(acc[mi][n][0], acc[mi][n][1]);
+            *reinterpret_cast<__nv_bfloat162*>(yr + 8 * L.ldx) =
+                __floats2bfloat162_rn(acc[mi][n][2], acc[mi][n][3]);
+          }
+      }
+      __syncthreads();
+      for (int e = tid; e < kRows * (P / 8); e += kTcThreads) {
+        const int r = e / (P / 8), v = e % (P / 8);
+        if (i0 + r < len)
+          *reinterpret_cast<uint4*>(yb + (long long)(s0 + i0 + r) * a.ys.s + v * 8) =
+              *reinterpret_cast<const uint4*>(sY + r * L.ldx + v * 8);
+      }
+    }
+  }
+  __syncthreads();
+  float* so = a.state + ((long long)b * a.H + h) * P * N;
+  for (int idx = tid; idx < P * N; idx += kTcThreads)
+    so[idx] = sState[(idx / N) * L.lds + idx % N];
+}
+
+// ---------------------------------------------------------------------
+
+size_t f32_smem_bytes(int P, int N, int cs) { return sizeof(float) * smem_floats(P, N, cs); }
+
+// The kernel for (dtype, hd), its threads and its shared memory
+// at (N, cs), with the dynamic shared-memory limit raised to it.
+struct Plan {
+  const void* kern;
+  int threads;
+  size_t smem;
+};
+
+template <typename K>
+int configure(K kern, size_t smem, size_t& done) {
+  if (smem <= done) return 0;  // raised once per size; the launch is host-bound
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  done = smem;
+  return 0;
+}
+
+template <int P>
+int plan_f32(int N, int cs, Plan& p) {
+  static size_t done = 0;
+  p = Plan{(const void*)ssd_f32_kernel<float, P>, kThreads, f32_smem_bytes(P, N, cs)};
+  return configure(ssd_f32_kernel<float, P>, p.smem, done);
+}
+
+template <int P>
+int plan_bf16(int N, int cs, Plan& p) {
+  static size_t done = 0;
+  p = Plan{(const void*)ssd_bf16_kernel<P>, kTcThreads, tc_smem_bytes<P>(N, cs)};
+  return configure(ssd_bf16_kernel<P>, p.smem, done);
+}
+
+template <int P>
+int plan_hd(int dtype, int N, int cs, Plan& p) {
+  if (dtype == 0) return plan_f32<P>(N, cs, p);
+  if (dtype == 1) return plan_bf16<P>(N, cs, p);
+  return -1;
+}
+
+int plan(int dtype, int hd, int N, int cs, Plan& p) {
   switch (hd) {
-    case 16: return launch<T, 16>(a, B, s);
-    case 32: return launch<T, 32>(a, B, s);
-    case 64: return launch<T, 64>(a, B, s);
-    case 128: return launch<T, 128>(a, B, s);
+    case 16: return plan_hd<16>(dtype, N, cs, p);
+    case 32: return plan_hd<32>(dtype, N, cs, p);
+    case 64: return plan_hd<64>(dtype, N, cs, p);
+    case 128: return plan_hd<128>(dtype, N, cs, p);
     default: return -1;
   }
 }
@@ -323,19 +788,36 @@ int dispatch_hd(int hd, const Args& a, int B, cudaStream_t s) {
 // B_, C_ and y, in that order ("head" is the group axis of B_ and C_).
 // cs is the chunk length, 1 <= cs <= S.  Returns cudaGetLastError()
 // after the launch, or -1 for an unsupported dtype / head size.
-extern "C" int ssd_scan_fwd(int dtype, int hd, const void* x, const void* dt,
-                            const void* A, const void* Bm, const void* Cm,
-                            void* y, void* state, int B, int H, int G, int S,
-                            int N, int cs, const long long* strides,
-                            void* stream) {
+extern "C" int ssd_scan_fwd(int dtype, int hd, const void* x,
+                            const void* dt, const void* A, const void* Bm,
+                            const void* Cm, void* y, void* state, int B, int H,
+                            int G, int S, int N, int cs,
+                            const long long* strides, void* stream) {
+  Plan p;
+  const int err = plan(dtype, hd, N, cs, p);
+  if (err != 0) return err;
   const long long* st = strides;
   Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm,
          Cm, y, static_cast<float*>(state), H, G, S, N, cs,
          Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
          Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
          Strides{st[12], st[13], st[14]}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(hd, a, B, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, B, s);
-  return -1;
+  void* params[] = {&a};
+  const dim3 grid(H, B);
+  const cudaError_t e = cudaLaunchKernel(p.kern, grid, dim3(p.threads), params,
+                                         p.smem, static_cast<cudaStream_t>(stream));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The shared memory one block of (dtype, hd) takes at (N, cs), and how
+// many such blocks fit on one SM.  Returns 0, or an error as
+// ssd_scan_fwd does.
+extern "C" int ssd_scan_occupancy(int dtype, int hd, int N, int cs,
+                                  long long* smem, int* blocks) {
+  Plan p;
+  const int err = plan(dtype, hd, N, cs, p);
+  if (err != 0) return err;
+  *smem = (long long)p.smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p.kern, p.threads,
+                                                             p.smem);
 }

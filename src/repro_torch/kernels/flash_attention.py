@@ -59,12 +59,12 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def check_aligned(name: str, q, k, v) -> None:
+def check_aligned(name: str, q, k, v, keys=("q", "k", "v")) -> None:
     """Raise ValueError unless every row (the last dimension) of the 4-D
     tensors q, k and v starts on 16 bytes: each address, and each of the
     three leading strides of a dimension longer than 1, is a multiple of
-    16 bytes."""
-    for key, t in (("q", q), ("k", k), ("v", v)):
+    16 bytes.  ``keys`` names the three in the message."""
+    for key, t in zip(keys, (q, k, v)):
         st, n = t.stride(), t.shape
         # 16 bytes hold a power of two of elements, so one OR tests all
         lead = ((st[0] if n[0] > 1 else 0) | (st[1] if n[1] > 1 else 0)

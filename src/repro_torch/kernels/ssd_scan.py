@@ -10,6 +10,14 @@ activations and nothing is copied; y is laid out as (B,S,H,hd) in memory
 and returned as its (B,H,S,hd) view.  Any S is taken: the last chunk may
 be short.
 
+The bfloat16 kernel runs its four products on the tensor cores from
+bf16 tiles copied by 16-byte ``cp.async``, so on the card every row of
+its x, B_ and C_ must start on 16 bytes and N must be a multiple of 8
+and at most 128 (the model's views pass: its ``xbc`` rows are 4352 bf16
+wide, and mamba2's N is 128).  The float32 kernel keeps fp32 CUDA-core
+math.  :func:`smem_bytes` mirrors each kernel's shared memory;
+:func:`occupancy` asks the card how many blocks of it share an SM.
+
 Returns ``(y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) float32)``.
 On a CPU tensor the wrapper runs the plain version
 (``ref.ssd_scan_ref``); on a CUDA tensor it launches the kernel or
@@ -22,22 +30,38 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned
 
 HEAD_DIMS = (16, 32, 64, 128)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
-_TILE = 64            # rows per tile in csrc/ssd_scan.cu (kT)
+_TILE = 64            # rows per tile in csrc/ssd_scan.cu (kT, kTj)
+MAX_N_BF16 = 128      # the bfloat16 kernel holds C's rows over N in registers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ([_I, _I] + [_P] * 7 + [_I] * 6
-             + [ctypes.POINTER(ctypes.c_longlong), _P])
+_LP = ctypes.POINTER(ctypes.c_longlong)
+_ARGTYPES = [_I, _I] + [_P] * 7 + [_I] * 6 + [_LP, _P]
+_OCC_ARGTYPES = [_I] * 4 + [_LP, ctypes.POINTER(ctypes.c_int)]
 
 
-def smem_bytes(hd: int, N: int, cs: int) -> int:
-    """Shared memory of one block of the kernel (``smem_floats`` in
-    ``csrc/ssd_scan.cu``): the (hd, N) state, C and B tiles, an x tile,
-    a score tile and the chunk's dt and running decay, in fp32, rows
-    padded by one float."""
+def smem_bytes(hd: int, N: int, cs: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of one block of the kernel for ``dtype`` at chunk
+    length ``cs`` (``tc_smem_bytes`` and ``smem_floats`` in
+    ``csrc/ssd_scan.cu``).
+
+    bfloat16: the fp32 (hd, N) state, rows padded by 8 floats; dt, the
+    running decay and the update weight over cs rounded up to a pass
+    (128 rows at hd <= 64, else 64: ``tc_rows`` in the kernel); a ring
+    of two bf16 (B, x) tiles, rows padded by 8 elements, N padded to 16
+    (each pass also stages its C rows and its y rows there).
+
+    float32: the state, C and B tiles, an x tile, a score tile and dt
+    and the decay, in fp32, rows padded by one float."""
+    if dtype == torch.bfloat16:
+        npad = -(-N // 16) * 16
+        rows = 128 if hd <= 64 else 64
+        csp = -(-cs // rows) * rows
+        return (4 * (hd * (npad + 8) + 3 * csp)
+                + 2 * 2 * _TILE * (npad + 8 + hd + 8))
     NP = N + 1
     return 4 * (hd * NP + 2 * _TILE * NP + _TILE * (hd + 1)
                 + _TILE * (_TILE + 1) + 2 * cs)
@@ -65,12 +89,12 @@ def _check(x, dt, A, B_, C_, chunk: int) -> None:
         raise ValueError(f"head_dim {hd} not supported; one of {HEAD_DIMS}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if smem_bytes(hd, N, min(chunk, S)) > SMEM_LIMIT:
-        raise ValueError(f"hd {hd}, N {N} and chunk {chunk} need more "
-                         "shared memory than a block has")
     if x.dtype not in DTYPES or B_.dtype != x.dtype or C_.dtype != x.dtype:
         raise TypeError("ssd_scan takes float32 or bfloat16 x, B_, C_ of "
                         f"one dtype; got {x.dtype}, {B_.dtype}, {C_.dtype}")
+    if smem_bytes(hd, N, min(chunk, S), x.dtype) > SMEM_LIMIT:
+        raise ValueError(f"hd {hd}, N {N} and chunk {chunk} need more "
+                         "shared memory than a block has")
     if dt.dtype not in (torch.float32, x.dtype) or A.dtype != torch.float32:
         raise TypeError(f"dt must be float32 or {x.dtype} and A float32; "
                         f"got {dt.dtype} and {A.dtype}")
@@ -79,6 +103,18 @@ def _check(x, dt, A, B_, C_, chunk: int) -> None:
     if x.stride(3) != 1 or B_.stride(3) != 1 or C_.stride(3) != 1:
         raise ValueError("ssd_scan needs the last dimension of x, B_ and "
                          "C_ contiguous (stride 1)")
+
+
+def occupancy(dtype, hd: int, N: int, cs: int):
+    """(shared bytes, blocks an SM) of the kernel for ``dtype`` at
+    (hd, N, chunk length cs), as the card reports them."""
+    fn = build.function("ssd_scan", "ssd_scan_occupancy", _OCC_ARGTYPES)
+    smem, blocks = ctypes.c_longlong(), ctypes.c_int()
+    err = fn(DTYPES[dtype], hd, N, cs, ctypes.byref(smem),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ssd_scan occupancy query failed (error {err})")
+    return smem.value, blocks.value
 
 
 def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 256):
@@ -93,9 +129,15 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 256):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no path for {x.device}")
-    fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     Bb, H, S, hd = x.shape
     G, N = B_.shape[1], B_.shape[3]
+    if x.dtype == torch.bfloat16:
+        if N % 8 or N > MAX_N_BF16:
+            raise ValueError("the bfloat16 ssd_scan kernel needs N a "
+                             f"multiple of 8 (16 bytes) and at most "
+                             f"{MAX_N_BF16}; got {N}")
+        check_aligned("ssd_scan", x, B_, C_, keys=("x", "B_", "C_"))
+    fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     dt = dt.float()  # the model's dt is float32 already: no copy
     y = torch.empty((Bb, S, H, hd), dtype=x.dtype,
                     device=x.device).transpose(1, 2)

@@ -158,6 +158,10 @@ SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
     (1, 4, 1, 40, 16, 16, 32),       # the reduced config: ragged tail
     (1, 4, 2, 130, 128, 64, 64),     # hd 128, ragged
     (1, 2, 1, 70, 32, 32, 100),      # one short chunk
+    (2, 4, 1, 257, 64, 128, 256),    # a one-row second chunk, state != 0
+    (1, 4, 1, 50, 16, 16, 256),      # the smallest mma tiles, one chunk
+    (1, 8, 2, 75, 32, 32, 64),       # G 2, 8 heads; len 64 + 11
+    (1, 2, 1, 600, 128, 24, 128),    # N 24 (padded to 32), hd 128
 ])
 def test_ssd_kernel_matches_plain(gen, dtype, B, H, G, S, hd, N, chunk):
     args = _ssd_inputs(gen, B, H, G, S, hd, N, dtype)
@@ -165,16 +169,38 @@ def test_ssd_kernel_matches_plain(gen, dtype, B, H, G, S, hd, N, chunk):
     y, state = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
-    y_ref, st_ref = ops.PLAIN.ssd_scan(*args, chunk=chunk)
-    for got, want in ((y, y_ref), (state, st_ref)):
-        scale = max(float(want.float().abs().max()), 1.0)
-        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+    _ssd_close(y, state, ops.PLAIN.ssd_scan(*args, chunk=chunk), dtype)
+
+
+def _ssd_close(y, state, want, dtype):
+    for got, ref_ in zip((y, state), want):
+        scale = max(float(ref_.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float() / scale, ref_.float() / scale,
                                    **SSD_TOL[dtype])
 
 
+@pytest.mark.parametrize("N", [12, 136])
+def test_ssd_bf16_refuses_n_it_cannot_take(gen, N):
+    """The bfloat16 kernel copies rows in 16-byte vectors and holds C's
+    row over N in registers: N must be a multiple of 8 and at most 128.
+    The float32 kernel takes the same inputs."""
+    args = _ssd_inputs(gen, 1, 2, 1, 8, 16, N, torch.bfloat16)
+    before = ops.ssd_scan.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.ssd_scan(*args)
+    assert ops.ssd_scan.launches == before
+    f32 = [t.float() for t in args]
+    _ssd_close(*ops.ssd_scan(*f32), ops.PLAIN.ssd_scan(*f32), torch.float32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,W", [(4, 128, 2560), (2, 600, 300),
-                                   (1, 1, 7), (3, 77, 128)])
+@pytest.mark.parametrize("B,S,W", [
+    (4, 128, 2560), (2, 600, 300), (1, 1, 7), (3, 77, 128),
+    # segment edges at recurrentgemma's width: 8 segments of 16 at S 128
+    (4, 127, 2560), (4, 129, 2560),
+    # 32 segments held in registers, and one step past them (walked from
+    # memory), and a long S
+    (1, 512, 64), (1, 513, 64), (2, 5000, 40)])
 def test_rglru_kernel_matches_plain(gen, dtype, B, S, W):
     a = torch.sigmoid(_randn(gen, B, S, W, dtype=torch.float32)) * 0.98
     b = _randn(gen, B, S, W, dtype=torch.float32) * 0.1
@@ -209,10 +235,22 @@ def test_stage3_kernel_matches_plain_bit_for_bit(gen, n):
     assert torch.equal(*picks)
 
 
-@pytest.mark.parametrize("which", ["flash", "decode"])
+@pytest.mark.parametrize("which", ["flash", "decode", "ssd"])
 def test_misaligned_views_raise_on_the_card(gen, which):
     """A row that does not start on 16 bytes (a view that drops the first
     element of each row) is refused, not read."""
+    if which == "ssd":
+        args = list(_ssd_inputs(gen, 1, 2, 1, 8, 32, 32, torch.bfloat16))
+        bad = torch.zeros(1, 1, 8, 33, device="cuda",
+                          dtype=torch.bfloat16)[..., 1:]
+        before = ops.launch_counts()
+        for i in (0, 3, 4):  # x, B_, C_
+            wrong = list(args)
+            wrong[i] = bad.expand(1, 2, 8, 32) if i == 0 else bad
+            with pytest.raises(ValueError, match="16 bytes"):
+                ops.ssd_scan(*wrong)
+        assert ops.launch_counts() == before
+        return
     bad = torch.zeros(2, 2, 8, 33, device="cuda",
                       dtype=torch.bfloat16)[..., 1:]
     good = torch.zeros(2, 2, 8, 32, device="cuda", dtype=torch.bfloat16)

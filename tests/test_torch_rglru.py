@@ -30,6 +30,8 @@ from repro.models import attention as JA
 from repro.models import model as JM
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.rglru_scan import (MAX_SEGMENTS, REG_STEPS,
+                                            WARPS_PER_SM, segment_plan)
 from repro_torch.launch import serve
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
@@ -105,6 +107,27 @@ def test_rglru_wrapper_raises(case):
         a = torch.zeros(2, 16, 8).transpose(1, 2)
     with pytest.raises((ValueError, TypeError)):
         ops.rglru_scan(a, b)
+
+
+@pytest.mark.parametrize("B,W,sms", [(4, 2560, 132), (1, 7, 132),
+                                    (2, 300, 132), (4, 2560, 8)])
+def test_segment_plan_covers_s(B, W, sms):
+    """For every S from 1 to 5000 the segments cover S exactly, none is
+    empty, and a block holds at most MAX_SEGMENTS of them; a segment
+    fits in registers where S allows, and the grid reaches WARPS_PER_SM
+    unless the segments are as short as a block allows."""
+    warps_a_row = B * -(-W // 32)
+    for S in range(1, 5001):
+        seg, n = segment_plan(B, S, W, sms)
+        assert 1 <= n <= min(MAX_SEGMENTS, S)
+        assert (n - 1) * seg < S <= n * seg
+        if S <= MAX_SEGMENTS * REG_STEPS:
+            assert seg <= REG_STEPS
+        if warps_a_row * n < WARPS_PER_SM * sms:
+            assert seg == -(-S // MAX_SEGMENTS)
+    # recurrentgemma-2b at the server's shape: 8 segments of 16
+    assert segment_plan(4, 128, 2560) == (16, 8)
+    assert 4 * 2560 // 32 * 8 >= WARPS_PER_SM * 132
 
 
 # ----------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro.models.ssm import ssd_chunked
 from repro_torch.configs.base import SSMConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import SMEM_LIMIT, smem_bytes
 from repro_torch.models import model as M
 from repro_torch.models.convert import from_jax_params
 
@@ -151,6 +152,45 @@ def test_ssd_wrapper_raises(case):
                      torch.zeros(1, 1, 8, 512))
     with pytest.raises((ValueError, TypeError)):
         ops.ssd_scan(x, dt, A, Bm, Cm, **kw)
+
+
+# (hd, N, chunk, S) of every SSD scan the tests on the card run
+CARD_SHAPES = [(64, 128, 256, 128), (64, 128, 256, 600), (16, 16, 32, 96),
+               (16, 16, 32, 40), (128, 64, 64, 130), (32, 32, 100, 70),
+               (64, 128, 256, 257), (16, 16, 256, 50), (32, 32, 64, 75),
+               (128, 24, 128, 600)]
+SM_SHARED = 233_472  # bytes of shared memory an H100 SM holds for blocks
+
+
+def test_ssd_smem_fits_two_blocks_at_the_serve_shape():
+    """The bf16 kernel at mamba2-1.3b's serve shape (hd 64, N 128, chunk
+    256 over S 128, and S past a chunk) leaves room for two blocks an SM
+    (each also reserves 1 KB); every shape of the configs and the card's
+    tests fits one block in both types."""
+    s = get_config("mamba2-1.3b").ssm
+    for cs in (128, s.chunk_size):
+        assert 2 * (smem_bytes(s.head_dim, s.d_state, cs) + 1024) <= SM_SHARED
+    shapes = [(c.head_dim, c.d_state, c.chunk_size, c.chunk_size)
+              for c in (s, get_config("mamba2-1.3b").scaled(0.5).ssm,
+                        get_config("mamba2-1.3b").reduced().ssm)]
+    for hd, N, chunk, S in shapes + CARD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert smem_bytes(hd, N, min(chunk, S), dtype) <= SMEM_LIMIT
+
+
+def test_ssd_takes_misaligned_views_on_the_cpu():
+    """Rows that do not start on 16 bytes are refused only on the card:
+    the plain path takes any view."""
+    x, dt, A, Bm, Cm = [torch.from_numpy(a) for a in
+                        _inputs(5, 1, 2, 1, 24, 16, 16)]
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    wide = torch.zeros(1, 1, 24, 17, dtype=torch.bfloat16)
+    wide[..., 1:] = Bm
+    views = (x, dt, A, wide[..., 1:], Cm)
+    assert views[3].data_ptr() % 16
+    for got, want in zip(ops.ssd_scan(*views, chunk=8),
+                         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ----------------------------------------------------------------------
