@@ -16,7 +16,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    also at a ragged multi-chunk length, and the attention kernels also
    at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head);
    K4's occupancy (two blocks an SM at the serve shape) and its time
-   over S; K5's segment plan;
+   over S; K5's segment plan; the selection kernels (K1 bit for bit at
+   gamma 1, the fused selection's picks, all five of the charged pass's
+   outputs) on synthetic pools with rows that have no base, degenerate
+   rows, SLA-aware admission that sheds, replica speeds and a replica
+   that is down, timed there as ``[extra]`` lines; the charged block's
+   shared memory as the kernel reports it against its Python mirror;
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -27,12 +32,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    RG-LRU scan per RG-LRU layer); the full-width variant's logits on the
    kernel path are held against the plain path, for prefill and one
    decode step;
-4. the batched selection entry point ``ModiPick.select_batch`` on the
-   qwen2 executor's profile store at B = 8192 on the card: the stage-3
-   kernel's counter must grow, and its picks must equal the plain
-   path's on the same uniforms;
+4. the batched selection on the qwen2 executor's profile store, each
+   entry point with the counters zeroed just before and read just after
+   and required to launch exactly its one kernel:
+   ``ModiPick.select_batch`` on the card at B = 8192 (the fused
+   selection), ``select_batch_traced(detail=True)`` (K1), and a charged
+   ``Router.route_batch_arrays`` burst on ``cuda`` and on ``auto`` at
+   B = DEVICE_MIN_BATCH (the charged pass), whose decisions must equal
+   the same route's on the CPU through the plain version, on the same
+   uniforms; then each of the three kernels on the very operands its
+   entry point handed it, held against its plain version there and
+   timed there for its row of the kernels line;
 5. timings for the record: per-variant warm prefill / prefill+decode
-   with a profiler trace, and selection throughput (numpy vs the card);
+   with a profiler trace; ``select_batch`` and charged routing on numpy
+   and on the card (``[perf]``), and the batch size at which the card
+   overtakes numpy for each (``[crossover]``, three rounds);
 
 then prints the ``kernels`` JSON line, the card's name and power limit,
 and the result line.  Without a card it exits non-zero and prints no
@@ -468,33 +482,19 @@ def phase_kernels(ops, ref, policy_select, gen):
             plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bb), iters=10),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
 
-    # K1: stage 3 on the stage-2 eligibility of a synthetic 3-model pool
-    # (the server's own 2-model store is checked in the selection phase).
-    rng = np.random.default_rng(0)
-    n, Bsel = 3, 8192
-    mu, sig = rng.uniform(5, 60, n), rng.uniform(0, 5, n)
-    acc = rng.uniform(0.3, 0.9, n)
-    pool = policy_select.DevicePool(mu, sig, acc,
-                                    np.argsort(-acc, kind="stable"),
-                                    int(np.argmin(mu)), device="cuda")
-    err, ms, plain = k1_check(ops, ref, policy_select, pool,
-                              rng.uniform(0, 90, Bsel), gen)
-    log(f"K1 modipick_probs B={Bsel} n={n}: max_abs_err={err:.3g} "
-        "(picks equal on shared uniforms)")
-    nbytes = 4 * (3 * n + 2 * Bsel + 2 * Bsel * n)
-    b = bound(nbytes, 12 * Bsel * n, torch.float32)
-    rows["modipick_probs"] = dict(
-        name="modipick_probs", route="triton",
-        source="src/repro_torch/kernels/policy_select.py",
-        replaces="src/repro/kernels/policy_select.py:51",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-        bound_by=b[1], library_ms=None)
+    selection_kernels(ops, ref, policy_select, gen)
+    log_timing()
+    return rows
+
+
+def log_timing() -> None:
+    """Print the ``[timing]`` lines recorded since the last call."""
     for label, (paced, host_us, dev_us, n) in HOST_PACED.items():
         log(f"[timing] {label}: host-paced {paced:.5g} ms per call (as "
             f"timed before the queue was filled ahead), host "
             f"{host_us:.1f} us per call, device kernels {dev_us:.2f} us "
             f"per call ({n:g} kernels, profiler)")
-    return rows
+    HOST_PACED.clear()
 
 
 def ssd_bound(B, H, G, S, hd, N, chunk, dtype) -> tuple:
@@ -596,30 +596,174 @@ def attention_edges(ops, ref, randn) -> None:
             f"{dt}: worst max_abs_err={worst:.3g} tol={TOL[dt]}")
 
 
-def k1_check(ops, ref, policy_select, pool, budgets, gen):
-    """Stage 3 (kernel vs plain) on the stage-2 eligibility the pipeline
-    feeds it, and the whole pipeline's picks with the kernel vs with the
-    plain version on the same uniforms.  Returns (err, ms, plain_ms)."""
-    t_u = torch.tensor(budgets, dtype=torch.float32, device="cuda")
+def probs_bound(B, n) -> tuple:
+    """K1: the pool, the row bounds and the eligibility read once, the
+    probabilities written; ~12 fp32 operations a (request, model)."""
+    return bound(4 * (3 * n + 2 * B + 2 * B * n), 12 * B * n, torch.float32)
+
+
+def fused_bound(B, n) -> tuple:
+    """The fused selection: pool and rows read once, picks written; ~20
+    fp32 operations a (request, model): Eq. 2, the window, Eq. 3-4, the
+    mass, the normalisation and the running sum."""
+    return bound(4 * (4 * n + 3 * B) + 4 * B, 20 * B * n, torch.float32)
+
+
+def charged_bound(args) -> tuple:
+    """The charged pass: pool, mask, ledger and rows read once, five
+    outputs written; per request a wait per (model, replica), ~20 fp32
+    operations a model and the replica argmin."""
+    n, R, B = args[0].shape[0], args[6].shape[0], args[8].shape[0]
+    nbytes = 4 * (5 * n + 2 * R + 4 * B) + n * R + 14 * B
+    return bound(nbytes, B * (n * R + 20 * n + R), torch.float32)
+
+
+def select_pool(policy_select, n, seed):
+    """A synthetic pool of n models on the card, from a seed."""
+    rng = np.random.default_rng(seed)
+    mu, sig = rng.uniform(5, 60, n), rng.uniform(0, 5, n)
+    acc = rng.uniform(0.3, 0.9, n)
+    return rng, policy_select.DevicePool(mu, sig, acc,
+                                         np.argsort(-acc, kind="stable"),
+                                         int(np.argmin(mu)), device="cuda")
+
+
+def fused_inputs(pool, rng, gen, B):
+    """Budget rows for the fused kernel, t_u in [-5, 90) ms: the first
+    2% of the rows forced to have no base, the next 3% to a negative
+    mass (uniform over their eligible models)."""
+    t_u = rng.uniform(-5, 90, B).astype(np.float32)
+    t_u[: B // 50] = float(pool.mu.min()) - 50.0
+    t_l = t_u - THRESHOLD_MS
+    t_l[B // 50: B // 20] = t_u[B // 50: B // 20] + 40.0
+    return (pool.mu, pool.sigma, pool.acc, pool.rank,
+            torch.tensor(t_u, device="cuda"), torch.tensor(t_l, device="cuda"),
+            torch.rand(B, generator=gen, device="cuda"))
+
+
+# The charged pass's cases: (n, R, speeds vary, a replica down, slack,
+# include_mu, or None for AdmitAll).  Each SLA-aware case sheds some of
+# its requests and admits the rest.
+CHARGED_CASES = {"admit_all": (3, 6, False, False, 0.0, None),
+                 "sla": (3, 6, False, False, 0.0, False),
+                 "sla_mu": (8, 16, False, False, 4.0, True),
+                 "speeds_down": (8, 8, True, True, 2.0, True)}
+
+
+def charged_inputs(policy_select, gen, case, B):
+    """The charged pass's operands on the card: each model served by 2
+    of R replicas (model 0 only by replica 0 when one is down, at an
+    infinite wait), waits in [0, 30) ms, budgets in [20, 160) ms, and a
+    charge of 2% of mu a pick, so that the waits cross the budgets in
+    the course of the batch."""
+    n, R, speeds, down, slack, include_mu = CHARGED_CASES[case]
+    rng, pool = select_pool(policy_select, n, len(case))
+    cand = torch.zeros(n, R, dtype=torch.bool)
+    for m in range(n):
+        cand[m, rng.choice(R, size=2, replace=False)] = True
+    rep_wait = rng.uniform(0.0, 30.0, R)
+    if down:
+        rep_wait[0] = np.inf
+        cand[0] = False
+        cand[0, 0] = True
+    speed = rng.uniform(0.5, 2.0, R) if speeds else np.ones(R)
+    budgets = rng.uniform(20.0, 160.0, B)
+    lim = budgets if include_mu is not None else np.full(B, np.inf)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+    args = (pool.mu, pool.sigma, pool.acc, pool.rank, pool.mu * 0.02,
+            cand.cuda(), f32(speed), f32(rep_wait), f32(budgets),
+            f32(budgets - THRESHOLD_MS),
+            torch.rand(B, generator=gen, device="cuda"), f32(lim))
+    return args, dict(slack=slack, include_mu=bool(include_mu),
+                      fastest=pool.fastest)
+
+
+def selection_kernels(ops, ref, policy_select, gen) -> None:
+    """K1, the fused selection and the charged pass against their plain
+    versions on synthetic pools: K1 bit for bit at gamma 1 and to TOL at
+    gamma 2; the fused picks equal at B = 8192 (n = 2, 3, 8, 128) and
+    ragged B = 1000; all five charged outputs equal at B = 1024, every
+    SLA-aware case shedding some requests and admitting others.  Timed
+    as ``[extra]`` lines at B = 8192, n = 3 (K1, fused), B = 100,000
+    (fused) and B = 1024-8192, n = 3, R = 6 (charged); the kernels line
+    takes the main path's shapes (``main_selection``)."""
+    # K1 on the stage-2 eligibility of a synthetic 3-model pool, as the
+    # detailed-trace path hands it
+    n, B = 3, 8192
+    rng, pool = select_pool(policy_select, n, 0)
+    t_u = torch.tensor(rng.uniform(0, 90, B), dtype=torch.float32,
+                       device="cuda")
     t_l = t_u - THRESHOLD_MS
     _, _, elig = policy_select._stages12(pool.mu, pool.sigma, pool.rank,
                                          t_u, t_l)
-    e = elig.to(torch.float32)
-    args = (pool.mu, pool.sigma, pool.acc, t_u, t_l, e)
-    got = ops.modipick_probs(*args)
-    err = check("modipick_probs", got, ref.policy_probs_ref(*args),
-                TOL[torch.float32])
-    r01 = torch.rand(t_u.shape[0], generator=gen, device="cuda")
-    fused = [policy_select._fused_select(pool.mu, pool.sigma, pool.acc,
-                                         pool.rank, t_u, t_l, r01, gamma=1.0,
-                                         stage3=s3)
-             for s3 in (ops.modipick_probs, ref.policy_probs_ref)]
-    if not torch.equal(*fused):
-        raise AssertionError("select_fused picks differ between the stage-3 "
-                             "kernel and its plain version")
-    return (err, time_ms(lambda: ops.modipick_probs(*args),
-                         label="K1 kernel"),
-            time_ms(lambda: ref.policy_probs_ref(*args)))
+    args = (pool.mu, pool.sigma, pool.acc, t_u, t_l, elig.float())
+    got, want = ops.modipick_probs(*args), ref.policy_probs_ref(*args)
+    if not torch.equal(got, want):
+        raise AssertionError("modipick_probs differs from its plain "
+                             "version at gamma 1")
+    err2 = check("modipick_probs gamma 2", ops.modipick_probs(*args, gamma=2.0),
+                 ref.policy_probs_ref(*args, gamma=2.0), TOL[torch.float32])
+    log(f"K1 modipick_probs B={B} n={n}: equal to its plain version at "
+        f"gamma 1; gamma 2 max_abs_err={err2:.3g} tol={TOL[torch.float32]}")
+    extra(f"modipick_probs B={B} n={n}",
+          time_ms(lambda: ops.modipick_probs(*args)),
+          time_ms(lambda: ref.policy_probs_ref(*args)), probs_bound(B, n))
+
+    # fused_select: picks equal to the plain version's
+    for n_ in (2, 3, 8, 128):
+        for B_ in (8192, 1000):
+            rng_, pool_ = select_pool(policy_select, n_, n_ + B_)
+            sel = fused_inputs(pool_, rng_, gen, B_)
+            got = ops.fused_select(*sel)
+            if not torch.equal(got, ref.fused_select_ref(*sel)):
+                raise AssertionError(f"fused_select picks differ from the "
+                                     f"plain version's at n={n_} B={B_}")
+            log(f"B2 fused_select B={B_} n={n_}: picks equal to the plain "
+                f"version's ({int((got < 0).sum())} rows with no base)")
+    for B_ in (8192, 100_000):
+        rng_, pool_ = select_pool(policy_select, 3, B_)
+        sel = fused_inputs(pool_, rng_, gen, B_)
+        extra(f"fused_select B={B_} n=3",
+              time_ms(lambda: ops.fused_select(*sel)),
+              time_ms(lambda: ref.fused_select_ref(*sel), iters=10),
+              fused_bound(B_, 3))
+
+    # charged_select: all five outputs equal to the plain version's
+    for case in CHARGED_CASES:
+        args, kw = charged_inputs(policy_select, gen, case, 1024)
+        n_, R = args[0].shape[0], args[6].shape[0]
+        need = policy_select.charged_smem(n_, R, "cuda")[0]
+        if need != policy_select.charged_smem_bytes(n_, R):
+            raise AssertionError(f"charged_smem_bytes({n_}, {R}) does not "
+                                 f"mirror the kernel's {need} bytes")
+        got = ops.charged_select(*args, **kw)
+        want = ref.charged_select_ref(*args, **kw)
+        for what, g, w in zip(("picks", "admitted", "has_base", "replica",
+                               "w_chosen"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"charged_select {case}: {what} differs "
+                                     "from the plain version's")
+        admitted = int(got[1].sum())
+        if CHARGED_CASES[case][5] is not None and not 0 < admitted < 1024:
+            raise AssertionError(f"charged_select {case}: {admitted} of 1024 "
+                                 "admitted; the case must shed some and "
+                                 "admit others")
+        log(f"B3 charged_select {case} B=1024 n={n_} R={R}: all five outputs "
+            f"equal to the plain version's ({admitted} admitted, "
+            f"{int((~got[2]).sum())} without a base; {need} bytes of shared "
+            "memory, as charged_smem_bytes mirrors it)")
+    for B_ in (1024, 4096, 8192):
+        args, kw = charged_inputs(policy_select, gen, "sla", B_)
+        ms = time_ms(lambda: ops.charged_select(*args, **kw), iters=10)
+        b = charged_bound(args)
+        log(f"[extra] charged_select B={B_} n=3 R=6: ms={ms:.5g} "
+            f"= {ms / B_ * 1e3:.4g} us per request; bound_ms={b[0]:.4g} "
+            f"({b[1]})")
+    limit = policy_select.charged_smem(1, 1, "cuda")[1]
+    log(f"[extra] charged_select block shared memory limit: {limit} bytes")
 
 
 def trace_request(v, tokens) -> None:
@@ -693,7 +837,8 @@ def expected_launches(cfgs) -> dict:
     decode step), the SSD scan per SSD layer, the RG-LRU scan per RG-LRU
     layer; no selection kernel on the scalar path."""
     want = dict(flash_attention=0, decode_attention=0, ssd_scan=0,
-                rglru_scan=0, modipick_probs=0)
+                rglru_scan=0, modipick_probs=0, fused_select=0,
+                charged_select=0)
     for cfg in cfgs:
         kinds = cfg.block_kinds
         n_attn = sum(k in ("attn", "local") for k in kinds)
@@ -850,6 +995,251 @@ def serve_family(arch, gen, tokens):
     return ex, counts
 
 
+def charged_router(ex, backend):
+    """A Router over the executor's store whose charged batches take the
+    device pass (ModiPick, queue-aware, lean traces, SLA-aware admission
+    with 2 ms slack and the service time)."""
+    from repro_torch.core.policy import ModiPick
+    from repro_torch.router import Router, SlaAwareAdmission
+    return Router(ex.store, ModiPick(THRESHOLD_MS),
+                  admission=SlaAwareAdmission(slack_ms=2.0,
+                                              include_service_time=True),
+                  queue_aware=True, trace_detail=False, backend=backend)
+
+
+def charged_batch(ex, router, B, seed):
+    """A burst of B requests, SLAs in [T_SLA_MS, 10 T_SLA_MS), routed
+    with intra-batch charging over two replicas a model (waits in
+    [0, 30) ms, speeds in [0.5, 2)), all drawn from ``seed``; a fresh
+    ledger each call."""
+    from repro_torch.router import ChargedWaits
+    tab = ex.store.table()
+    n = len(tab)
+    rng = np.random.default_rng(seed)
+    state = ChargedWaits(rep_wait=rng.uniform(0.0, 30.0, 2 * n),
+                         cand=[[2 * m, 2 * m + 1] for m in range(n)],
+                         speed=rng.uniform(0.5, 2.0, 2 * n), mu=tab.mu,
+                         names=tab.names)
+    t_sla = rng.uniform(T_SLA_MS, 10 * T_SLA_MS, B)
+    return router.route_batch_arrays(t_sla, ex.network.sample(rng, B), rng,
+                                      charged=state, charge=True)
+
+
+def captured_call(module, name, fn) -> tuple:
+    """Run ``fn`` with ``module.name`` recording the operands of each
+    call to it (the wrapper still runs); returns the (args, kwargs) of
+    the one call ``fn`` made.  The wrapper counts its launch on its
+    module's name, so that launch lands on the recorder and is not
+    counted."""
+    wrapper, calls = getattr(module, name), []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return wrapper(*args, **kw)
+
+    record.launches = 0
+    setattr(module, name, record)
+    fn()
+    setattr(module, name, wrapper)
+    if len(calls) != 1:
+        raise AssertionError(f"{name} was called {len(calls)} times")
+    return calls[0]
+
+
+def main_selection(ex, ops, ref, policy_select) -> tuple:
+    """The main path's batched selection on the qwen2 executor's store,
+    each entry point driven with the launch counters zeroed just before
+    and read just after, and each required to launch exactly its one
+    kernel: ``select_batch`` on the card (fused_select),
+    ``select_batch_traced(detail=True)`` on the card (modipick_probs),
+    and a charged ``route_batch_arrays`` on ``cuda`` and on ``auto`` at
+    B = DEVICE_MIN_BATCH (charged_select).  Then checks what came out:
+    valid picks and traces; the fused kernel's picks on this store equal
+    to the plain version's on the same uniforms; each charged decision
+    column equal to the same route on the CPU (the plain version) on the
+    card's draws.  Last, each entry point is driven once more with its
+    kernel's operands recorded: each kernel is held against its plain
+    version on them (K1 and the fused picks bit for bit, all five
+    charged outputs equal) and timed on them.  Returns the summed launch
+    counts of the counted runs and the three kernels' rows."""
+    from repro_torch.core import policy_vec
+    rng = np.random.default_rng(1)
+    names = set(ex.by_name)
+    total = dict.fromkeys(ops.launch_counts(), 0)
+
+    def counted(label, kernel, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"[select] {label}: launches {json.dumps(counts)}")
+        if counts != {k: int(k == kernel) for k in counts}:
+            raise AssertionError(f"{label} did not launch {kernel} exactly "
+                                 f"once and nothing else: {counts}")
+        for k, c in counts.items():
+            total[k] += c
+        return out
+
+    B = 8192
+    budgets = T_SLA_MS - 2.0 * ex.network.sample(rng, B)
+    picks = counted(f"select_batch B={B} backend=cuda", "fused_select",
+                    lambda: ex.policy.select_batch(ex.store, budgets, rng,
+                                                   backend="cuda"))
+    traces = counted(f"select_batch_traced detail B={B} backend=cuda",
+                     "modipick_probs",
+                     lambda: policy_vec.select_batch_traced(
+                         ex.policy, ex.store, budgets, rng, backend="cuda",
+                         detail=True))
+    if len(picks) != B or not set(picks) <= names or len(traces) != B \
+            or not all(t.fallback or t.chosen in t.eligible for t in traces):
+        raise AssertionError("batched selection returned bad picks")
+    log(f"[select] B={B} usage " + json.dumps(
+        {n: picks.count(n) / B for n in sorted(names)}))
+
+
+    Bc = policy_vec.DEVICE_MIN_BATCH
+    card_uniforms = policy_select.uniforms
+    for backend in ("cuda", "auto"):
+        res = counted(f"route_batch_arrays charged B={Bc} backend={backend}",
+                      "charged_select",
+                      lambda: charged_batch(ex, charged_router(ex, backend),
+                                            Bc, 3))
+        # the same route on the CPU (the plain version), on the card's
+        # uniforms
+        policy_select.uniforms = (lambda seed, n, device:
+                                  card_uniforms(seed, n, "cuda").to(device))
+        plain = charged_batch(ex, charged_router(ex, "cpu"), Bc, 3)
+        policy_select.uniforms = card_uniforms
+        for col in ("model_idx", "admitted", "fallback", "w_queue_ms",
+                    "replica_idx", "reject_code"):
+            if not np.array_equal(getattr(res, col), getattr(plain, col)):
+                raise AssertionError(f"charged route backend={backend}: "
+                                     f"{col} differs from the plain pass")
+        log(f"[select] charged B={Bc} backend={backend}: "
+            f"{int(res.admitted.sum())} admitted, usage "
+            + json.dumps(np.bincount(res.model_idx[res.admitted],
+                                     minlength=len(names)).tolist())
+            + ", every column equal to the plain pass on the CPU")
+
+    # each kernel on the operands the main path hands it
+    rows = {}
+    source = "src/repro_torch/csrc/policy_select.cu"
+    (a, kw) = captured_call(policy_select, "modipick_probs",
+                            lambda: policy_vec.select_batch_traced(
+                                ex.policy, ex.store, budgets, rng,
+                                backend="cuda", detail=True))
+    if not torch.equal(ops.modipick_probs(*a, **kw),
+                       ref.policy_probs_ref(*a, **kw)):
+        raise AssertionError("modipick_probs differs from its plain version "
+                             "on the main path's operands")
+    Bk, n = a[5].shape
+    b = probs_bound(Bk, n)
+    rows["modipick_probs"] = dict(
+        name="modipick_probs", route="cuda", source=source,
+        replaces="src/repro/kernels/policy_select.py:51", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.modipick_probs(*a, **kw), label="K1 kernel"),
+        plain_ms=time_ms(lambda: ref.policy_probs_ref(*a, **kw)),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[select] modipick_probs on the main path's operands B={Bk} n={n} "
+        f"gamma={kw.get('gamma', 1.0)}: equal to its plain version")
+
+    (f, fkw) = captured_call(policy_select, "fused_select",
+                             lambda: ex.policy.select_batch(
+                                 ex.store, budgets, rng, backend="cuda"))
+    if not torch.equal(ops.fused_select(*f, **fkw),
+                       ref.fused_select_ref(*f, **fkw)):
+        raise AssertionError("fused_select differs from its plain version "
+                             "on the main path's operands")
+    Bf, n = f[4].shape[0], f[0].shape[0]
+    b = fused_bound(Bf, n)
+    rows["fused_select"] = dict(
+        name="fused_select", route="cuda", source=source,
+        replaces="src/repro/kernels/policy_select.py:217", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.fused_select(*f, **fkw),
+                   label="fused_select kernel"),
+        plain_ms=time_ms(lambda: ref.fused_select_ref(*f, **fkw)),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[select] fused_select on the main path's operands B={Bf} n={n}: "
+        "picks equal to its plain version's")
+
+    (c, ckw) = captured_call(policy_select, "charged_select",
+                             lambda: charged_batch(
+                                 ex, charged_router(ex, "cuda"), Bc, 3))
+    got = ops.charged_select(*c, **ckw)
+    t0 = time.perf_counter()
+    want = ref.charged_select_ref(*c, **ckw)
+    torch.cuda.synchronize()
+    charged_plain_ms = (time.perf_counter() - t0) * 1e3
+    for what, g, w in zip(("picks", "admitted", "has_base", "replica",
+                           "w_chosen"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"charged_select: {what} differs from the "
+                                 "plain version's on the main path's "
+                                 "operands")
+    n, R = c[0].shape[0], c[6].shape[0]
+    b = charged_bound(c)
+    ms = time_ms(lambda: ops.charged_select(*c, **ckw), iters=20,
+                 label="charged_select kernel")
+    rows["charged_select"] = dict(
+        name="charged_select", route="cuda", source=source,
+        replaces="src/repro/kernels/policy_select.py:466", max_abs_err=0.0,
+        # the plain pass is a Python loop of small launches: timed by
+        # the host, once
+        ms=ms, plain_ms=charged_plain_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[select] charged_select on the main path's operands B={Bc} n={n} "
+        f"R={R}: all five outputs equal to the plain version's; "
+        f"{ms / Bc * 1e3:.4g} us per request")
+    return total, rows
+
+
+def perf_selection(ex) -> None:
+    """``select_batch`` and charged ``route_batch_arrays`` on numpy and
+    on the card, host wall time (median of 5)."""
+    rng = np.random.default_rng(4)
+    for B in (1000, 8192, 100_000):
+        b = T_SLA_MS - 2.0 * ex.network.sample(rng, B)
+        for backend in ("numpy", "cuda"):
+            ms = wall_ms(lambda: ex.policy.select_batch(ex.store, b, rng,
+                                                        backend=backend), 5)
+            log(f"[perf] select_batch B={B} backend={backend}: {ms:.3f} ms "
+                f"= {B / ms * 1e3:.4g} requests/s (median of 5)")
+    for B in (4096, 8192):
+        for backend in ("numpy", "cuda"):
+            router = charged_router(ex, backend)
+            ms = wall_ms(lambda: charged_batch(ex, router, B, 5), 5)
+            log(f"[perf] route_batch_arrays charged B={B} "
+                f"backend={backend}: {ms:.3f} ms = {B / ms * 1e3:.4g} "
+                "requests/s (median of 5)")
+
+
+def crossover(ex, rounds=3) -> None:
+    """Bracket the batch size at which the card overtakes numpy, for
+    ``select_batch`` and for charged routing: per round, each size's
+    median of 5 on each backend, the largest size numpy still wins and
+    the smallest the card wins."""
+    rng = np.random.default_rng(6)
+    runs = {
+        "select_batch": ((64, 128, 256, 512, 1024, 2048, 4096, 8192),
+                         lambda B, backend: ex.policy.select_batch(
+                             ex.store, T_SLA_MS - 2.0 * ex.network.sample(
+                                 rng, B), rng, backend=backend)),
+        "charged": ((2, 4, 8, 16, 32, 64, 128, 256, 512),
+                    lambda B, backend: charged_batch(
+                        ex, charged_router(ex, backend), B, B))}
+    for r in range(rounds):
+        for what, (sizes, run) in runs.items():
+            t = {B: [wall_ms(lambda: run(B, be), 5)
+                     for be in ("numpy", "cuda")] for B in sizes}
+            numpy_wins = [B for B in sizes if t[B][0] <= t[B][1]]
+            card_wins = [B for B in sizes if t[B][1] < t[B][0]]
+            log(f"[crossover] {what} round {r}: " + "; ".join(
+                f"B={B} numpy {a:.3f} cuda {b:.3f} ms"
+                for B, (a, b) in t.items())
+                + f" | numpy wins up to B={max(numpy_wins, default=None)}, "
+                f"the card from B={min(card_wins, default=None)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -888,38 +1278,20 @@ def main() -> int:
             launches[name] += c
     ex = executors["qwen2-1.5b"]
 
-    # 4. batched selection on the executor's store, on the card
-    rng = np.random.default_rng(1)
-    B_SEL = 8192
-    budgets = T_SLA_MS - 2.0 * ex.network.sample(rng, B_SEL)
-    ops.reset_launch_counts()
-    picks = ex.policy.select_batch(ex.store, budgets, rng, backend="cuda")
-    sel_counts = ops.launch_counts()
-    log(f"[select] B={B_SEL} launches {json.dumps(sel_counts)} usage "
-        + json.dumps({n: picks.count(n) / B_SEL for n in ex.by_name}))
-    if sel_counts["modipick_probs"] < 1 or len(picks) != B_SEL \
-            or not set(picks) <= set(ex.by_name):
-        raise AssertionError("batched selection did not run the stage-3 "
-                             "kernel or returned bad picks")
-    tab = ex.store.table()
-    err, _, _ = k1_check(ops, ref, policy_select, tab.device_pool("cuda"),
-                         budgets, gen)
-    log(f"[select] executor store n={len(tab)}: stage-3 max_abs_err={err:.3g}, "
-        "picks equal with kernel and plain stage 3")
-    launches["modipick_probs"] += sel_counts["modipick_probs"]
+    # 4. the batched selection entry points on the executor's store
+    counts, selection_rows = main_selection(ex, ops, ref, policy_select)
+    log_timing()
+    rows.update(selection_rows)
+    for name, c in counts.items():
+        launches[name] += c
     for name, row in rows.items():
         row["launches"] = launches[name]
         if not row["launches"] > 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
     # 5. timings for the record
-    for B in (1000, 8192, 100_000):
-        b = T_SLA_MS - 2.0 * ex.network.sample(rng, B)
-        for backend in ("numpy", "cuda"):
-            ms = wall_ms(lambda: ex.policy.select_batch(ex.store, b, rng,
-                                                        backend=backend), 5)
-            log(f"[perf] select_batch B={B} backend={backend}: {ms:.3f} ms "
-                f"= {B / ms * 1e3:.4g} requests/s (median of 5)")
+    perf_selection(ex)
+    crossover(ex)
 
     for row in rows.values():
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -927,7 +1299,7 @@ def main() -> int:
                 raise AssertionError(f"{row['name']}: bad {key} {row[key]}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     order = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-             "modipick_probs")
+             "modipick_probs", "fused_select", "charged_select")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}

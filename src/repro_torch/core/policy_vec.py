@@ -24,9 +24,10 @@ Backends
 - ``"numpy"`` — the reference implementation, always available;
 - a torch device name, ``"cuda"`` or ``"cpu"`` — ModiPick's stages 1–3
   and the draw run device-resident on that device
-  (``repro_torch.kernels.policy_select``), with the stage-3
-  utilities/normalize pass as a hand-written kernel on ``cuda`` and its
-  plain PyTorch version on ``cpu``;
+  (``repro_torch.kernels.policy_select``): one hand-written kernel
+  launch on ``cuda`` (``fused_select``; the stage-3 kernel
+  ``modipick_probs`` for detailed traces), their plain PyTorch versions
+  on ``cpu``;
 - ``"auto"``/``None`` — numpy below ``DEVICE_MIN_BATCH`` requests,
   ``cuda`` at or above it when a card is present (only for ModiPick —
   everything else is pure masked argmax/argmin, which numpy already does
@@ -50,9 +51,11 @@ from repro_torch.core.policy import (EPS, DynamicGreedy, ModiPick, Policy,
                                      StaticGreedy)
 from repro_torch.core.profiles import ProfileStore, ProfileTable
 
-# Batch size at which ModiPick's selection moves to the device pipeline.
-# The value is the reference's CPU-XLA crossover, carried over unmeasured:
-# it has not been re-measured against numpy on the card.
+# Batch size at which ModiPick's selection (and the Router's charged
+# pass) moves to the device.  The value is the reference's CPU-XLA
+# crossover; the card's crossover is measured by ``chip_smoke.py``'s
+# ``[crossover]`` phase (PERF.md §7) but the value is kept, so that
+# ``auto`` takes the same structure as the reference's.
 DEVICE_MIN_BATCH = 4096
 
 DEVICE_BACKENDS = ("cuda", "cpu")

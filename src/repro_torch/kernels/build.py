@@ -7,7 +7,7 @@ flags, so an edited source is rebuilt and a stale library is never
 loaded.  Builds go to ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``); nothing is compiled when a module is
 imported, only at a kernel's first launch or when :func:`build` is
-called.  Triton's cache is pointed at the same directory.
+called.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "policy_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,8 +88,3 @@ def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         _FUNCS[(lib, symbol)] = fn
     return fn
 
-
-def triton_env() -> None:
-    """Keep Triton's compile cache inside the checkout's build
-    directory; called before ``triton`` is imported."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -3,15 +3,19 @@
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its hand-written kernel for a tensor on the card (or raises);
 it adds one to its ``launches`` count each time it launches the kernel,
-and nowhere else.
+and nowhere else.  All kernels are CUDA C++ for ``sm_90a``, one source
+each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
+(``kernels/build.py``); the three selection kernels share one source.
 
-| wrapper            | kernel                          | replaces (reference)                         |
+| wrapper            | kernel                          | replaces (reference ``kernels/``)            |
 | ------------------ | ------------------------------- | -------------------------------------------- |
-| ``flash_attention``  | ``csrc/flash_attention.cu`` (CUDA)  | ``kernels/flash_attention.py`` ``_flash_kernel``  |
-| ``decode_attention`` | ``csrc/decode_attention.cu`` (CUDA) | ``kernels/decode_attention.py`` ``_decode_kernel`` |
-| ``ssd_scan``         | ``csrc/ssd_scan.cu`` (CUDA)         | ``kernels/ssd_scan.py`` ``_ssd_kernel``           |
-| ``rglru_scan``       | ``csrc/rglru_scan.cu`` (CUDA)       | ``kernels/rglru_scan.py`` ``_rglru_kernel``       |
-| ``modipick_probs``   | ``kernels/policy_select.py`` (Triton) | ``kernels/policy_select.py`` ``_probs_kernel``   |
+| ``flash_attention``  | ``csrc/flash_attention.cu``   | ``flash_attention.py`` ``_flash_kernel``         |
+| ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
+| ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
+| ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
+| ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |
+| ``fused_select``     | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_fused_select`` (jnp)     |
+| ``charged_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_charged_step`` under ``lax.scan`` |
 """
 from __future__ import annotations
 
@@ -20,12 +24,13 @@ from typing import Callable, Dict, NamedTuple
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.policy_select import modipick_probs
+from repro_torch.kernels.policy_select import (charged_select, fused_select,
+                                               modipick_probs)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 WRAPPERS = (flash_attention, decode_attention, ssd_scan, rglru_scan,
-            modipick_probs)
+            modipick_probs, fused_select, charged_select)
 
 
 class ModelKernels(NamedTuple):

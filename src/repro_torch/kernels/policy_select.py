@@ -1,36 +1,40 @@
 """Device-resident ModiPick selection: stages 1–3 and the draw on one
-device, with the stage-3 pass as a hand-written Triton kernel on the
-card.
+device, as hand-written CUDA kernels on the card
+(``csrc/policy_select.cu``).
 
-Two layers live here:
+Three kernel wrappers, one set of per-row device code under them:
 
-- the **stage-3 kernel** (``modipick_probs``, the port of the Pallas
-  ``_probs_kernel``): the fused eligibility-mask / Eq. 3–4 utility /
-  normalize pass over the (batch × pool) matrix, one program per block
-  of 256 requests.  On the card it is a Triton kernel: one elementwise
-  pass and a row reduction over a (B, n) matrix with n a handful of
-  models, which needs nothing Triton cannot express.  What bounds it is
-  memory — it reads the eligibility matrix once and writes the
-  probability matrix once, about 8·n bytes per request, and does some
-  ten flops per element — so the kernel computes the (B, n) utilities in
-  registers and never writes them to memory (the normalising pass
-  recomputes them instead of reading them back).  The
-  pool keeps its natural width on the card: the TPU's 128-lane padding
-  has no counterpart here.
-- the **fused selection pipeline** (``select_fused``): stages 1–2 — the
-  Eq. 2 eligibility matrix, the accuracy-order masked argmin and the
-  window-membership mask — and the inverse-CDF categorical draw as plain
-  PyTorch on the pool's device, feeding the stage-3 kernel.  Input is
-  ``(mu, sigma, acc, t_u, t_l)`` plus one uniform per request; output is
-  the sampled pool indices.  Nothing round-trips through the host
-  between stages.
+- ``modipick_probs`` (K1, the port of the Pallas ``_probs_kernel``):
+  stage 3 alone — the Eq. 3–4 utilities of a given (B, n) eligibility
+  matrix, normalised per row.  The detailed-trace path
+  (``policy_vec.select_batch_traced(detail=True)``) draws from it.
+- ``fused_select`` (the port of the jitted ``_fused_select``): stages
+  1–2 (Eq. 2 eligibility, the accuracy-order base, the window), K1's
+  probabilities and the inverse-CDF draw in ONE launch:
+  ``(mu, sigma, acc, rank, t_u, t_l, r01)`` in, (B,) picks out, −1
+  where no base exists.  ``select_fused`` is its host entry point.
+- ``charged_select`` (the port of ``charged_select``/``_charged_step``,
+  a ``lax.scan`` over the batch): the charged sequential-greedy pass.
+  One warp walks the batch in order with the per-replica wait ledger in
+  shared memory; each request is admitted and selected against waits
+  that include the charges of the requests before it.
+  ``select_charged`` is its host entry point, which the Router's device
+  pass calls.
 
-The uniforms come from a ``torch.Generator`` seeded from the caller's
-numpy stream, as the reference seeds ``jax.random.PRNGKey`` there; the
-two generators give different numbers, so parity tests hand the
-reference's uniforms to ``_fused_select`` directly.
+Each wrapper runs its plain PyTorch version (``kernels/ref.py``) for
+tensors on the CPU and launches its kernel for tensors on the card (or
+raises), and counts its launches.
+
+The uniforms are an input: ``uniforms`` draws them from a generator kept
+per device and reseeded from the caller's numpy stream, as the
+reference seeds ``jax.random.PRNGKey`` there.  The two generators give
+different numbers, so parity tests hand the reference's uniforms to the
+wrappers (or patch ``uniforms``).
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Dict
 
 import numpy as np
 import torch
@@ -40,89 +44,51 @@ from repro_torch.kernels import build, ref
 
 EPS = 1e-9
 PAD_RANK = 1e9
-MAX_POOL = 128
-BLOCK_B = 256
+MAX_POOL = 128           # models the K1 and fused kernels take
+# Bytes of shared memory an H100 block can have: the limit a CPU call is
+# held to, so that it refuses what the card would.  On the card the
+# wrapper asks the kernel's library for the block's size and the card
+# for its limit (``charged_smem``).
+MAX_SMEM = 232_448
+CHARGED_CHUNK = 256      # requests the charged block stages at once
+BLOCK_B = 256            # the batch bucket's step (``_bucket``)
 
-_KERNEL = None
-
-
-def _probs_kernel():
-    """Build (once) the Triton stage-3 kernel.  ``triton`` is imported
-    here, at first launch, never when this module is imported."""
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    build.triton_env()
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def utility(mu_ptr, sig_ptr, acc_ptr, e_ptr, rows, live, t_u, t_l, j,
-                N: tl.constexpr, GAMMA: tl.constexpr, EPS: tl.constexpr):
-        # Model j's Eq. 3–4 utility for a block of rows (0 where
-        # ineligible), and its 0/1 eligibility.
-        mu = tl.load(mu_ptr + j)
-        a = tl.maximum(tl.load(acc_ptr + j), EPS)
-        if GAMMA != 1.0:
-            a = tl.exp2(GAMMA * tl.log2(a))
-        e = tl.load(e_ptr + rows * N + j, mask=live, other=0.0) > 0
-        num = t_u - (mu + tl.load(sig_ptr + j))
-        den = tl.maximum(tl.abs(t_l - mu), EPS)
-        # IEEE round-to-nearest division, as PyTorch divides.
-        return tl.where(e, tl.div_rn(a * num, den), 0.0), tl.where(e, 1.0, 0.0)
-
-    @triton.jit
-    def probs_kernel(mu_ptr, sig_ptr, acc_ptr, tu_ptr, tl_ptr, e_ptr,
-                     out_ptr, B, N: tl.constexpr, GAMMA: tl.constexpr,
-                     EPS: tl.constexpr, BLOCK: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        live = rows < B
-        t_u = tl.load(tu_ptr + rows, mask=live, other=0.0)
-        t_l = tl.load(tl_ptr + rows, mask=live, other=0.0)
-        total = tl.zeros([BLOCK], dtype=tl.float32)
-        cnt = tl.zeros([BLOCK], dtype=tl.float32)
-        # Pass 1: the row mass, summed model by model in pool order (the
-        # plain version sums in the same order, so both give the same
-        # bits).  Pass 2 recomputes the utilities rather than storing them.
-        for j in tl.static_range(N):
-            u, ef = utility(mu_ptr, sig_ptr, acc_ptr, e_ptr, rows, live,
-                            t_u, t_l, j, N, GAMMA, EPS)
-            total += u
-            cnt += ef
-        good = (total > 0) & (total < float("inf"))
-        safe = tl.where(good, total, 1.0)
-        inv = tl.maximum(cnt, 1.0)
-        # Pass 2: normalise; a degenerate row is uniform over its
-        # eligible models.
-        for j in tl.static_range(N):
-            u, ef = utility(mu_ptr, sig_ptr, acc_ptr, e_ptr, rows, live,
-                            t_u, t_l, j, N, GAMMA, EPS)
-            p = tl.where(good, tl.div_rn(u, safe), tl.div_rn(ef, inv))
-            tl.store(out_ptr + rows * N + j, p, mask=live)
-
-    _KERNEL = probs_kernel
-    return _KERNEL
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PROBS_ARGS = [_P] * 7 + [_I, _I, _F, _P]
+_FUSED_ARGS = [_P] * 8 + [_I, _I, _F, _P]
+_CHARGED_ARGS = [_P] * 14 + [_I, _I, _I, _F, _F, _I, _I, _P]
 
 
-def _check_probs(mu, sigma, acc, t_u, t_l, elig) -> None:
-    if elig.dim() != 2:
-        raise ValueError(f"elig must be (B, n); got {tuple(elig.shape)}")
-    B, n = elig.shape
-    for name, x, shape in (("mu", mu, (n,)), ("sigma", sigma, (n,)),
-                           ("acc", acc, (n,)), ("t_u", t_u, (B,)),
-                           ("t_l", t_l, (B,))):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}; got {tuple(x.shape)}")
-    xs = (mu, sigma, acc, t_u, t_l, elig)
+def _check_f32(name, xs, device) -> None:
     if any(x.dtype != torch.float32 for x in xs):
-        raise TypeError("modipick_probs takes float32 tensors; got "
+        raise TypeError(f"{name} takes float32 tensors; got "
                         + ", ".join(str(x.dtype) for x in xs))
-    if any(x.device != elig.device for x in xs):
-        raise ValueError("modipick_probs operands must lie on one device")
+    if any(x.device != device for x in xs):
+        raise ValueError(f"{name} operands must lie on one device")
     if any(not x.is_contiguous() for x in xs):
-        raise ValueError("modipick_probs operands must be contiguous")
+        raise ValueError(f"{name} operands must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no path for {device}")
+
+
+def _check_shapes(name, pairs) -> None:
+    for arg, x, shape in pairs:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {shape}; got "
+                             f"{tuple(x.shape)}")
+
+
+def _check_pool(name, n) -> None:
     if not 1 <= n <= MAX_POOL:
-        raise ValueError(f"pool of {n} models not supported (1..{MAX_POOL})")
+        raise ValueError(f"{name}: pool of {n} models not supported "
+                         f"(1..{MAX_POOL})")
+
+
+def _launch(lib_symbol, argtypes, device, *args) -> None:
+    fn = build.function("policy_select", lib_symbol, argtypes)
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{lib_symbol} launch failed (error {err})")
 
 
 def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
@@ -131,21 +97,24 @@ def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
     mu/sigma/acc: (n,) pool arrays; t_u/t_l: (B,) per-request bounds;
     elig: (B, n) float32 0/1 stage-2 eligibility → (B, n) float32
     probabilities (rows with no eligible model come back all-zero)."""
-    _check_probs(mu, sigma, acc, t_u, t_l, elig)
+    if elig.dim() != 2:
+        raise ValueError(f"elig must be (B, n); got {tuple(elig.shape)}")
+    B, n = elig.shape
+    _check_shapes("modipick_probs", (
+        ("mu", mu, (n,)), ("sigma", sigma, (n,)), ("acc", acc, (n,)),
+        ("t_u", t_u, (B,)), ("t_l", t_l, (B,))))
+    _check_f32("modipick_probs", (mu, sigma, acc, t_u, t_l, elig),
+               elig.device)
+    _check_pool("modipick_probs", n)
     if elig.device.type == "cpu":
         return ref.policy_probs_ref(mu, sigma, acc, t_u, t_l, elig,
                                     gamma=gamma, eps=EPS)
-    if elig.device.type != "cuda":
-        raise ValueError(f"modipick_probs has no path for {elig.device}")
-    B, n = elig.shape
     out = torch.empty((B, n), dtype=torch.float32, device=elig.device)
     if B:
-        grid = (-(-B // BLOCK_B),)
-        with torch.cuda.device(elig.device):
-            _probs_kernel()[grid](mu, sigma, acc, t_u, t_l, elig, out, B,
-                                  N=n, GAMMA=float(gamma), EPS=EPS,
-                                  BLOCK=BLOCK_B,
-                                  num_warps=4)
+        _launch("modipick_probs_fwd", _PROBS_ARGS, elig.device,
+                mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
+                t_u.data_ptr(), t_l.data_ptr(), elig.data_ptr(),
+                out.data_ptr(), B, n, float(gamma))
         modipick_probs.launches += 1
     return out
 
@@ -153,20 +122,140 @@ def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
 modipick_probs.launches = 0
 
 
+def fused_select(mu, sigma, acc, rank, t_u, t_l, r01, *,
+                 gamma: float = 1.0):
+    """Stages 1–3 and the inverse-CDF draw against the uniforms ``r01``.
+
+    mu/sigma/acc/rank: (n,) pool arrays (``rank``: each model's place in
+    the accuracy-descending order); t_u/t_l/r01: (B,) → (B,) int32: the
+    drawn pool index, or −1 where no base model exists (the caller's
+    fallback lane)."""
+    B = t_u.shape[0] if t_u.dim() == 1 else -1
+    n = mu.shape[0] if mu.dim() == 1 else -1
+    _check_shapes("fused_select", (
+        ("mu", mu, (n,)), ("sigma", sigma, (n,)), ("acc", acc, (n,)),
+        ("rank", rank, (n,)), ("t_u", t_u, (B,)), ("t_l", t_l, (B,)),
+        ("r01", r01, (B,))))
+    _check_f32("fused_select", (mu, sigma, acc, rank, t_u, t_l, r01),
+               mu.device)
+    _check_pool("fused_select", n)
+    if mu.device.type == "cpu":
+        return ref.fused_select_ref(mu, sigma, acc, rank, t_u, t_l, r01,
+                                    gamma=gamma, eps=EPS, pad_rank=PAD_RANK)
+    out = torch.empty(B, dtype=torch.int32, device=mu.device)
+    if B:
+        _launch("fused_select_fwd", _FUSED_ARGS, mu.device,
+                mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
+                rank.data_ptr(), t_u.data_ptr(), t_l.data_ptr(),
+                r01.data_ptr(), out.data_ptr(), B, n, float(gamma))
+        fused_select.launches += 1
+    return out
+
+
+fused_select.launches = 0
+# The reference's name for this step (``_fused_select``).
+_fused_select = fused_select
+
+
+def charged_smem_bytes(n: int, R: int) -> int:
+    """Shared memory of the charged kernel's block at n models and R
+    replicas (mirrors ``charged_smem`` in the kernel): the pool, the
+    waits, the ledger, ``CHARGED_CHUNK`` staged request rows and the
+    (R × n) mask."""
+    return 4 * (7 * n + 2 * R + 4 * CHARGED_CHUNK) + n * R
+
+
+def charged_smem(n: int, R: int, device) -> tuple:
+    """(bytes the charged block needs at n models and R replicas, bytes
+    a block may have) on ``device``: from the kernel's library and the
+    card on a CUDA device, from ``charged_smem_bytes`` and ``MAX_SMEM``
+    on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return charged_smem_bytes(n, R), MAX_SMEM
+    fn = build.function("policy_select", "charged_select_smem",
+                        [_I, _I, _I, _P, _P])
+    smem, limit = ctypes.c_longlong(), ctypes.c_int()
+    err = fn(dev.index if dev.index is not None
+             else torch.cuda.current_device(), n, R, ctypes.byref(smem),
+             ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError(f"charged_select_smem failed (error {err})")
+    return smem.value, limit.value
+
+
+def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
+                   rep_wait, t_u, t_l, r01, lim, *, gamma: float = 1.0,
+                   slack: float = 0.0, include_mu: bool = False,
+                   fastest: int = 0):
+    """The charged sequential-greedy pass over a batch, in order.
+
+    Pool: mu/sigma/acc/rank/mu_charge (n,) float32, cand_mask (n, R)
+    bool (replica r serves model m); ledger: speed/rep_wait (R,)
+    float32 (``rep_wait`` is read, never written); per request:
+    t_u/t_l/r01/lim (B,) float32, ``lim`` = +inf admits, −inf sheds.
+    Returns ``(picks int32, admitted bool, has_base bool, replica int32,
+    w_chosen float32)``, each (B,) — see ``ref.charged_select_ref``."""
+    B = t_u.shape[0] if t_u.dim() == 1 else -1
+    n = mu.shape[0] if mu.dim() == 1 else -1
+    R = speed.shape[0] if speed.dim() == 1 else -1
+    _check_shapes("charged_select", (
+        ("mu", mu, (n,)), ("sigma", sigma, (n,)), ("acc", acc, (n,)),
+        ("rank", rank, (n,)), ("mu_charge", mu_charge, (n,)),
+        ("cand_mask", cand_mask, (n, R)), ("speed", speed, (R,)),
+        ("rep_wait", rep_wait, (R,)), ("t_u", t_u, (B,)),
+        ("t_l", t_l, (B,)), ("r01", r01, (B,)), ("lim", lim, (B,))))
+    _check_f32("charged_select", (mu, sigma, acc, rank, mu_charge, speed,
+                                  rep_wait, t_u, t_l, r01, lim), mu.device)
+    if cand_mask.dtype != torch.bool or cand_mask.device != mu.device \
+            or not cand_mask.is_contiguous():
+        raise TypeError("charged_select: cand_mask must be a contiguous "
+                        "bool tensor on the pool's device")
+    if n < 1 or R < 1:
+        raise ValueError(f"charged_select: {n} models over {R} replicas")
+    need, limit = charged_smem(n, R, mu.device)
+    if need > limit:
+        raise ValueError(f"charged_select: {n} models over {R} replicas "
+                         f"need {need} bytes of shared memory; a block has "
+                         f"{limit}")
+    kw = dict(gamma=gamma, slack=slack, include_mu=include_mu,
+              fastest=fastest)
+    if mu.device.type == "cpu":
+        return ref.charged_select_ref(mu, sigma, acc, rank, mu_charge,
+                                      cand_mask, speed, rep_wait, t_u, t_l,
+                                      r01, lim, eps=EPS, pad_rank=PAD_RANK,
+                                      **kw)
+    ints = torch.empty((3, B), dtype=torch.int32, device=mu.device)
+    flags = torch.empty((2, B), dtype=torch.uint8, device=mu.device)
+    if B:
+        _launch("charged_select_fwd", _CHARGED_ARGS, mu.device,
+                mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
+                rank.data_ptr(), mu_charge.data_ptr(), cand_mask.data_ptr(),
+                speed.data_ptr(), rep_wait.data_ptr(), t_u.data_ptr(),
+                t_l.data_ptr(), r01.data_ptr(), lim.data_ptr(),
+                ints.data_ptr(), flags.data_ptr(), B, n, R, float(gamma),
+                float(slack), int(bool(include_mu)), int(fastest))
+        charged_select.launches += 1
+    return (ints[0], flags[0].view(torch.bool), flags[1].view(torch.bool),
+            ints[1], ints[2].view(torch.float32))
+
+
+charged_select.launches = 0
+
+
 # ======================================================================
-# Device-resident stages 1–3: (mu, sigma, acc, t_u, t_l) plus one
-# uniform per request straight to sampled pool indices.
+# Host entry points: numpy budget rows in, numpy picks out.
 # ======================================================================
 
 class DevicePool:
-    """Pool-side operands of the fused selection, uploaded once and kept
-    on ``device`` at the pool's natural width.  Frozen against one
+    """Pool-side operands of the device selection, uploaded once and
+    kept on ``device`` at the pool's natural width.  Frozen against one
     ProfileTable snapshot — rebuild (cheap) when the profiles move.
 
     ``rank[i]`` is model ``i``'s position in the accuracy-descending
     order (the stable argsort the scalar path caches), so the stage-1
-    "first eligible in accuracy order" is ``argmin`` of the masked rank
-    row.
+    "first eligible in accuracy order" is the eligible model of least
+    rank.
     """
 
     __slots__ = ("n", "device", "mu", "sigma", "acc", "rank", "fastest")
@@ -177,43 +266,16 @@ class DevicePool:
         self.n = len(mu)
         rank = np.empty(self.n, np.float32)
         rank[np.asarray(acc_order)] = np.arange(self.n, dtype=np.float32)
-
-        def upload(x):
-            return torch.tensor(np.asarray(x, np.float32), device=self.device)
-
-        self.mu = upload(mu)
-        self.sigma = upload(sigma)
-        self.acc = upload(acc)
-        self.rank = upload(rank)
+        ops = torch.from_numpy(np.stack([np.asarray(x, np.float32)
+                                         for x in (mu, sigma, acc, rank)]))
+        self.mu, self.sigma, self.acc, self.rank = ops.to(self.device)
         self.fastest = int(fastest)
 
 
 def _stages12(mu, sig, rank, t_u, t_l):
-    """Stages 1–2 on the pool's device.  mu/sig/rank: (n,); t_u/t_l:
-    (B,).  Returns ``(base, has_base, eligible)``."""
+    """Stages 1–2 as plain PyTorch on the pool's device.  mu/sig/rank:
+    (n,); t_u/t_l: (B,).  Returns ``(base, has_base, eligible)``."""
     return ref.modipick_masks_ref(mu, sig, rank, t_u, t_l, pad_rank=PAD_RANK)
-
-
-def _fused_select(mu, sig, acc, rank, t_u, t_l, r01, *, gamma: float,
-                  stage3=modipick_probs):
-    """The whole pipeline on one device: stages 1–2, the stage-3
-    probability rows (``stage3``: the kernel wrapper; a check may pass
-    the plain version), inverse-CDF categorical draw against the given
-    uniforms ``r01`` (B,).  Returns (B,) int64: the sampled pool index,
-    or -1 where no base model exists (the caller's fallback lane)."""
-    base, has_base, eligible = _stages12(mu, sig, rank, t_u, t_l)
-    w = stage3(mu, sig, acc, t_u, t_l, eligible.to(torch.float32),
-               gamma=gamma)
-    cdf = torch.cumsum(w, dim=1)
-    total = cdf[:, -1]
-    thresh = r01 * total
-    # First index whose cumulative mass exceeds the threshold — exact
-    # categorical sampling with ONE uniform per request.  Zero-probability
-    # lanes have flat cdf segments and are never selected; the float edge
-    # thresh == total falls back to the (always eligible) base.
-    choice = torch.argmax((cdf > thresh[:, None]).to(torch.uint8), dim=1)
-    choice = torch.where(total > thresh, choice, base)
-    return torch.where(has_base, choice, -1)
 
 
 def _bucket(B: int, block_b: int) -> int:
@@ -225,18 +287,24 @@ def _bucket(B: int, block_b: int) -> int:
     return max(block_b, -(-B // step) * step)
 
 
-def _pad_batch(x, bpad: int) -> np.ndarray:
-    out = np.zeros(bpad, np.float32)
-    out[:len(x)] = x
-    return out
+_GENERATORS: Dict[torch.device, torch.Generator] = {}
 
 
 def uniforms(seed: int, n: int, device) -> torch.Tensor:
-    """``n`` float32 uniforms in [0, 1) on ``device`` from a generator
-    seeded with ``seed``."""
-    gen = torch.Generator(device=device)
+    """``n`` float32 uniforms in [0, 1) on ``device`` from the device's
+    generator, reseeded with ``seed``."""
+    dev = torch.device(device)
+    gen = _GENERATORS.get(dev)
+    if gen is None:
+        gen = _GENERATORS[dev] = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    return torch.rand(n, generator=gen, device=device, dtype=torch.float32)
+    return torch.rand(n, generator=gen, device=dev, dtype=torch.float32)
+
+
+def _upload(rows, dev) -> torch.Tensor:
+    """float32 rows stacked on the host and copied to ``dev`` at once."""
+    return torch.from_numpy(np.stack(rows).astype(np.float32, copy=False)
+                            ).to(dev)
 
 
 def select_fused(pool: DevicePool, t_u, t_l, *, gamma: float = 1.0,
@@ -246,26 +314,63 @@ def select_fused(pool: DevicePool, t_u, t_l, *, gamma: float = 1.0,
     ``t_u``/``t_l``: (B,) per-request budget bounds.  Returns
     ``(idx, has_base)`` numpy arrays — ``idx[b]`` is the sampled pool
     index (already routed to ``pool.fastest`` where ``~has_base``).
-    One host→device transfer (the budget rows), one device→host
-    transfer (the picks)."""
+    One host→device copy (the budget rows), one launch, one
+    device→host copy (the picks); the uniforms are drawn at the
+    bucketed length, as the reference draws them."""
     B = len(t_u)
-    bpad = _bucket(B, block_b)
     dev = pool.device
-    tu = torch.from_numpy(_pad_batch(t_u, bpad)).to(dev)
-    tl = torch.from_numpy(_pad_batch(t_l, bpad)).to(dev)
-    out = _fused_select(pool.mu, pool.sigma, pool.acc, pool.rank, tu, tl,
-                        uniforms(seed, bpad, dev), gamma=gamma)
-    out = out.cpu().numpy()[:B]
+    tu, tl = _upload((t_u, t_l), dev)
+    r01 = uniforms(seed, _bucket(B, block_b), dev)[:B]
+    out = fused_select(pool.mu, pool.sigma, pool.acc, pool.rank, tu, tl,
+                       r01, gamma=gamma).cpu().numpy()
     has_base = out >= 0
     return np.where(has_base, out, pool.fastest), has_base
 
 
+def select_charged(pool: DevicePool, t_u, t_l, state, *,
+                   gamma: float = 1.0, adm_limit=None,
+                   adm_slack: float = 0.0, adm_include_mu: bool = False,
+                   seed: int = 0, block_b: int = BLOCK_B):
+    """Device-resident charged batch selection (the reference's
+    ``charged_select``): request ``i`` is admitted and selected against
+    waits that include the charges of requests ``0..i-1``.
+
+    ``state`` is a :class:`repro_torch.router.charging.ChargedWaits`
+    (replica waits, model → candidate topology, speeds, live charge-μ);
+    it is not written.  ``adm_limit`` (B,) enables the in-pass SLA-aware
+    viability test (``W_queue + slack (+ μ) < limit``); ``None`` admits
+    everything.  Returns numpy ``(picks, admitted, has_base, replica,
+    w_chosen)``: the picked pool index, the admission verdict, the
+    fallback indicator, the replica the charge landed on, and the
+    chosen model's pre-charge wait (for shed rows: the pool's minimum
+    wait)."""
+    B, n, R = len(t_u), pool.n, len(state.rep_wait)
+    dev = pool.device
+    cand = np.zeros((n, R), dtype=bool)
+    for m, c in enumerate(state.cand):
+        cand[m, c] = True
+    lim = np.full(B, np.inf) if adm_limit is None else adm_limit
+    rows = _upload((t_u, t_l, lim), dev)
+    ledger = _upload((np.asarray(state.speed), state.rep_wait), dev)
+    mu_charge = torch.tensor(np.asarray(state.mu, np.float32)[:n],
+                             device=dev)
+    r01 = uniforms(seed, _bucket(B, block_b), dev)[:B]
+    out = charged_select(pool.mu, pool.sigma, pool.acc, pool.rank,
+                         mu_charge, torch.from_numpy(cand).to(dev),
+                         ledger[0], ledger[1], rows[0], rows[1], r01,
+                         rows[2], gamma=gamma, slack=adm_slack,
+                         include_mu=adm_include_mu, fastest=pool.fastest)
+    picks, admitted, has_base, rep, w_chosen = (t.cpu().numpy()
+                                                for t in out)
+    return picks, admitted, has_base, rep, w_chosen.astype(np.float64)
+
+
 def sample_batch(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0,
                  seed: int = 0, device="cuda") -> np.ndarray:
-    """One Gumbel-top-1 pick per request from the stage-3 probability
-    rows; returns (B,) pool indices as numpy.  Rows with no eligible
-    model return an arbitrary index — callers mask them with their
-    fallback (``policy_vec`` routes those to the fastest model)."""
+    """One Gumbel-top-1 pick per request from K1's probability rows;
+    returns (B,) pool indices as numpy.  Rows with no eligible model
+    return an arbitrary index — callers mask them with their fallback
+    (``policy_vec`` routes those to the fastest model)."""
     dev = resolve_device(device)
 
     def upload(x):
@@ -281,16 +386,12 @@ def sample_batch(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0,
 
 
 def masks_device(pool: DevicePool, t_u, t_l):
-    """Stages 1–2 alone, through the same code as :func:`select_fused` —
-    the test surface for pinning the device masks against the
-    ``policy_vec.modipick_masks`` numpy reference.  Returns numpy
+    """Stages 1–2 alone, as plain PyTorch on the pool's device — the
+    test surface for pinning the device masks against the
+    ``policy_vec.modipick_masks`` numpy reference (the kernels compute
+    the same masks row by row, never as a matrix).  Returns numpy
     ``(base, has_base, eligible)``."""
-    B = len(t_u)
-    bpad = _bucket(B, 8)
     dev = pool.device
-    base, has, elig = _stages12(
-        pool.mu, pool.sigma, pool.rank,
-        torch.from_numpy(_pad_batch(t_u, bpad)).to(dev),
-        torch.from_numpy(_pad_batch(t_l, bpad)).to(dev))
-    return (base.cpu().numpy()[:B], has.cpu().numpy()[:B],
-            elig.cpu().numpy()[:B])
+    base, has, elig = _stages12(pool.mu, pool.sigma, pool.rank,
+                                *_upload((t_u, t_l), dev))
+    return base.cpu().numpy(), has.cpu().numpy(), elig.cpu().numpy()

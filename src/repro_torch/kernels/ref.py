@@ -47,29 +47,36 @@ def decode_attention_ref(q, k, v, pos, *, window=0):
     return torch.einsum("bngk,bnkd->bngd", p, v.float()).to(q.dtype)
 
 
-def policy_probs_ref(mu, sigma, acc, t_u, t_l, elig, *, gamma=1.0,
-                     eps=1e-9):
-    """Batched ModiPick stage-3 (Eqs. 3–4).  mu/sigma/acc: (n,);
-    t_u/t_l: (B,); elig: (B, n) mask → (B, n) float32 probability rows
-    (all-zero where a row has no eligible model).
-
-    Each row's mass is summed model by model, in pool order — the order
-    the stage-3 kernel sums in — so the kernel and this version give the
-    same bits."""
+def _utility_rows(mu, sigma, acc, t_u, t_l, e, gamma, eps):
+    """The Eq. 3–4 utilities (B, n) masked by ``e`` (zero where
+    ineligible), each row's mass summed model by model in pool order —
+    the order the kernels sum in, so both give the same bits — and
+    whether that mass is finite and positive."""
     f32 = torch.float32
     muf = mu.to(f32)
-    e = elig > 0
     num = t_u.to(f32)[:, None] - (muf + sigma.to(f32))[None, :]
     den = torch.clamp_min(torch.abs(t_l.to(f32)[:, None] - muf[None, :]), eps)
     u = torch.pow(torch.clamp_min(acc.to(f32), eps), gamma)[None, :] * num / den
     u = torch.where(e, u, 0.0)
-    ef = e.to(f32)
     total = torch.zeros(u.shape[0], dtype=f32, device=u.device)
-    cnt = torch.zeros_like(total)
     for j in range(u.shape[1]):
         total = total + u[:, j]
+    return u, total, torch.isfinite(total) & (total > 0)
+
+
+def policy_probs_ref(mu, sigma, acc, t_u, t_l, elig, *, gamma=1.0,
+                     eps=1e-9):
+    """Batched ModiPick stage-3 (Eqs. 3–4).  mu/sigma/acc: (n,);
+    t_u/t_l: (B,); elig: (B, n) mask → (B, n) float32 probability rows
+    (all-zero where a row has no eligible model); a row whose mass is
+    not finite or not positive is uniform over its eligible models."""
+    e = elig > 0
+    u, total, good = _utility_rows(mu, sigma, acc, t_u, t_l, e, gamma, eps)
+    ef = e.to(torch.float32)
+    cnt = torch.zeros_like(total)
+    for j in range(u.shape[1]):
         cnt = cnt + ef[:, j]
-    good = (torch.isfinite(total) & (total > 0))[:, None]
+    good = good[:, None]
     uniform = ef / torch.clamp_min(cnt, 1.0)[:, None]
     return torch.where(good, u / torch.where(good, total[:, None], 1.0),
                        uniform)
@@ -96,6 +103,112 @@ def modipick_masks_ref(mu, sigma, rank, t_u, t_l, *, pad_rank=1e9):
     eligible = natural | (idx[None, :] == base[:, None])
     eligible &= has_base[:, None]
     return base, has_base, eligible
+
+
+def _running_sum(w):
+    """(B, n) → (B, n): the running sum along the pool in pool order,
+    one add per column (``torch.cumsum`` sums in another order on the
+    card, and in double on the CPU)."""
+    c = torch.zeros_like(w[:, 0])
+    cols = []
+    for j in range(w.shape[1]):
+        c = c + w[:, j]
+        cols.append(c)
+    return torch.stack(cols, dim=1)
+
+
+def _draw(w, r01, base):
+    """The inverse-CDF draw: per row, the first index whose running sum
+    of ``w`` exceeds ``r01 · total`` (total: the sum's last value), else
+    ``base``.  Zero-weight models have flat segments and are never
+    drawn."""
+    cdf = _running_sum(w)
+    total = cdf[:, -1]
+    thresh = r01 * total
+    choice = torch.argmax((cdf > thresh[:, None]).to(torch.uint8), dim=1)
+    return torch.where(total > thresh, choice, base)
+
+
+def fused_select_ref(mu, sigma, acc, rank, t_u, t_l, r01, *, gamma=1.0,
+                     eps=1e-9, pad_rank=1e9):
+    """Batched ModiPick stages 1–3 and the draw.  mu/sigma/acc/rank:
+    (n,); t_u/t_l/r01: (B,) → (B,) int32: the drawn pool index, or −1
+    where no base exists.  The draw runs on stage 3's normalised
+    probabilities (:func:`policy_probs_ref`)."""
+    base, has_base, eligible = modipick_masks_ref(mu, sigma, rank, t_u, t_l,
+                                                  pad_rank=pad_rank)
+    w = policy_probs_ref(mu, sigma, acc, t_u, t_l,
+                         eligible.to(torch.float32), gamma=gamma, eps=eps)
+    choice = _draw(w, r01, base)
+    return torch.where(has_base, choice, -1).to(torch.int32)
+
+
+def modipick_weights_ref(mu, sigma, acc, t_u, t_l, eligible, *, gamma=1.0,
+                         eps=1e-9):
+    """The unnormalised Eq. 3–4 utility rows of the charged pass (the
+    reference's ``_utilities``): (B, n), zero where ineligible; a row
+    whose mass is not finite or not positive weighs its eligible models
+    1 each."""
+    u, _, good = _utility_rows(mu, sigma, acc, t_u, t_l, eligible, gamma,
+                               eps)
+    return torch.where(good[:, None], u, eligible.to(torch.float32))
+
+
+def charged_select_ref(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
+                       rep_wait, t_u, t_l, r01, lim, *, gamma=1.0,
+                       slack=0.0, include_mu=False, fastest=0, eps=1e-9,
+                       pad_rank=1e9):
+    """The charged sequential-greedy pass (the reference's
+    ``_charged_step`` under ``lax.scan``), one request at a time in
+    batch order.  Pool: mu/sigma/acc/rank/mu_charge (n,); cand_mask (n,
+    R) bool: replica r serves model m; speed/rep_wait (R,): the ledger's
+    start; t_u/t_l/r01/lim (B,).
+
+    For request i: each model's wait W is the least over its candidate
+    replicas in the ledger (a model with no finite wait is not
+    shifted); it is admitted when some model has ``W + slack (+
+    mu_charge) < lim[i]``; stages 1–3 and the draw run on ``mu + W``
+    with :func:`modipick_weights_ref` (``fastest`` where no base
+    exists); the pick's ``mu_charge / speed`` is charged, if admitted,
+    to its least-loaded capable replica (first index on a tie).  The
+    caller's ``rep_wait`` is not written.
+
+    Returns ``(picks int32, admitted bool, has_base bool, replica int32,
+    w_chosen float32)``, each (B,): ``w_chosen`` is the pick's wait, or
+    the least raw wait where the request was shed."""
+    f32 = torch.float32
+    cand = cand_mask.to(torch.bool)
+    ledger = rep_wait.to(f32).clone()
+    inf = torch.tensor(float("inf"), dtype=f32, device=mu.device)
+    outs = []
+    for i in range(t_u.shape[0]):
+        wq_raw = torch.where(cand, ledger[None, :], inf).amin(dim=1)
+        wq = torch.where(torch.isfinite(wq_raw), wq_raw, 0.0)
+        cost = wq_raw + slack
+        if include_mu:
+            cost = cost + mu_charge
+        admitted = (cost < lim[i]).any()
+        mu_i = mu + wq
+        tu, tl = t_u[i:i + 1], t_l[i:i + 1]
+        base, has_base, eligible = modipick_masks_ref(
+            mu_i, sigma, rank, tu, tl, pad_rank=pad_rank)
+        w = modipick_weights_ref(mu_i, sigma, acc, tu, tl, eligible,
+                                 gamma=gamma, eps=eps)
+        choice = _draw(w, r01[i:i + 1], base)[0]
+        pick = torch.where(has_base[0], choice, fastest)
+        rep = torch.argmin(torch.where(cand[pick], ledger, inf))
+        delta = torch.where(admitted, mu_charge[pick] / speed[rep], 0.0)
+        ledger[rep] += delta
+        w_chosen = torch.where(admitted, wq[pick], wq_raw.amin())
+        outs.append((pick, admitted, has_base[0], rep, w_chosen))
+    if not outs:
+        none = torch.zeros(0, dtype=torch.int32, device=mu.device)
+        return none, none.bool(), none.bool(), none, none.float()
+    picks, admitted, has_base, rep, w_chosen = (torch.stack(c)
+                                                for c in zip(*outs))
+    return (picks.to(torch.int32), admitted.to(torch.bool),
+            has_base.to(torch.bool), rep.to(torch.int32),
+            w_chosen.to(f32))
 
 
 def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 256):

@@ -47,10 +47,10 @@ Per batch, the router:
    ``policy.select_traced``/``select_lean`` (draw-for-draw identical to
    the historical per-request call sites, which is what keeps seeded
    single-SLA goldens bit-identical); a charged batch rides the same
-   scalar core sequentially (the device-resident charged pass is not
-   ported yet: a device backend named explicitly raises
-   ``NotImplementedError``, and ``auto`` stays on the scalar core); an
-   uncharged batch rides the vectorized
+   scalar core sequentially (or the device-resident charged pass,
+   ``kernels.policy_select.select_charged``, on a device backend: the
+   ``charged_select`` kernel on ``cuda``, its plain PyTorch version on
+   ``cpu``); an uncharged batch rides the vectorized
    ``policy_vec.select_batch_traced``.
 
 Queue-aware mode presents the policy with the shifted-μ store view
@@ -494,28 +494,56 @@ class Router:
 
     # -- device path ---------------------------------------------------
     def _use_charged_scan(self, B: int) -> bool:
-        """The device charged pass engages for ModiPick with controllers
-        whose verdict is the pure viability test the device pass can
-        evaluate in-scan, and only when a device backend is named
-        explicitly (argument or environment).  Until that pass is
-        ported, ``auto`` keeps charged batches of any size on the exact
-        sequential path rather than reaching the stub."""
+        """The device charged pass engages under the same backend policy
+        as the uncharged fused pipeline (ModiPick, a batch of at least
+        ``DEVICE_MIN_BATCH`` on a card, or a device backend named
+        explicitly), for controllers whose verdict is the pure viability
+        test the pass can evaluate per request."""
         if type(self.policy) is not ModiPick or not self.queue_aware \
                 or self.trace_detail:
             return False
         if not (self._admits_all
                 or type(self.admission) is SlaAwareAdmission):
             return False
-        # at n_batch 0, ``auto`` resolves to numpy whatever the batch
-        return (policy_vec.resolve_backend(self.backend, 0)
+        return (policy_vec.resolve_backend(self.backend, B)
                 in policy_vec.DEVICE_BACKENDS)
 
     def _route_charged_device(self, res, budgets, rng,
                               state: ChargedWaits) -> None:
-        raise NotImplementedError(
-            "the device charged pass (charged_select) is not ported yet: "
-            "it arrives with the Router slice of the port (ROADMAP, queue "
-            "A); route charged batches on the numpy backend meanwhile")
+        from repro_torch.kernels import policy_select
+        adm = self.admission
+        if self._admits_all:
+            adm_limit, slack, include_mu = None, 0.0, False
+        else:
+            adm_limit = budgets
+            slack = adm.slack_ms
+            include_mu = adm.include_service_time
+        tab = self.store.table()
+        backend = policy_vec.resolve_backend(self.backend, len(budgets))
+        out = policy_select.select_charged(
+            tab.device_pool(backend), budgets,
+            budgets - self.policy.t_threshold,
+            state, gamma=self.policy.gamma,
+            adm_limit=adm_limit, adm_slack=slack,
+            adm_include_mu=include_mu,
+            seed=int(rng.integers(np.iinfo(np.int64).max)))
+        picks, admitted, has_base, replica, w_chosen = out
+        names = tab.names
+        for i in range(len(budgets)):
+            if not admitted[i]:
+                self._shed(res, i,
+                           "W_queue exceeds the remaining budget for "
+                           "every model", float(w_chosen[i]))
+                continue
+            mid = int(picks[i])
+            self.store.mark_selected(names[mid])
+            res.model_idx[i] = mid
+            res.admitted[i] = True
+            res.fallback[i] = not has_base[i]
+            res.w_queue_ms[i] = float(w_chosen[i])
+            if not state.pseudo:
+                res.replica_idx[i] = int(replica[i])
+        self.n_fallback += int((res.admitted & res.fallback).sum())
 
     # ------------------------------------------------------------------
     # recovery surface (router.retry)

@@ -10,8 +10,9 @@ Tolerances: float32 atol/rtol 2e-5 (summation order only), bfloat16
 to max |y| (2e-5 in float32, 2e-2 in bfloat16, as
 ``tests/test_kernels.py`` holds the Pallas kernel: the chunked kernel
 and the sequential plain version sum in different orders); stage-3
-probabilities exactly and picks exactly (same operations in the same
-order).
+probabilities exactly at gamma 1 and to the float32 tolerance at gamma 2
+(torch.pow special-cases an exponent of 2), picks and all of the charged
+pass's outputs exactly (same operations in the same order).
 """
 from dataclasses import replace
 
@@ -212,27 +213,166 @@ def test_rglru_kernel_matches_plain(gen, dtype, B, S, W):
     torch.testing.assert_close(h, ops.PLAIN.rglru_scan(a, b), **TOL[dtype])
 
 
-@pytest.mark.parametrize("n", [2, 3, 8])
-def test_stage3_kernel_matches_plain_bit_for_bit(gen, n):
-    rng = np.random.default_rng(n)
+def _select_pool(n, seed=None):
+    rng = np.random.default_rng(n if seed is None else seed)
     mu, sig = rng.uniform(5, 60, n), rng.uniform(0, 5, n)
     acc = rng.uniform(0.3, 0.9, n)
-    pool = policy_select.DevicePool(mu, sig, acc,
-                                    np.argsort(-acc, kind="stable"),
-                                    int(np.argmin(mu)), device="cuda")
+    return rng, policy_select.DevicePool(mu, sig, acc,
+                                         np.argsort(-acc, kind="stable"),
+                                         int(np.argmin(mu)), device="cuda")
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_stage3_kernel_matches_plain_bit_for_bit(gen, n):
+    rng, pool = _select_pool(n)
     t_u = torch.tensor(rng.uniform(0, 90, 8192), dtype=torch.float32,
                        device="cuda")
     t_l = t_u - 25.0
     _, _, elig = policy_select._stages12(pool.mu, pool.sigma, pool.rank,
                                          t_u, t_l)
     args = (pool.mu, pool.sigma, pool.acc, t_u, t_l, elig.float())
+    before = ops.modipick_probs.launches
     assert torch.equal(ops.modipick_probs(*args), ref.policy_probs_ref(*args))
+    assert ops.modipick_probs.launches == before + 1
     r01 = torch.rand(8192, generator=gen, device="cuda")
-    picks = [policy_select._fused_select(pool.mu, pool.sigma, pool.acc,
-                                         pool.rank, t_u, t_l, r01, gamma=1.0,
-                                         stage3=s3)
-             for s3 in (ops.modipick_probs, ref.policy_probs_ref)]
-    assert torch.equal(*picks)
+    sel = (pool.mu, pool.sigma, pool.acc, pool.rank, t_u, t_l, r01)
+    assert torch.equal(ops.fused_select(*sel), ref.fused_select_ref(*sel))
+
+
+@pytest.mark.parametrize("n", [1, 3, 128])
+def test_stage3_kernel_at_gamma_2_within_tolerance(gen, n):
+    """torch.pow special-cases an exponent of 2, powf does not: one ulp
+    of the accuracy weight, well inside the float32 tolerance."""
+    rng, pool = _select_pool(n)
+    B = 1000
+    t_u = torch.tensor(rng.uniform(0, 90, B), dtype=torch.float32,
+                       device="cuda")
+    t_l = t_u - 25.0
+    elig = (torch.rand(B, n, generator=gen, device="cuda") > 0.3).float()
+    args = (pool.mu, pool.sigma, pool.acc, t_u, t_l, elig)
+    torch.testing.assert_close(ops.modipick_probs(*args, gamma=2.0),
+                               ref.policy_probs_ref(*args, gamma=2.0),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("n", [2, 3, 8, 128])
+@pytest.mark.parametrize("B", [8192, 1000, 1])
+def test_fused_kernel_matches_plain(gen, n, B):
+    """Picks equal, with rows that have no base and rows whose mass is
+    negative (uniform over the eligible models)."""
+    rng, pool = _select_pool(n, seed=n + B)
+    t_u = rng.uniform(-5, 90, B).astype(np.float32)
+    t_u[: B // 50] = float(pool.mu.min()) - 50.0
+    t_l = t_u - 25.0
+    t_l[B // 50: B // 20] = t_u[B // 50: B // 20] + 40.0
+    t_u, t_l = (torch.tensor(x, device="cuda") for x in (t_u, t_l))
+    r01 = torch.rand(B, generator=gen, device="cuda")
+    sel = (pool.mu, pool.sigma, pool.acc, pool.rank, t_u, t_l, r01)
+    before = ops.fused_select.launches
+    got = ops.fused_select(*sel)
+    torch.cuda.synchronize()
+    assert ops.fused_select.launches == before + 1
+    assert torch.equal(got, ref.fused_select_ref(*sel))
+    if B > 100:
+        assert (got == -1).any() and (got >= 0).any()
+
+
+def test_select_fused_launches_once(gen):
+    _, pool = _select_pool(3)
+    t_u = np.linspace(5.0, 100.0, 5000)
+    before = ops.launch_counts()
+    idx, has = policy_select.select_fused(pool, t_u, t_u - 25.0, seed=3)
+    after = ops.launch_counts()
+    assert after["fused_select"] == before["fused_select"] + 1
+    assert {k: after[k] - before[k] for k in after if k != "fused_select"} \
+        == dict.fromkeys(set(after) - {"fused_select"}, 0)
+    assert idx.shape == has.shape == (5000,)
+
+
+# case → (n, R, speeds vary, a replica down, slack, include_mu or None
+# for AdmitAll, the charge a pick as a share of mu).  Every SLA-aware
+# case sheds some of its requests: "wide" spreads 600 requests over 300
+# replicas, so only a charge of the whole mu makes its waits cross the
+# budgets.
+CHARGED = {"admit_all": (5, 8, False, False, 0.0, None, 0.02),
+           "sla": (5, 8, False, False, 0.0, False, 0.02),
+           "sla_mu": (5, 8, False, False, 4.0, True, 0.02),
+           "speeds": (6, 8, True, False, 2.0, True, 0.02),
+           "down": (5, 7, False, True, 0.0, True, 0.02),
+           "n1": (1, 2, False, False, 0.0, True, 0.02),
+           "n8": (8, 16, True, False, 0.0, None, 0.02),
+           "wide": (128, 300, True, True, 1.0, True, 1.0)}
+
+
+def charged_inputs(gen, name, B):
+    """The charged pass's operands on the card for case ``name``."""
+    n, R, speeds, down, slack, include_mu, charge = CHARGED[name]
+    rng, pool = _select_pool(n, seed=len(name))
+    cand = torch.zeros(n, R, dtype=torch.bool)
+    for m in range(n):
+        cand[m, rng.choice(R, size=min(R, 3), replace=False)] = True
+    rep_wait = rng.uniform(0.0, 30.0, R)
+    if down:
+        rep_wait[0] = np.inf
+        cand[0] = False
+        cand[0, 0] = True
+    speed = rng.uniform(0.5, 2.0, R) if speeds else np.ones(R)
+    budgets = rng.uniform(20.0, 160.0, B)
+    lim = budgets if include_mu is not None else np.full(B, np.inf)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+    args = (pool.mu, pool.sigma, pool.acc, pool.rank,
+            pool.mu * charge, cand.cuda(), f32(speed), f32(rep_wait),
+            f32(budgets), f32(budgets - 20.0),
+            torch.rand(B, generator=gen, device="cuda"), f32(lim))
+    kw = dict(slack=slack, include_mu=bool(include_mu), fastest=pool.fastest)
+    return args, kw
+
+
+@pytest.mark.parametrize("name", sorted(CHARGED))
+def test_charged_kernel_matches_plain(gen, name):
+    """All five outputs equal; 600 requests cross the kernel's staging
+    chunk of 256.  Each SLA-aware case admits some requests and sheds
+    others, so both branches of the admission run."""
+    args, kw = charged_inputs(gen, name, 600)
+    before = ops.charged_select.launches
+    got = ops.charged_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.charged_select.launches == before + 1
+    want = ref.charged_select_ref(*args, **kw)
+    for what, g, w in zip(("picks", "admitted", "has_base", "replica",
+                           "w_chosen"), got, want):
+        assert g.dtype == w.dtype, what
+        assert torch.equal(g, w), what
+    assert got[1].any() and got[2].any()
+    if CHARGED[name][5] is not None:
+        assert not got[1].all()
+
+
+@pytest.mark.parametrize("n,R", [(1, 1), (3, 6), (128, 300), (128, 1500)])
+def test_charged_smem_mirrors_the_kernel(gen, n, R):
+    """The Python mirror of the charged block's shared memory (the
+    bound a CPU call is held to) equals the kernel's own; the card's
+    limit is the H100's that the mirror's callers assume."""
+    need, limit = policy_select.charged_smem(n, R, "cuda")
+    assert need == policy_select.charged_smem_bytes(n, R)
+    assert limit == torch.cuda.get_device_properties(0) \
+        .shared_memory_per_block_optin
+    if "H100" in torch.cuda.get_device_name(0):
+        assert limit == policy_select.MAX_SMEM
+
+
+def test_charged_kernel_refuses_what_does_not_fit(gen):
+    args, kw = charged_inputs(gen, "n8", 4)
+    args = list(args)
+    args[5] = torch.ones(8, 20_000, dtype=torch.bool, device="cuda")
+    args[6] = args[7] = torch.ones(20_000, device="cuda")
+    before = ops.charged_select.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.charged_select(*args, **kw)
+    assert ops.charged_select.launches == before
 
 
 @pytest.mark.parametrize("which", ["flash", "decode", "ssd"])
@@ -298,3 +438,11 @@ def test_wrappers_raise_on_cuda_tensors_they_do_not_take(gen):
                            torch.ones(4, device="cuda"),
                            torch.ones(4, device="cuda"),
                            torch.ones(4, 3, device="cuda"))
+    pool = torch.ones(3, device="cuda")
+    with pytest.raises(ValueError):
+        ops.fused_select(pool, pool, pool, pool.cpu(), pool, pool, pool)
+    with pytest.raises(TypeError):
+        ops.charged_select(pool, pool, pool, pool, pool,
+                           torch.ones(3, 2, device="cuda"),
+                           *(torch.ones(2, device="cuda"),) * 2,
+                           *(torch.ones(4, device="cuda"),) * 4)

@@ -285,10 +285,17 @@ def test_cpu_path_launches_nothing():
                  torch.zeros(2), torch.zeros(1, 1, 5, 8),
                  torch.zeros(1, 1, 5, 8))
     ops.rglru_scan(torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
+    pool, rows = torch.ones(3), torch.ones(4)
+    ops.modipick_probs(pool, pool, pool, rows, rows, torch.ones(4, 3))
+    ops.fused_select(pool, pool, pool, pool, rows, rows, rows)
+    ops.charged_select(pool, pool, pool, pool, pool,
+                       torch.ones(3, 2, dtype=torch.bool), torch.ones(2),
+                       torch.zeros(2), rows, rows, rows, rows)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "ssd_scan": 0, "rglru_scan": 0,
-                                   "modipick_probs": 0}
+                                   "modipick_probs": 0, "fused_select": 0,
+                                   "charged_select": 0}
 
 
 def test_plain_versions_are_the_reference_twins():

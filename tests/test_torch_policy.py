@@ -98,36 +98,36 @@ def test_router_batch_on_numpy_backend_matches_reference(charge):
 
 
 def test_auto_backend_keeps_large_charged_batches_off_the_stub(monkeypatch):
-    """With a card present, ``auto`` would resolve a batch this large to
-    the device; the unported charged pass is still not reached, and the
-    picks are the numpy backend's."""
-    monkeypatch.setattr(policy_vec.torch.cuda, "is_available", lambda: True)
+    """As in the reference, ``auto`` resolves the charged pass at the
+    batch's size: with a card present, a charged batch of
+    ``DEVICE_MIN_BATCH`` takes the device pass and a smaller one the
+    sequential numpy path; without a card, every size stays on numpy."""
     monkeypatch.delenv("REPRO_TORCH_POLICY_BACKEND", raising=False)
+    _, store = _stores()
+    r = Router(store, ModiPick(20.0), queue_aware=True, backend="auto",
+               trace_detail=False)
     B = policy_vec.DEVICE_MIN_BATCH
+    monkeypatch.setattr(policy_vec.torch.cuda, "is_available", lambda: False)
+    assert not r._use_charged_scan(B)
+    monkeypatch.setattr(policy_vec.torch.cuda, "is_available", lambda: True)
     assert policy_vec.resolve_backend("auto", B) == "cuda"
-    draws = np.random.default_rng(6)
-    t_sla, t_in = draws.uniform(40.0, 200.0, B), draws.uniform(2.0, 30.0, B)
-    out = []
-    for backend in ("auto", "numpy"):
-        _, store = _stores()
-        r = Router(store, ModiPick(20.0), queue_aware=True, backend=backend,
-                   trace_detail=False)
-        out.append(r.route_batch_arrays(
-            t_sla, t_in, np.random.default_rng(2), charge=True,
-            w_queue_map={f"m{i}": 0.0 for i in range(5)}))
-    np.testing.assert_array_equal(out[0].model_idx, out[1].model_idx)
-    np.testing.assert_array_equal(out[0].w_queue_ms, out[1].w_queue_ms)
+    assert r._use_charged_scan(B)
+    assert not r._use_charged_scan(B - 1)
+    # only ModiPick, queue-aware, lean traces and in-pass admission
+    for kw in (dict(queue_aware=False), dict(trace_detail=True)):
+        args = {**dict(queue_aware=True, trace_detail=False), **kw}
+        assert not Router(store, ModiPick(20.0), backend="auto",
+                          **args)._use_charged_scan(B)
+    assert not Router(store, DynamicGreedy(), queue_aware=True,
+                      trace_detail=False)._use_charged_scan(B)
 
 
 def test_unported_router_device_paths_raise():
+    """Premodel (class-conditional) routing is the one Router path still
+    to port."""
     _, store = _stores()
     r = Router(store, ModiPick(20.0), queue_aware=True, backend="cpu",
                trace_detail=False)
-    state = ChargedWaits.per_model(store.table().names, [0.0] * 5,
-                                   store.table().mu)
-    with pytest.raises(NotImplementedError, match="charged"):
-        r.route_batch_arrays(np.full(8, 100.0), np.full(8, 5.0),
-                             np.random.default_rng(0), charged=state)
     with pytest.raises(NotImplementedError, match="premodel"):
         r.route_batch_classed(np.full(8, 100.0), np.full(8, 5.0),
                               np.zeros(8), np.random.default_rng(0))
