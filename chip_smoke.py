@@ -43,7 +43,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    uniforms; then each of the three kernels on the very operands its
    entry point handed it, held against its plain version there and
    timed there for its row of the kernels line;
-5. timings for the record: per-variant warm prefill / prefill+decode
+5. the discrete-event engine (``repro_torch.sim``) at the reference
+   engine benchmark's ``batched`` size: 100,000 requests in 200-wide
+   simultaneous bursts over Table 2's 11 models, 4 replicas each, on
+   ``cuda`` (one charged pass a burst) and on numpy, ``batched_snapshot``
+   on ``cuda`` (one fused selection a burst), and the registered
+   ``faulty`` scenario turned into 200-wide bursts through
+   ``scenario.build(sc).run()`` on ``cuda``; each run with the counters
+   zeroed just before and read just after, and each required to launch
+   its kernel exactly once per multi-request burst, to select on the
+   current profiles, and (on ``cuda``) to have its first 20 launches
+   equal to the plain version on the same operands; the charged
+   ``batched`` run must attain 0.5 (``[engine ...]`` lines);
+6. timings for the record: per-variant warm prefill / prefill+decode
    with a profiler trace; ``select_batch`` and charged routing on numpy
    and on the card (``[perf]``), and the batch size at which the card
    overtakes numpy for each (``[crossover]``, three rounds);
@@ -1025,25 +1037,57 @@ def charged_batch(ex, router, B, seed):
                                       charged=state, charge=True)
 
 
+class Recorder:
+    """Stands in for a kernel wrapper on its module for one run: passes
+    every call through, and keeps the operands and outputs (copied) of
+    the first ``keep`` calls.  Its ``launches`` is the wrapper's own
+    count, so the wrapper's ``+= 1`` at its launch lands on the wrapper.
+    ``check(args)`` runs on every call before the wrapper does."""
+
+    def __init__(self, module, name, keep, check=None):
+        self.module, self.name, self.keep, self.check = module, name, keep, \
+            check
+        self.wrapper = getattr(module, name)
+        self.calls, self.n_calls = [], 0
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.launches = value
+
+    def __call__(self, *args, **kw):
+        if self.check is not None:
+            self.check(args)
+        self.n_calls += 1
+        out = self.wrapper(*args, **kw)
+        if len(self.calls) < self.keep:
+            clone = lambda x: x.clone() if torch.is_tensor(x) else x
+            outs = out if isinstance(out, tuple) else (out,)
+            self.calls.append((tuple(clone(a) for a in args), dict(kw),
+                               tuple(clone(o) for o in outs)))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.wrapper)
+
+
 def captured_call(module, name, fn) -> tuple:
     """Run ``fn`` with ``module.name`` recording the operands of each
     call to it (the wrapper still runs); returns the (args, kwargs) of
-    the one call ``fn`` made.  The wrapper counts its launch on its
-    module's name, so that launch lands on the recorder and is not
-    counted."""
-    wrapper, calls = getattr(module, name), []
-
-    def record(*args, **kw):
-        calls.append((args, kw))
-        return wrapper(*args, **kw)
-
-    record.launches = 0
-    setattr(module, name, record)
-    fn()
-    setattr(module, name, wrapper)
-    if len(calls) != 1:
-        raise AssertionError(f"{name} was called {len(calls)} times")
-    return calls[0]
+    the one call ``fn`` made.  Its launch counts on the wrapper, outside
+    any counted run."""
+    with Recorder(module, name, 1) as rec:
+        fn()
+    if rec.n_calls != 1:
+        raise AssertionError(f"{name} was called {rec.n_calls} times")
+    return rec.calls[0][:2]
 
 
 def main_selection(ex, ops, ref, policy_select) -> tuple:
@@ -1193,6 +1237,253 @@ def main_selection(ex, ops, ref, policy_select) -> tuple:
     return total, rows
 
 
+# The engine phase: the reference engine benchmark's constants
+# (``benchmarks/engine_throughput.py``), copied here.
+ENGINE_N, ENGINE_SLA_MS, ENGINE_SEED = 100_000, 250.0, 3
+BURST, BURST_EVERY_MS = 200, 400.0
+REPLAYED = 20           # recorded launches of each kernel held exactly
+# The burst ``faulty`` scenario: 100 bursts one second apart; the
+# registered faults plus r1 and r2 down from 30.5 s to 32.5 s, so that
+# every replica is down for two bursts.
+FAULTY_BURSTS, FAULTY_EVERY_MS = 100, 1000.0
+
+
+def burst_times(n_bursts, every_ms):
+    return np.repeat(np.arange(n_bursts) * every_ms, BURST)
+
+
+def batched_engine(backend, charge=True):
+    """The reference benchmark's ``batched`` (``batched_snapshot`` with
+    ``charge=False``) configuration: Table 2's 11 models over 4
+    replicas each, queue-aware, a zero-jitter 50 ms uplink."""
+    from repro_torch.core.netmodel import NetworkModel
+    from repro_torch.core.zoo import TABLE2
+    from repro_torch.sim import ServingSimulator, per_model_replicas
+    return ServingSimulator(
+        TABLE2, NetworkModel(50.0, 0.0),
+        per_model_replicas(TABLE2, replicas_per_model=4), seed=ENGINE_SEED,
+        queue_aware=True, backend=backend, charge_batches=charge)
+
+
+def faulty_burst_scenario():
+    """The registered ``faulty`` scenario with 200-wide simultaneous
+    bursts (a trace over a zero-jitter uplink, so that each burst is one
+    Router batch), the selection on the card, and every replica down for
+    two bursts; its SLA-aware admission is the registered one."""
+    import dataclasses
+    from repro_torch.scenario import get_scenario
+    from repro_torch.scenario.spec import FaultSpec
+    sc = get_scenario("faulty")
+    dep = sc.deployment
+    down = tuple(FaultSpec(kind=k, replica=r, at_ms=t)
+                 for r in ("r1", "r2")
+                 for k, t in (("kill", 30_500.0), ("recover", 32_500.0)))
+    return dataclasses.replace(
+        sc, name="faulty_burst",
+        workload=dataclasses.replace(
+            sc.workload, arrival="trace",
+            times_ms=tuple(burst_times(FAULTY_BURSTS,
+                                       FAULTY_EVERY_MS).tolist())),
+        network=dataclasses.replace(sc.network, std_ms=0.0),
+        deployment=dataclasses.replace(
+            dep, faults=tuple(sorted(dep.faults + down,
+                                     key=lambda f: f.at_ms))),
+        policy=dataclasses.replace(sc.policy, backend="cuda"))
+
+
+def engine_run(label, backend, kernel, run, router_of):
+    """Drive one engine run with the launch counters zeroed just before
+    and read just after.  Counts the Router's multi-request batches and
+    its host time in them, the device pool's uploads, and, on the card,
+    records the kernel in use (``kernel``): every call must select on
+    the current profiles (a charged pass on the store's table as it
+    stands; a fused pick on a pool uploaded for that burst).  Returns
+    (summary, stats, the recorder)."""
+    from repro_torch.kernels import ops, policy_select
+    from repro_torch.router import Router
+
+    stats = dict(multi=0, route_s=0.0, uploads=0, upload_s=0.0, stale=0)
+    uploaded = {}                      # id(pool.mu) → (upload no., mu)
+    last = [0]
+    orig_route, orig_pool = Router.route_batch_arrays, policy_select.DevicePool
+
+    def route(self, t_sla_ms, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig_route(self, t_sla_ms, *a, **kw)
+        if len(t_sla_ms) > 1:
+            stats["multi"] += 1
+            stats["route_s"] += time.perf_counter() - t0
+        return out
+
+    def pool(mu, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig_pool(mu, *a, **kw)
+        stats["uploads"] += 1
+        stats["upload_s"] += time.perf_counter() - t0
+        uploaded[id(out.mu)] = (stats["uploads"], np.float32(mu))
+        return out
+
+    def current(args):
+        no, mu = uploaded[id(args[0])]
+        if kernel == "charged_select":
+            ok = np.array_equal(mu, np.float32(router_of().store.table().mu))
+        else:
+            ok = no > last[0]
+        last[0] = no
+        stats["stale"] += not ok
+
+    rec = Recorder(policy_select, kernel, REPLAYED,
+                   current if backend == "cuda" else None)
+    Router.route_batch_arrays, policy_select.DevicePool = route, pool
+    ops.reset_launch_counts()
+    with rec:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    Router.route_batch_arrays, policy_select.DevicePool = orig_route, \
+        orig_pool
+    counts = ops.launch_counts()
+    r = res.result if hasattr(res, "epochs") else res
+    n_batches = (res.epochs[-1].router_stats if hasattr(res, "epochs")
+                 else router_of().stats())["n_batches"]
+    n = r.n_arrived
+    events = 4 * r.n_completed + 2 * r.n_rejected
+    multi = max(stats["multi"], 1)
+    log(f"[engine {label} {backend}] requests/s={n / wall:.6g} "
+        f"events/s={events / wall:.6g} wall_s={wall:.4g} n={n} "
+        f"sla_attainment={r.sla_attainment:.6g} "
+        f"mean_accuracy={r.mean_accuracy:.6g} shed={r.n_rejected} "
+        f"n_batches={n_batches} multi_request_batches={stats['multi']} "
+        f"launches={counts[kernel]} "
+        f"host_us_per_burst={stats['route_s'] / multi * 1e6:.5g} "
+        f"pool_uploads={stats['uploads']} "
+        f"upload_us_per_burst={stats['upload_s'] / multi * 1e6:.5g} "
+        f"stale_pool_bursts={stats['stale']}")
+    want = {k: 0 for k in counts}
+    if backend == "cuda":
+        want[kernel] = stats["multi"]
+    if counts != want:
+        raise AssertionError(f"engine {label} {backend}: launches {counts}, "
+                             f"want one {kernel} per multi-request batch: "
+                             f"{want}")
+    if stats["stale"]:
+        raise AssertionError(f"engine {label} {backend}: {stats['stale']} "
+                             "bursts selected on a stale device pool")
+    if not (n > 0 and np.isfinite(r.sla_attainment)
+            and np.isfinite(r.mean_accuracy)):
+        raise AssertionError(f"engine {label} {backend}: bad summary {r}")
+    return r, dict(stats, launches=counts[kernel], wall=wall), rec
+
+
+def replay(label, kernel, rec, ref) -> None:
+    """The first recorded launches of ``kernel``, each replayed through
+    its plain version on the same operands: every output equal."""
+    plain = {"charged_select": ref.charged_select_ref,
+             "fused_select": ref.fused_select_ref}[kernel]
+    if not rec.calls:
+        raise AssertionError(f"engine {label}: no {kernel} call recorded")
+    for i, (args, kw, outs) in enumerate(rec.calls):
+        want = plain(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for j, (g, w) in enumerate(zip(outs, want)):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"engine {label}: {kernel} launch {i} "
+                                     f"output {j} differs from the plain "
+                                     "version's")
+    a = rec.calls[0][0]
+    log(f"[engine {label}] first {len(rec.calls)} {kernel} launches "
+        f"(B={a[4 if kernel == 'fused_select' else 8].shape[0]} "
+        f"n={a[0].shape[0]}"
+        + (f" R={a[6].shape[0]}" if kernel == "charged_select" else "")
+        + ") replayed through the plain version: every output equal")
+
+
+def engine_phase(ops, ref) -> dict:
+    """The port's discrete-event engine on the card, at the size the
+    reference's engine benchmark calls routine: ``batched`` (100,000
+    requests in 200-wide bursts, one charged pass a burst) on ``cuda``
+    and on numpy, ``batched_snapshot`` (one fused selection a burst) on
+    ``cuda``, and the burst ``faulty`` scenario through
+    ``scenario.build(sc).run()`` on ``cuda``.  Returns the launches of
+    the counted runs."""
+    from repro_torch.core.policy import ModiPick
+    from repro_torch.scenario import build
+    from repro_torch.sim import TraceArrivals
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    times = burst_times(-(-ENGINE_N // BURST), BURST_EVERY_MS)[:ENGINE_N]
+
+    def batched(backend, charge):
+        eng = batched_engine(backend, charge)
+        run = lambda: eng.run(ModiPick(t_threshold=20.0), ENGINE_SLA_MS,
+                              ENGINE_N, arrivals=TraceArrivals(times))
+        return run, lambda: eng.router
+
+    results = {}
+    for label, backend, charge, kernel in (
+            ("batched", "cuda", True, "charged_select"),
+            ("batched", "numpy", True, "charged_select"),
+            ("batched_snapshot", "cuda", False, "fused_select")):
+        run, router_of = batched(backend, charge)
+        r, st, rec = engine_run(label, backend, kernel, run, router_of)
+        results[label, backend] = (r, st)
+        if backend == "cuda":
+            replay(label, kernel, rec, ref)
+            total[kernel] += st["launches"]
+        if (label, backend) == ("batched", "cuda"):
+            ms = engine_kernel_times(ops, ref, rec)
+            busy = st["launches"] * ms / 1e3
+            log(f"[engine] batched cuda: the card busy about {busy:.4g} s "
+                f"of the run's {st['wall']:.4g} s (launches x the kernel's "
+                f"ms on the first burst), idle share about "
+                f"{1 - busy / st['wall']:.3f}")
+    if results["batched", "cuda"][0].sla_attainment < 0.5:
+        raise AssertionError("charged batched engine attains "
+                             f"{results['batched', 'cuda'][0].sla_attainment}"
+                             " < 0.5: intra-batch charging regressed")
+    cuda_s, numpy_s = (results["batched", b][1]["wall"]
+                       for b in ("cuda", "numpy"))
+    log(f"[engine] batched: the card's run takes {cuda_s:.4g} s, numpy's "
+        f"{numpy_s:.4g} s ({numpy_s / cuda_s:.3g}x)")
+
+    harness = build(faulty_burst_scenario())
+    engines, make = [], harness.engine
+
+    def engine(*a, **kw):
+        engines.append(make(*a, **kw))
+        return engines[-1]
+
+    harness.engine = engine
+    r, st, rec = engine_run("faulty_burst", "cuda", "charged_select",
+                            harness.run, lambda: engines[-1].router)
+    replay("faulty_burst", "charged_select", rec, ref)
+    if not st["launches"] > 0:
+        raise AssertionError("the faulty burst scenario launched no kernel")
+    total["charged_select"] += st["launches"]
+    log(f"[engine] phase {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+def engine_kernel_times(ops, ref, rec) -> float:
+    """The charged pass on the first burst the engine handed it (B =
+    200, n = 11, R = 44): its time and µs per request, the plain
+    version's, and the bound.  Returns the kernel's ms."""
+    args, kw, _ = rec.calls[0]
+    B, n, R = args[8].shape[0], args[0].shape[0], args[6].shape[0]
+    ms = time_ms(lambda: ops.charged_select(*args, **kw), iters=50)
+    t0 = time.perf_counter()
+    ref.charged_select_ref(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b = charged_bound(args)
+    log(f"[engine] charged_select B={B} n={n} R={R}: ms={ms:.5g} = "
+        f"{ms / B * 1e3:.4g} us per request; plain_ms={plain_ms:.5g} "
+        f"(host-timed, once); bound_ms={b[0]:.4g} ({b[1]})")
+    return ms
+
+
 def perf_selection(ex) -> None:
     """``select_batch`` and charged ``route_batch_arrays`` on numpy and
     on the card, host wall time (median of 5)."""
@@ -1289,7 +1580,13 @@ def main() -> int:
         if not row["launches"] > 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # 5. timings for the record
+    # 5. the discrete-event engine's bursts through the selection kernels
+    for name, c in engine_phase(ops, ref).items():
+        launches[name] += c
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+
+    # 6. timings for the record
     perf_selection(ex)
     crossover(ex)
 

@@ -66,6 +66,16 @@ class PoolExecutor:
     # policy_vec backend override for batched selection
     backend: Optional[str] = None
 
+    @classmethod
+    def from_scenario(cls, scenario, variants: List[Variant],
+                      **overrides) -> "PoolExecutor":
+        """Adapter: build the live execution shell from a declarative
+        :class:`repro_torch.scenario.Scenario` — the scenario supplies the
+        network/policy/admission/queue-aware surface, the caller supplies
+        the real model pool (``variants``)."""
+        from repro_torch.scenario.build import build_executor
+        return build_executor(scenario, variants, **overrides)
+
     def __post_init__(self):
         self.by_name: Dict[str, Variant] = {v.name: v for v in self.variants}
         self.store = ProfileStore(

@@ -446,3 +446,119 @@ def test_wrappers_raise_on_cuda_tensors_they_do_not_take(gen):
                            torch.ones(3, 2, device="cuda"),
                            *(torch.ones(2, device="cuda"),) * 2,
                            *(torch.ones(4, device="cuda"),) * 4)
+
+
+def test_charged_kernel_at_the_engine_pool_with_dead_models(gen):
+    """B3 at the engine's pool (n = 11 models over R = 44 replicas, four
+    a model) with every replica of three models at +inf, among them
+    replica 0's: all five outputs equal to the plain version's, with
+    and without SLA-aware admission.  A dead model's wait is taken as 0
+    and its pick lands on replica 0, as the reference's scan does."""
+    n, R, B = 11, 44, 600
+    rng, pool = _select_pool(n, seed=44)
+    cand = torch.zeros(n, R, dtype=torch.bool)
+    for m in range(n):
+        cand[m, 4 * m:4 * m + 4] = True
+    rep_wait = rng.uniform(0.0, 30.0, R)
+    rep_wait[0:4] = rep_wait[20:24] = rep_wait[40:44] = np.inf
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+    budgets = rng.uniform(20.0, 160.0, B)
+    for lim, include_mu in ((np.full(B, np.inf), False), (budgets, True)):
+        args = (pool.mu, pool.sigma, pool.acc, pool.rank, pool.mu * 0.05,
+                cand.cuda(), f32(np.ones(R)), f32(rep_wait), f32(budgets),
+                f32(budgets - 20.0),
+                torch.rand(B, generator=gen, device="cuda"), f32(lim))
+        kw = dict(slack=0.0, include_mu=include_mu, fastest=pool.fastest)
+        got = ops.charged_select(*args, **kw)
+        want = ref.charged_select_ref(*args, **kw)
+        for what, g, w in zip(("picks", "admitted", "has_base", "replica",
+                               "w_chosen"), got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), what
+        dead = torch.isin(got[0].long(), torch.tensor([0, 5, 10],
+                                                      device="cuda"))
+        assert dead.any() and (got[3][dead & got[1]] == 0).all()
+
+
+def _engine_run(monkeypatch, charge, faults=()):
+    """The reference engine benchmark's ``batched`` configuration
+    (``batched_snapshot`` with ``charge=False``) at 2,000 requests in
+    200-wide bursts on ``backend="cuda"``, with every launch of the
+    kernel in use recorded: (engine, summary, [(operands, kwargs,
+    outputs)])."""
+    from repro_torch.core.netmodel import NetworkModel
+    from repro_torch.core.policy import ModiPick
+    from repro_torch.core.zoo import TABLE2
+    from repro_torch.router import RetryPolicy
+    from repro_torch.sim import (ServingSimulator, TraceArrivals,
+                                 per_model_replicas)
+
+    name = "charged_select" if charge else "fused_select"
+    wrapper, calls = getattr(policy_select, name), []
+
+    class Record:
+        # the wrapper's ``launches += 1`` lands on the wrapper's count
+        launches = property(lambda self: wrapper.launches,
+                            lambda self, v: setattr(wrapper, "launches", v))
+
+        def __call__(self, *a, **kw):
+            out = wrapper(*a, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((a, kw, tuple(o.clone() for o in outs)))
+            return out
+
+    monkeypatch.setattr(policy_select, name, Record())
+    before = wrapper.launches
+    eng = ServingSimulator(
+        TABLE2, NetworkModel(50.0, 0.0),
+        per_model_replicas(TABLE2, replicas_per_model=4), seed=3,
+        queue_aware=True, backend="cuda", charge_batches=charge,
+        faults=faults, retry=RetryPolicy(max_attempts=2) if faults else None)
+    times = np.repeat(np.arange(10) * 400.0, 200)
+    res = eng.run(ModiPick(t_threshold=20.0), 250.0, 2000,
+                  arrivals=TraceArrivals(times))
+    assert wrapper.launches - before == len(calls)
+    return eng, res, calls
+
+
+@pytest.mark.parametrize("charge", [True, False],
+                         ids=["batched", "batched_snapshot"])
+def test_engine_bursts_hold_every_launch_to_plain(gen, monkeypatch, charge):
+    """One kernel launch a burst, each one's outputs equal to the plain
+    version's on the same operands."""
+    eng, res, calls = _engine_run(monkeypatch, charge)
+    assert eng.router.stats()["n_batches"] == len(calls) == 10
+    plain = ref.charged_select_ref if charge else ref.fused_select_ref
+    for a, kw, outs in calls:
+        want = plain(*a, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(outs, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert res.n_arrived == 2000
+    if charge:
+        assert res.sla_attainment >= 0.5
+        assert calls[0][0][0].shape == (11,) and calls[0][0][6].shape == (44,)
+
+
+def test_engine_bursts_with_dead_models(gen, monkeypatch):
+    """Every replica of SqueezeNet (replica 0 among them) and of
+    NasNet-Large killed mid-run: each charged launch equal to the plain
+    version, and picks that land on dead replica 0 fall back to the
+    live-pool pick, which rejects."""
+    from repro_torch.sim import ReplicaFault
+    faults = [ReplicaFault(at_ms=1_260.0, kind="kill", replica=f"{m}/{k}")
+              for m in ("SqueezeNet", "NasNet-Large") for k in range(4)]
+    faults += [ReplicaFault(at_ms=3_000.0, kind="recover",
+                            replica=f"SqueezeNet/{k}") for k in (0, 1)]
+    eng, res, calls = _engine_run(monkeypatch, True, faults)
+    assert len(calls) == 10
+    for a, kw, outs in calls:
+        for g, w in zip(outs, ref.charged_select_ref(*a, **kw)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    c = eng._cols
+    reasons = {eng._reasons[r] for r in c.reason[c.rejected]}
+    assert res.n_completed + res.n_rejected == 2000
+    assert (c.replica[~c.rejected] >= 0).all()
+    assert "no live replica for NasNet-Large" in reasons

@@ -43,7 +43,8 @@ def test_port_package_is_not_empty():
     assert {"kernels/ops.py", "models/model.py", "serving/pool.py",
             "core/policy_vec.py", "router/router.py", "models/ssm.py",
             "models/rglru.py", "kernels/ssd_scan.py",
-            "kernels/rglru_scan.py"} <= names
+            "kernels/rglru_scan.py", "sim/engine.py", "core/simulate.py",
+            "scenario/build.py", "scenario/registry.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
         "rglru_scan.cu", "policy_select.cu"}
