@@ -55,7 +55,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    current profiles, and (on ``cuda``) to have its first 20 launches
    equal to the plain version on the same operands; the charged
    ``batched`` run must attain 0.5 (``[engine ...]`` lines);
-6. timings for the record: per-variant warm prefill / prefill+decode
+6. premodel and the multi-cell fleet through the stacked selection
+   kernel (B4, ``stacked_select``): first the kernel against its plain
+   version, exactly, on synthetic operands (classed rows with K = 1, 2
+   and 8 classes and queue shifts, fleet cells of unequal widths padded
+   with ``PAD_MU`` lanes, rows with no base and degenerate rows, B = 1,
+   97 and the main path's shapes), each timed as an ``[extra]`` line;
+   then, each with the counters zeroed just before and read just after,
+   the registered ``premodel_mix`` as 20 simultaneous bursts of 200 over
+   a zero-jitter uplink, and ``fleet_steady`` and ``fleet_diurnal``,
+   all through ``scenario.build(sc).run()`` on ``cuda``: one launch a
+   burst (20) and one an epoch with pending requests (17 and 12), the
+   first 20 launches of each replayed through the plain version, and
+   each run equal to the same run on ``cpu`` (the plain version) on the
+   card's uniforms (``[stacked ...]`` lines; ``fleet_diurnal`` must
+   spill);
+7. timings for the record: per-variant warm prefill / prefill+decode
    with a profiler trace; ``select_batch`` and charged routing on numpy
    and on the card (``[perf]``), and the batch size at which the card
    overtakes numpy for each (``[crossover]``, three rounds);
@@ -850,7 +865,7 @@ def expected_launches(cfgs) -> dict:
     layer; no selection kernel on the scalar path."""
     want = dict(flash_attention=0, decode_attention=0, ssd_scan=0,
                 rglru_scan=0, modipick_probs=0, fused_select=0,
-                charged_select=0)
+                charged_select=0, stacked_select=0)
     for cfg in cfgs:
         kinds = cfg.block_kinds
         n_attn = sum(k in ("attn", "local") for k in kinds)
@@ -1376,11 +1391,12 @@ def engine_run(label, backend, kernel, run, router_of):
     return r, dict(stats, launches=counts[kernel], wall=wall), rec
 
 
-def replay(label, kernel, rec, ref) -> None:
+def replay(label, kernel, rec, ref, tag="engine") -> None:
     """The first recorded launches of ``kernel``, each replayed through
     its plain version on the same operands: every output equal."""
     plain = {"charged_select": ref.charged_select_ref,
-             "fused_select": ref.fused_select_ref}[kernel]
+             "fused_select": ref.fused_select_ref,
+             "stacked_select": ref.stacked_select_ref}[kernel]
     if not rec.calls:
         raise AssertionError(f"engine {label}: no {kernel} call recorded")
     for i, (args, kw, outs) in enumerate(rec.calls):
@@ -1392,11 +1408,15 @@ def replay(label, kernel, rec, ref) -> None:
                                      f"output {j} differs from the plain "
                                      "version's")
     a = rec.calls[0][0]
-    log(f"[engine {label}] first {len(rec.calls)} {kernel} launches "
-        f"(B={a[4 if kernel == 'fused_select' else 8].shape[0]} "
-        f"n={a[0].shape[0]}"
-        + (f" R={a[6].shape[0]}" if kernel == "charged_select" else "")
-        + ") replayed through the plain version: every output equal")
+    if kernel == "charged_select":
+        shape = f"B={a[8].shape[0]} n={a[0].shape[0]} R={a[6].shape[0]}"
+    elif kernel == "fused_select":
+        shape = f"B={a[4].shape[0]} n={a[0].shape[0]}"
+    else:
+        shape = (f"B={a[4].shape[0]} pool rows {a[0].shape[0]} "
+                 f"n={a[0].shape[1]}")
+    log(f"[{tag} {label}] first {len(rec.calls)} {kernel} launches "
+        f"({shape}) replayed through the plain version: every output equal")
 
 
 def engine_phase(ops, ref) -> dict:
@@ -1482,6 +1502,205 @@ def engine_kernel_times(ops, ref, rec) -> float:
         f"{ms / B * 1e3:.4g} us per request; plain_ms={plain_ms:.5g} "
         f"(host-timed, once); bound_ms={b[0]:.4g} ({b[1]})")
     return ms
+
+
+# The stacked selection's synthetic cases: (form, pool rows, n, B (a
+# cell's B in the fleet form), queue shifts).  The last three are the
+# main path's shapes: a premodel burst (K = 2 classes of Table 2's 11
+# models), fleet_diurnal's epoch (6 cells of 5 models) and
+# fleet_steady's (4 cells of 11).
+STACKED_CASES = {"classed K=1": ("classed", 1, 11, 200, True),
+                 "classed K=8": ("classed", 8, 3, 97, True),
+                 "classed B=1": ("classed", 2, 11, 1, True),
+                 "classed no shifts": ("classed", 2, 11, 97, False),
+                 "fleet B=1": ("fleet", 2, 4, 1, False),
+                 "fleet B=97": ("fleet", 3, 11, 97, False),
+                 "classed K=2 B=200": ("classed", 2, 11, 200, True),
+                 "fleet C=6 npad=5 B=2550": ("fleet", 6, 5, 2550, False),
+                 "fleet C=4 npad=11 B=1200": ("fleet", 4, 11, 1200, False)}
+PREMODEL_BURSTS, PREMODEL_EVERY_MS = 20, 2000.0
+
+
+def stacked_inputs(policy_select, gen, form, P, n, B, shifts, seed):
+    """The stacked kernel's operands on the card.  ``classed``: P class
+    rows of mu/sigma over one shared acc/rank, a random class a request;
+    ``fleet``: P cells of B requests each, acc/rank a row each, every
+    cell but the first narrower than n, its padded lanes at
+    PAD_MU/0/1/PAD_RANK.  The first 2% of the requests have no base, the
+    next 3% a negative mass (uniform over their eligible models)."""
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(5.0, 60.0, (P, n))
+    sig = rng.uniform(0.0, 5.0, (P, n))
+    if form == "classed":
+        acc = rng.uniform(0.3, 0.9, n)
+        rank = np.argsort(np.argsort(-acc, kind="stable"))
+        row = rng.integers(0, P, B)
+    else:
+        acc = rng.uniform(0.3, 0.9, (P, n))
+        rank = np.argsort(np.argsort(-acc, kind="stable", axis=1), axis=1)
+        for c, w in enumerate(rng.integers(1, n + 1, P)):
+            w = n if c == 0 else w
+            mu[c, w:], sig[c, w:] = policy_select.PAD_MU, 0.0
+            acc[c, w:], rank[c, w:] = 1.0, policy_select.PAD_RANK
+        row = np.repeat(np.arange(P), B)
+        B = P * B
+    t_u = rng.uniform(-5.0, 120.0, B)
+    t_u[: B // 50] = float(mu.min()) - 50.0
+    t_l = t_u - THRESHOLD_MS
+    t_l[B // 50: B // 20] = t_u[B // 50: B // 20] + 40.0
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+    args = (f32(mu), f32(sig), f32(acc), f32(rank),
+            torch.tensor(row, dtype=torch.int32, device="cuda"), f32(t_u),
+            f32(t_l), torch.rand(B, generator=gen, device="cuda"))
+    kw = dict(shifts=f32(rng.uniform(0.0, 20.0, n)) if shifts else None,
+              fallback=form == "classed")
+    return args, kw
+
+
+def stacked_bound(args, kw) -> tuple:
+    """The stacked selection: the pool rows (mu, sigma, acc, rank, the
+    shifts) and per request its row, bounds and uniform read once, its
+    pick and flag written; ~20 fp32 operations a (request, model)."""
+    mu, acc, row = args[0], args[2], args[4]
+    B, n = row.shape[0], mu.shape[1]
+    shifts = 0 if kw.get("shifts") is None else n
+    nbytes = 4 * (2 * mu.numel() + 2 * acc.numel() + shifts) + 21 * B
+    return bound(nbytes, 20 * B * n, torch.float32)
+
+
+def stacked_kernels(ops, ref, policy_select, gen) -> None:
+    """B4 against its plain version on synthetic operands (picks and
+    has_base equal at gamma 1), each case timed as an ``[extra]``
+    line."""
+    for i, (case, spec) in enumerate(STACKED_CASES.items()):
+        args, kw = stacked_inputs(policy_select, gen, *spec, seed=i)
+        got = ops.stacked_select(*args, **kw)
+        want = ref.stacked_select_ref(*args, **kw)
+        for what, g, w in zip(("picks", "has_base"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"stacked_select {case}: {what} "
+                                     "differs from the plain version's")
+        B = args[4].shape[0]
+        if B > 50 and (got[1].all() or not got[1].any()):
+            raise AssertionError(f"stacked_select {case}: the case must "
+                                 "have rows with a base and rows without")
+        log(f"B4 stacked_select {case}: picks and has_base equal to the "
+            f"plain version's ({int((~got[1]).sum())} of {B} rows with no "
+            "base)")
+        extra(f"stacked_select {case}",
+              time_ms(lambda: ops.stacked_select(*args, **kw)),
+              time_ms(lambda: ref.stacked_select_ref(*args, **kw), iters=10),
+              stacked_bound(args, kw))
+
+
+def premodel_bursts_scenario():
+    """The registered ``premodel_mix`` as 20 simultaneous bursts of 200
+    over a zero-jitter uplink (every burst one classed Router batch),
+    the selection on the card."""
+    import dataclasses
+    from repro_torch.scenario import get_scenario
+    sc = get_scenario("premodel_mix")
+    times = np.repeat(np.arange(PREMODEL_BURSTS) * PREMODEL_EVERY_MS, BURST)
+    return dataclasses.replace(
+        sc, name="premodel_bursts",
+        workload=dataclasses.replace(sc.workload, arrival="trace",
+                                     n_requests=len(times),
+                                     times_ms=tuple(times.tolist())),
+        network=dataclasses.replace(sc.network, std_ms=0.0),
+        policy=dataclasses.replace(sc.policy, backend="cuda"))
+
+
+def on_backend(sc, backend):
+    import dataclasses
+    return dataclasses.replace(sc, policy=dataclasses.replace(
+        sc.policy, backend=backend))
+
+
+def stacked_phase(ops, ref, policy_select, gen) -> tuple:
+    """Premodel and the fleet through B4 (phase 6): the synthetic cases,
+    then the three counted runs, each required to launch
+    ``stacked_select`` exactly once a multi-request burst (premodel) or
+    an epoch with pending requests (fleet) and nothing else, its first
+    launches replayed through the plain version, and its result equal
+    to the same run on ``cpu`` on the card's uniforms.  Returns the
+    launches of the counted runs and the kernel's row, timed on the
+    first premodel burst's operands."""
+    from repro_torch.scenario import build, get_scenario
+    t_phase = time.perf_counter()
+    stacked_kernels(ops, ref, policy_select, gen)
+    card_uniforms = policy_select.uniforms
+    runs = (("premodel_mix bursts", premodel_bursts_scenario()),
+            ("fleet_steady", on_backend(get_scenario("fleet_steady"),
+                                        "cuda")),
+            ("fleet_diurnal", on_backend(get_scenario("fleet_diurnal"),
+                                         "cuda")))
+    launches, first = 0, {}
+    for label, sc in runs:
+        rec = Recorder(policy_select, "stacked_select", REPLAYED)
+        ops.reset_launch_counts()
+        with rec:
+            t0 = time.perf_counter()
+            res = build(sc).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        fleet = res.fleet
+        calls = PREMODEL_BURSTS if fleet is None else len(fleet.epochs)
+        if counts != {k: calls * (k == "stacked_select") for k in counts}:
+            raise AssertionError(f"{label}: launches {counts}, want "
+                                 f"{calls} stacked_select and nothing else")
+        replay(label, "stacked_select", rec, ref, tag="stacked")
+        policy_select.uniforms = (lambda seed, n, device:
+                                  card_uniforms(seed, n, "cuda").to(device))
+        t0 = time.perf_counter()
+        plain = build(on_backend(sc, "cpu")).run()
+        cpu_wall = time.perf_counter() - t0
+        policy_select.uniforms = card_uniforms
+        keys = ("sla_attainment", "mean_accuracy", "mean_latency")
+        got = {k: getattr(res, k) for k in keys}
+        want = {k: getattr(plain, k) for k in keys}
+        if fleet is not None:
+            got.update(spill_rate=fleet.spill_rate, locality=fleet.locality)
+            want.update(spill_rate=plain.fleet.spill_rate,
+                        locality=plain.fleet.locality)
+        if got != want or not all(np.isfinite(v) for v in got.values()):
+            raise AssertionError(f"{label}: the card's run {got} differs "
+                                 f"from the plain version's {want}")
+        log(f"[stacked {label}] cuda: " + " ".join(
+            f"{k}={v:.6g}" for k, v in got.items())
+            + f" n={res.result.n_arrived if fleet is None else fleet.n_arrived}"
+            f" launches={counts['stacked_select']} wall_s={wall:.4g}; "
+            f"cpu (plain version, the card's uniforms): the same, "
+            f"wall_s={cpu_wall:.4g}")
+        launches += counts["stacked_select"]
+        first[label] = rec.calls[0][:2]
+    if not res.fleet.n_spilled > 0:          # res: the fleet_diurnal run
+        raise AssertionError("fleet_diurnal spilled no request")
+    for label in ("fleet_steady", "fleet_diurnal"):
+        a, kw = first[label]
+        extra(f"stacked_select {label} first epoch pool rows "
+              f"{a[0].shape[0]} n={a[0].shape[1]} B={a[4].shape[0]}",
+              time_ms(lambda: ops.stacked_select(*a, **kw)),
+              time_ms(lambda: ref.stacked_select_ref(*a, **kw), iters=10),
+              stacked_bound(a, kw))
+    a, kw = first["premodel_mix bursts"]
+    b = stacked_bound(a, kw)
+    row = dict(
+        name="stacked_select", route="cuda",
+        source="src/repro_torch/csrc/policy_select.cu",
+        replaces="src/repro/kernels/policy_select.py:403", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.stacked_select(*a, **kw),
+                   label="stacked_select kernel"),
+        plain_ms=time_ms(lambda: ref.stacked_select_ref(*a, **kw)),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[stacked] row timed on the first premodel burst's operands: "
+        f"B={a[4].shape[0]} classes={a[0].shape[0]} n={a[0].shape[1]}")
+    log_timing()
+    log(f"[stacked] phase {time.perf_counter() - t_phase:.1f}s")
+    return launches, row
 
 
 def perf_selection(ex) -> None:
@@ -1586,7 +1805,15 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = launches[name]
 
-    # 6. timings for the record
+    # 6. premodel and the fleet through the stacked selection kernel
+    launches["stacked_select"], rows["stacked_select"] = stacked_phase(
+        ops, ref, policy_select, gen)
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+        if not row["launches"] > 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    # 7. timings for the record
     perf_selection(ex)
     crossover(ex)
 
@@ -1596,7 +1823,8 @@ def main() -> int:
                 raise AssertionError(f"{row['name']}: bad {key} {row[key]}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     order = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-             "modipick_probs", "fused_select", "charged_select")
+             "modipick_probs", "fused_select", "charged_select",
+             "stacked_select")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}

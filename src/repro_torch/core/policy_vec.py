@@ -92,6 +92,17 @@ def resolve_backend(backend: Optional[str], n_batch: int) -> str:
     return _resolve_backend(backend, n_batch)
 
 
+def selection_device(backend: Optional[str], n_batch: int) -> str:
+    """The device a selection with no numpy path runs on under
+    ``backend``: ``cuda`` or ``cpu`` where the backend resolves to
+    one, ``cpu`` (the kernel's plain version) where it resolves to
+    ``numpy``, ``auto`` below ``DEVICE_MIN_BATCH`` included.  Premodel's
+    classed selection and the fleet's stacked selection follow it: the
+    reference runs their device function at every batch size."""
+    resolved = _resolve_backend(backend, n_batch)
+    return resolved if resolved in DEVICE_BACKENDS else "cpu"
+
+
 # ----------------------------------------------------------------------
 # stages 1–2: masked argmax + broadcast window membership (numpy)
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 // ModiPick selection for Hopper (sm_90a): stages 1-3 and the
-// inverse-CDF draw as one set of per-row device functions, and three
+// inverse-CDF draw as one set of per-row device functions, and four
 // kernels on them.
 //
 // Replaces, from src/repro/kernels/policy_select.py:
@@ -9,7 +9,10 @@
 // - `_fused_select` (jitted jnp around that kernel): stages 1-2, the
 //   stage-3 probabilities and the draw -> `fused_kernel`;
 // - `charged_select` / `_charged_step` (a `lax.scan` over the batch whose
-//   carry is the per-replica wait ledger) -> `charged_kernel`.
+//   carry is the per-replica wait ledger) -> `charged_kernel`;
+// - `_classed_select` (premodel: each request's mu/sigma row gathered by
+//   its input class, plus per-model queue shifts) and `fleet_select_body`
+//   (vmapped over the fleet's cells), both jitted jnp -> `stacked_kernel`.
 // The TPU kernel rode the pool on the 128-lane axis and the batch on
 // sublanes, one (bb, 128) tile a grid step, because a TPU core does
 // vector work on whole tiles.
@@ -40,6 +43,13 @@
 //   argmin); lane 0 runs the per-row selection.  The budget rows are
 //   staged in shared memory kChunk requests at a time, so no request
 //   waits on a load from device memory.
+// - The stacked selection gives each request a pool row of its own (its
+//   class's row, or its cell's), so no one pool is staged: each thread
+//   reads its row from device memory, where the K (or C) rows of at
+//   most a few kB stay in L1 and L2 for the whole launch.  acc and rank
+//   are shared by every row (a row stride of 0: classed) or have a row
+//   each (stride n: the fleet, whose padded lanes carry PAD_MU and
+//   PAD_RANK and are never eligible).
 //
 // The float operations are those of the plain versions
 // (kernels/ref.py), one for one and in the same order: `__fadd_rn`,
@@ -73,8 +83,9 @@ __device__ __forceinline__ float acc_weight(float acc, float gamma) {
   return gamma == 1.f ? a : powf(a, gamma);
 }
 
-// The pool as the kernels read it: operands in shared memory.  `Shifted`
-// adds the charged pass's per-model waits to mu (the shifted-mu view).
+// The pool as the kernels read it: `Pool`, operands in shared memory;
+// `Shifted` adds the charged pass's per-model waits to mu (the shifted-mu
+// view).
 struct Pool {
   const float *mu, *sig, *w, *rank;
   __device__ __forceinline__ float m(int j) const { return mu[j]; }
@@ -83,6 +94,26 @@ struct Shifted {
   const float *mu, *sig, *w, *rank, *wq;
   __device__ __forceinline__ float m(int j) const {
     return __fadd_rn(mu[j], wq[j]);
+  }
+};
+
+// The accuracy weights of a pool row in device memory, computed as read.
+struct AccWeights {
+  const float* acc;
+  float gamma;
+  __device__ __forceinline__ float operator[](int j) const {
+    return acc_weight(acc[j], gamma);
+  }
+};
+
+// `Stacked`: one request's own pool row, read from device memory, with
+// the optional per-model shifts added to mu (none: `shift` is null).
+struct Stacked {
+  const float *mu, *sig;
+  AccWeights w;
+  const float *rank, *shift;
+  __device__ __forceinline__ float m(int j) const {
+    return shift ? __fadd_rn(mu[j], shift[j]) : mu[j];
   }
 };
 
@@ -394,6 +425,57 @@ charged_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
   }
 }
 
+// B4: stages 1-3 and the draw with a pool row per request -> (B,) picks
+// and has_base flags.  Request b reads pool row row[b] of mu and sig (P,
+// n) and of acc and rank (row stride acc_stride: 0 or n); shift (n,) or
+// null.  The weights are the charged pass's unnormalised ones (uniform
+// over the eligible models on a degenerate row).  Where no base exists
+// the pick is, with `fallback`, the first index of least (shifted) mu in
+// the row, else -1.  grid = ceil(B / kRows), block = kRows; no shared
+// memory.
+__global__ void __launch_bounds__(kRows)
+stacked_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
+               const float* __restrict__ acc, const float* __restrict__ rank,
+               const int* __restrict__ row, const float* __restrict__ shift,
+               const float* __restrict__ tu, const float* __restrict__ tl,
+               const float* __restrict__ r01, int* __restrict__ out,
+               uint8_t* __restrict__ has, int B, int n, int acc_stride,
+               float gamma, int fallback) {
+  const long long b = (long long)blockIdx.x * kRows + threadIdx.x;
+  if (b >= B) return;
+  const long long r = row[b];
+  const Stacked p{mu + r * n, sig + r * n,
+                  AccWeights{acc + r * acc_stride, gamma},
+                  rank + r * acc_stride, shift};
+  const float t_u = tu[b], t_l = tl[b];
+  const Window win = stages12(p, n, t_u, t_l);
+  has[b] = win.has_base;
+  if (!win.has_base) {
+    int pick = -1;
+    if (fallback) {
+      pick = 0;
+      float best = p.m(0);
+      for (int j = 1; j < n; ++j) {
+        const float v = p.m(j);
+        if (v < best) {
+          best = v;
+          pick = j;
+        }
+      }
+    }
+    out[b] = pick;
+    return;
+  }
+  const auto e = [&](int j) { return eligible(p, win, j); };
+  const Mass s = mass(p, e, n, t_u, t_l);
+  const auto wj = [&](int j) {
+    const bool ej = e(j);
+    if (s.good) return ej ? utility(p, j, t_u, t_l) : 0.f;
+    return ej ? 1.f : 0.f;
+  };
+  out[b] = draw(wj, n, s.good ? s.total : s.cnt, r01[b], win.base);
+}
+
 // The charged block's shared memory (``charged_smem_bytes`` in
 // kernels/policy_select.py mirrors it for CPU calls;
 // ``charged_select_smem`` below reports it to the wrapper on the card).
@@ -457,6 +539,24 @@ extern "C" int charged_select_fwd(
   charged_kernel<<<1, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       mu, sig, acc, rank, mu_charge, cand, speed, rep_wait, tu, tl, r01, lim,
       ints, flags, B, n, R, gamma, slack, include_mu, fastest);
+  return (int)cudaGetLastError();
+}
+
+// mu, sig (P, n); acc, rank (P, n) with acc_stride n, or (n,) with 0;
+// row (B,) int32 in [0, P); shift (n,) or null; out (B,) int32; has (B,)
+// uint8.
+extern "C" int stacked_select_fwd(const float* mu, const float* sig,
+                                  const float* acc, const float* rank,
+                                  const int* row, const float* shift,
+                                  const float* tu, const float* tl,
+                                  const float* r01, int* out, uint8_t* has,
+                                  int B, int n, int acc_stride, float gamma,
+                                  int fallback, void* stream) {
+  if (B <= 0) return 0;
+  stacked_kernel<<<(B + kRows - 1) / kRows, kRows, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      mu, sig, acc, rank, row, shift, tu, tl, r01, out, has, B, n,
+      acc_stride, gamma, fallback);
   return (int)cudaGetLastError();
 }
 

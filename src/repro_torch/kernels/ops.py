@@ -5,7 +5,7 @@ launches its hand-written kernel for a tensor on the card (or raises);
 it adds one to its ``launches`` count each time it launches the kernel,
 and nowhere else.  All kernels are CUDA C++ for ``sm_90a``, one source
 each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
-(``kernels/build.py``); the three selection kernels share one source.
+(``kernels/build.py``); the four selection kernels share one source.
 
 | wrapper            | kernel                          | replaces (reference ``kernels/``)            |
 | ------------------ | ------------------------------- | -------------------------------------------- |
@@ -16,6 +16,7 @@ each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |
 | ``fused_select``     | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_fused_select`` (jnp)     |
 | ``charged_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_charged_step`` under ``lax.scan`` |
+| ``stacked_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_classed_select``, ``fleet_select_body`` (jnp) |
 """
 from __future__ import annotations
 
@@ -25,12 +26,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.policy_select import (charged_select, fused_select,
-                                               modipick_probs)
+                                               modipick_probs, stacked_select)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 WRAPPERS = (flash_attention, decode_attention, ssd_scan, rglru_scan,
-            modipick_probs, fused_select, charged_select)
+            modipick_probs, fused_select, charged_select, stacked_select)
 
 
 class ModelKernels(NamedTuple):

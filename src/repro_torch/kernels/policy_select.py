@@ -2,7 +2,7 @@
 device, as hand-written CUDA kernels on the card
 (``csrc/policy_select.cu``).
 
-Three kernel wrappers, one set of per-row device code under them:
+Four kernel wrappers, one set of per-row device code under them:
 
 - ``modipick_probs`` (K1, the port of the Pallas ``_probs_kernel``):
   stage 3 alone — the Eq. 3–4 utilities of a given (B, n) eligibility
@@ -20,6 +20,11 @@ Three kernel wrappers, one set of per-row device code under them:
   that include the charges of the requests before it.
   ``select_charged`` is its host entry point, which the Router's device
   pass calls.
+- ``stacked_select`` (B4, the port of the jitted ``_classed_select`` and
+  ``fleet_select_body``): stages 1–3 and the draw with a pool row per
+  request — its input class's row (premodel, with the queue shifts) or
+  its cell's row (the fleet).  ``select_classed`` and
+  ``select_fleet_stacked`` are its host entry points.
 
 Each wrapper runs its plain PyTorch version (``kernels/ref.py``) for
 tensors on the CPU and launches its kernel for tensors on the card (or
@@ -43,8 +48,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ref
 
 EPS = 1e-9
+# Padded-lane sentinels of the fleet's stacked pools: a model this slow
+# is never eligible, and a rank this large never wins stage 1.
+PAD_MU = 1e30
 PAD_RANK = 1e9
-MAX_POOL = 128           # models the K1 and fused kernels take
+MAX_POOL = 128           # models the K1, fused and stacked kernels take
 # Bytes of shared memory an H100 block can have: the limit a CPU call is
 # held to, so that it refuses what the card would.  On the card the
 # wrapper asks the kernel's library for the block's size and the card
@@ -57,6 +65,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROBS_ARGS = [_P] * 7 + [_I, _I, _F, _P]
 _FUSED_ARGS = [_P] * 8 + [_I, _I, _F, _P]
 _CHARGED_ARGS = [_P] * 14 + [_I, _I, _I, _F, _F, _I, _I, _P]
+_STACKED_ARGS = [_P] * 11 + [_I, _I, _I, _F, _I, _P]
 
 
 def _check_f32(name, xs, device) -> None:
@@ -243,6 +252,61 @@ def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
 charged_select.launches = 0
 
 
+def stacked_select(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
+                   shifts=None, gamma: float = 1.0, fallback: bool = False):
+    """Stages 1–3 and the inverse-CDF draw with a pool row per request.
+
+    mu/sigma: (P, n) float32 pool rows; acc/rank: (n,), shared by every
+    row, or (P, n), a row each; row: (B,) int32, each request's pool row
+    (the host entry points build it in range); shifts: None or (n,)
+    per-model waits added to every row's μ; t_u/t_l/r01: (B,) float32.
+    Returns ``(picks int32, has_base bool)``, each (B,): where no base
+    exists the pick is, with ``fallback``, the row's fastest model, else
+    −1 — see ``ref.stacked_select_ref``."""
+    if mu.dim() != 2:
+        raise ValueError(f"stacked_select: mu must be (P, n); got "
+                         f"{tuple(mu.shape)}")
+    P, n = mu.shape
+    B = t_u.shape[0] if t_u.dim() == 1 else -1
+    per_row = acc.dim() == 2
+    pool = (P, n) if per_row else (n,)
+    f32 = (mu, sigma, acc, rank, t_u, t_l, r01)
+    pairs = (("mu", mu, (P, n)), ("sigma", sigma, (P, n)),
+             ("acc", acc, pool), ("rank", rank, pool), ("row", row, (B,)),
+             ("t_u", t_u, (B,)), ("t_l", t_l, (B,)), ("r01", r01, (B,)))
+    if shifts is not None:
+        f32 += (shifts,)
+        pairs += (("shifts", shifts, (n,)),)
+    _check_shapes("stacked_select", pairs)
+    _check_f32("stacked_select", f32, mu.device)
+    if row.dtype != torch.int32 or row.device != mu.device \
+            or not row.is_contiguous():
+        raise TypeError("stacked_select: row must be a contiguous int32 "
+                        "tensor on the pool's device")
+    _check_pool("stacked_select", n)
+    if P < 1:
+        raise ValueError("stacked_select: no pool rows")
+    kw = dict(shifts=shifts, gamma=gamma, fallback=fallback)
+    if mu.device.type == "cpu":
+        return ref.stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l,
+                                      r01, eps=EPS, pad_rank=PAD_RANK, **kw)
+    picks = torch.empty(B, dtype=torch.int32, device=mu.device)
+    has = torch.empty(B, dtype=torch.uint8, device=mu.device)
+    if B:
+        _launch("stacked_select_fwd", _STACKED_ARGS, mu.device,
+                mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
+                rank.data_ptr(), row.data_ptr(),
+                None if shifts is None else shifts.data_ptr(),
+                t_u.data_ptr(), t_l.data_ptr(), r01.data_ptr(),
+                picks.data_ptr(), has.data_ptr(), B, n, n if per_row else 0,
+                float(gamma), int(bool(fallback)))
+        stacked_select.launches += 1
+    return picks, has.view(torch.bool)
+
+
+stacked_select.launches = 0
+
+
 # ======================================================================
 # Host entry points: numpy budget rows in, numpy picks out.
 # ======================================================================
@@ -363,6 +427,64 @@ def select_charged(pool: DevicePool, t_u, t_l, state, *,
     picks, admitted, has_base, rep, w_chosen = (t.cpu().numpy()
                                                 for t in out)
     return picks, admitted, has_base, rep, w_chosen.astype(np.float64)
+
+
+def select_classed(stacked, cls, t_u, t_l, *, shifts=None,
+                   gamma: float = 1.0, seed: int = 0,
+                   block_b: int = BLOCK_B):
+    """Batched class-conditional ModiPick selection in one launch.
+
+    ``stacked``: a ``premodel.conditional.StackedClassPools`` — (K, n)
+    per-class mu/sigma plus shared (n,) acc/rank on one device.
+    ``cls``: (B,) input-class ids; ``t_u``/``t_l``: (B,) budget bounds;
+    ``shifts``: optional (n,) per-model queue-wait shifts (the same for
+    every class: waits live at replicas, not input classes).  Returns
+    ``(idx, has_base)`` numpy arrays, the fallback already resolved to
+    the fastest model of the request's own (shifted) class row.  The
+    uniforms are drawn at the bucketed length, as the reference draws
+    them."""
+    cls = np.asarray(cls, np.int32)
+    if cls.size and not 0 <= int(cls.min()) <= int(cls.max()) < stacked.k:
+        raise ValueError(f"class ids must lie in [0, {stacked.k})")
+    B = len(t_u)
+    dev = stacked.device
+    tu, tl = _upload((t_u, t_l), dev)
+    sh = None if shifts is None else _upload((shifts,), dev)[0]
+    r01 = uniforms(seed, _bucket(B, block_b), dev)[:B]
+    picks, has_base = stacked_select(
+        stacked.mu, stacked.sigma, stacked.acc, stacked.rank,
+        torch.from_numpy(cls).to(dev), tu, tl, r01, shifts=sh, gamma=gamma,
+        fallback=True)
+    return picks.cpu().numpy(), has_base.cpu().numpy()
+
+
+def cell_uniforms(seed: int, C: int, n: int, device) -> torch.Tensor:
+    """(C, n) float32 uniforms on ``device``: ``n`` for each of the C
+    cells of a fleet, from the device's generator reseeded with
+    ``seed``."""
+    return uniforms(seed, C * n, device).view(C, n)
+
+
+def select_fleet_stacked(mu, sig, acc, rank, t_u, t_l, *,
+                         gamma: float = 1.0, seed: int = 0) -> np.ndarray:
+    """All cells' pending batches in one launch.
+
+    ``mu/sig/acc/rank``: (C, npad) stacked pool operands on one device
+    (see ``fleet.device.stack_cell_tables``); ``t_u``/``t_l``: (C, B)
+    budget bounds — row c is cell c's judgment of every pending request.
+    Returns (C, B) int32 numpy picks, −1 where cell c has no eligible
+    model for request b.  Each cell draws its own row of
+    :func:`cell_uniforms` at the bucketed length, as the reference draws
+    one PRNG fold a cell."""
+    C, B = np.shape(t_u)
+    dev = mu.device
+    tu, tl = _upload((np.ravel(t_u), np.ravel(t_l)), dev)
+    row = torch.from_numpy(np.repeat(np.arange(C, dtype=np.int32), B)
+                           ).to(dev)
+    r01 = cell_uniforms(seed, C, _bucket(B, BLOCK_B), dev)[:, :B]
+    picks, _ = stacked_select(mu, sig, acc, rank, row, tu, tl,
+                              r01.reshape(-1), gamma=gamma)
+    return picks.view(C, B).cpu().numpy()
 
 
 def sample_batch(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0,

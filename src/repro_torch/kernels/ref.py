@@ -49,14 +49,15 @@ def decode_attention_ref(q, k, v, pos, *, window=0):
 
 def _utility_rows(mu, sigma, acc, t_u, t_l, e, gamma, eps):
     """The Eq. 3–4 utilities (B, n) masked by ``e`` (zero where
-    ineligible), each row's mass summed model by model in pool order —
+    ineligible) — mu/sigma/acc (n,), shared by every request, or (B, n),
+    a pool row each — each row's mass summed model by model in pool order —
     the order the kernels sum in, so both give the same bits — and
     whether that mass is finite and positive."""
     f32 = torch.float32
     muf = mu.to(f32)
-    num = t_u.to(f32)[:, None] - (muf + sigma.to(f32))[None, :]
-    den = torch.clamp_min(torch.abs(t_l.to(f32)[:, None] - muf[None, :]), eps)
-    u = torch.pow(torch.clamp_min(acc.to(f32), eps), gamma)[None, :] * num / den
+    num = t_u.to(f32)[:, None] - (muf + sigma.to(f32))
+    den = torch.clamp_min(torch.abs(t_l.to(f32)[:, None] - muf), eps)
+    u = torch.pow(torch.clamp_min(acc.to(f32), eps), gamma) * num / den
     u = torch.where(e, u, 0.0)
     total = torch.zeros(u.shape[0], dtype=f32, device=u.device)
     for j in range(u.shape[1]):
@@ -90,16 +91,24 @@ def modipick_masks_ref(mu, sigma, rank, t_u, t_l, *, pad_rank=1e9):
     ``(base, has_base, eligible)``: the Eq. 2 eligibility reduced by
     accuracy-order masked argmin (stage 1) and the window-membership
     matrix with the base forced in (stage 2)."""
+    rows = (t_u.shape[0], mu.shape[0])
+    return _masks_rows(mu.expand(rows), sigma.expand(rows),
+                       rank.expand(rows), t_u, t_l, pad_rank)
+
+
+def _masks_rows(mu, sigma, rank, t_u, t_l, pad_rank):
+    """Stages 1–2 with a pool row per request: mu/sigma/rank (B, n),
+    t_u/t_l (B,); the base's μ and σ are gathered from its own row."""
     tu, tl = t_u[:, None], t_l[:, None]
-    mus = (mu + sigma)[None, :]
-    elig1 = (mus < tu) & ((mu - sigma)[None, :] < tl)
+    mus = mu + sigma
+    elig1 = (mus < tu) & ((mu - sigma) < tl)
     has_base = elig1.any(dim=1)
-    base = torch.argmin(torch.where(elig1, rank[None, :], pad_rank + 1.0),
-                        dim=1)
-    half = torch.abs(t_l - mu[base]) + sigma[base]
+    base = torch.argmin(torch.where(elig1, rank, pad_rank + 1.0), dim=1)
+    half = (torch.abs(t_l - mu.gather(1, base[:, None])[:, 0])
+            + sigma.gather(1, base[:, None])[:, 0])
     lo, hi = (t_l - half)[:, None], (t_l + half)[:, None]
-    natural = (lo <= mu[None, :]) & (mu[None, :] <= hi) & (mus < tu)
-    idx = torch.arange(mu.shape[0], device=mu.device)
+    natural = (lo <= mu) & (mu <= hi) & (mus < tu)
+    idx = torch.arange(mu.shape[1], device=mu.device)
     eligible = natural | (idx[None, :] == base[:, None])
     eligible &= has_base[:, None]
     return base, has_base, eligible
@@ -152,6 +161,36 @@ def modipick_weights_ref(mu, sigma, acc, t_u, t_l, eligible, *, gamma=1.0,
     u, _, good = _utility_rows(mu, sigma, acc, t_u, t_l, eligible, gamma,
                                eps)
     return torch.where(good[:, None], u, eligible.to(torch.float32))
+
+
+def stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
+                       shifts=None, gamma=1.0, fallback=False, eps=1e-9,
+                       pad_rank=1e9):
+    """Stages 1–3 and the draw with a pool row per request (the
+    reference's ``_classed_select`` and ``fleet_select_body``).
+
+    mu/sigma: (P, n) pool rows; acc/rank: (n,), shared by every row, or
+    (P, n), one per pool row; row: (B,) each request's pool row (its
+    input class, or its cell); shifts: None or (n,) per-model waits,
+    added to every row's μ before stage 1; t_u/t_l/r01: (B,).  The draw
+    runs on :func:`modipick_weights_ref`'s unnormalised weights.
+
+    Returns ``(picks int32, has_base bool)``, each (B,).  Where a
+    request has no base its pick is, with ``fallback``, the first index
+    of least (shifted) μ in its own row, else −1."""
+    r = row.long()
+    mu_r = mu[r] if shifts is None else mu[r] + shifts
+    sig_r = sigma[r]
+    acc_r = acc[r] if acc.dim() == 2 else acc
+    rank_r = rank[r] if rank.dim() == 2 else rank.expand(mu_r.shape)
+    base, has_base, eligible = _masks_rows(mu_r, sig_r, rank_r, t_u, t_l,
+                                           pad_rank)
+    w = modipick_weights_ref(mu_r, sig_r, acc_r, t_u, t_l, eligible,
+                             gamma=gamma, eps=eps)
+    choice = _draw(w, r01, base)
+    miss = (torch.argmin(mu_r, dim=1) if fallback
+            else torch.full_like(choice, -1))
+    return torch.where(has_base, choice, miss).to(torch.int32), has_base
 
 
 def charged_select_ref(mu, sigma, acc, rank, mu_charge, cand_mask, speed,

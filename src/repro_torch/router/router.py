@@ -484,13 +484,121 @@ class Router:
                             w_queue_map: Optional[Dict[str, float]] = None,
                             depth_fn: Optional[DepthFn] = None
                             ) -> BatchDecisions:
-        """Class-conditional batch routing (premodel) is not ported yet:
-        it needs the premodel's conditional profile store and the
-        device classed selection, which come with the premodel slice of
-        the port (ROADMAP, queue A)."""
-        raise NotImplementedError(
-            "route_batch_classed is not ported yet: it arrives with the "
-            "premodel slice of the port (ROADMAP, queue A)")
+        """Array-native batch routing with per-request input-class ids.
+
+        The store must be a ``premodel.conditional.
+        ConditionalProfileStore``: each request is selected against its
+        class's shrunk profile view.  With a ModiPick policy the whole
+        batch is judged in ONE stacked selection — each request reads
+        its class's row of the (K × n) class tables
+        (``kernels.policy_select.select_classed``) — on the device
+        ``policy_vec.selection_device`` names: the kernel on ``cuda``,
+        its plain version on the CPU for ``cpu`` and ``numpy``;
+        other policies ride the scalar core per request with the class
+        cursor set.  Admission judges against the POOLED table (snapshot
+        semantics — the premodel refines *selection*, not the
+        shed-or-serve verdict), and queue-wait shifts apply uniformly to
+        every class row (waits live at replicas, not input classes).
+        """
+        t_sla = np.asarray(t_sla_ms, dtype=np.float64)
+        t_input = np.asarray(t_input_ms, dtype=np.float64)
+        cls = np.asarray(cls, dtype=np.int32)
+        B = len(t_sla)
+        store = self.store
+        pooled = store.pooled_table()
+        res = BatchDecisions.empty(B, pooled.names)
+        if B == 0:
+            return res
+
+        waits: Optional[Dict[str, float]] = None
+        if self.queue_aware or self.admission.needs_w_queue:
+            if w_queue_map is not None:
+                waits = w_queue_map
+            else:
+                waits = {n: max(0.0, float(store.queue_wait(n)))
+                         for n in store.profiles}
+        w_fn = waits.__getitem__ if waits is not None else None
+
+        budgets = t_sla - 2.0 * t_input
+        if self._admits_all:
+            admitted = list(range(B))
+        else:
+            admitted = []
+            w_min = min(waits.values()) if waits else 0.0
+            for i in range(B):
+                req = self._admission_request(None, None, i,
+                                              float(t_sla[i]),
+                                              float(t_input[i]))
+                ok, reason = self.admission.admit(req, float(budgets[i]),
+                                                  pooled, w_fn, depth_fn)
+                if ok:
+                    admitted.append(i)
+                else:
+                    self._shed(res, i, reason, w_min)
+        if admitted:
+            if type(self.policy) is ModiPick:
+                self._route_classed_device(res, admitted, budgets, cls, rng,
+                                           waits, pooled)
+            else:
+                self._route_classed_scalar(res, admitted, budgets, cls,
+                                           rng, waits)
+        self.n_batches += 1
+        self.n_routed += B
+        n_admitted = int(res.admitted.sum())
+        self.n_admitted += n_admitted
+        self.n_shed += B - n_admitted
+        return res
+
+    def _route_classed_device(self, res, admitted, budgets, cls, rng, waits,
+                              pooled) -> None:
+        from repro_torch.kernels import policy_select
+        store = self.store
+        names = pooled.names
+        shifts = ([waits[n] for n in names]
+                  if (self.queue_aware and waits is not None) else None)
+        idx = np.asarray(admitted, dtype=np.int64)
+        device = policy_vec.selection_device(self.backend, len(admitted))
+        picks, has_base = policy_select.select_classed(
+            store.stacked_pool(device), cls[idx], budgets[idx],
+            budgets[idx] - self.policy.t_threshold, shifts=shifts,
+            gamma=self.policy.gamma,
+            seed=int(rng.integers(np.iinfo(np.int64).max)))
+        for j, i in enumerate(admitted):
+            mid = int(picks[j])
+            store.mark_selected(names[mid])
+            res.model_idx[i] = mid
+            res.admitted[i] = True
+            res.fallback[i] = not has_base[j]
+            res.w_queue_ms[i] = waits[names[mid]] if waits else 0.0
+            if not has_base[j]:
+                self.n_fallback += 1
+
+    def _route_classed_scalar(self, res, admitted, budgets, cls, rng,
+                              waits) -> None:
+        """Per-request scalar fallback for non-ModiPick policies: the
+        class cursor flips the store's presented table around the
+        historical scalar core."""
+        store = self.store
+        w_fn = waits.__getitem__ if waits is not None else None
+        select = (self.policy.select_traced if self.trace_detail
+                  else self.policy.select_lean)
+        for i in admitted:
+            store.set_class(int(cls[i]))
+            try:
+                sel_store = (shifted_store(store, w_fn, shifts=waits)
+                             if (self.queue_aware and w_fn is not None)
+                             else store)
+                trace = select(sel_store, float(budgets[i]), rng)
+                mid = store.table().index[trace.chosen]
+            finally:
+                store.set_class(-1)
+            store.mark_selected(trace.chosen)
+            res.model_idx[i] = mid
+            res.admitted[i] = True
+            res.fallback[i] = trace.fallback
+            res.w_queue_ms[i] = waits[trace.chosen] if waits else 0.0
+            if trace.fallback:
+                self.n_fallback += 1
 
     # -- device path ---------------------------------------------------
     def _use_charged_scan(self, B: int) -> bool:

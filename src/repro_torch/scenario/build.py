@@ -26,6 +26,7 @@ import numpy as np
 
 from repro_torch.core.netmodel import NetworkModel
 from repro_torch.core.policy import Policy, make_policy
+from repro_torch.core.profiles import ModelProfile
 from repro_torch.core.zoo import PROTOTYPE_POOL, TABLE2, ZooEntry, make_store
 from repro_torch.router.admission import AdmissionController, make_admission
 from repro_torch.router.retry import RetryPolicy
@@ -50,11 +51,6 @@ _TRACE_SEED_SALT = 0xA221
 # its own stream keeps classed runs replaying the same arrival,
 # network and service draws as their unclassed twins.
 _INPUT_SEED_SALT = 0x1C7F
-
-_PREMODEL_STUB = (
-    "premodel classifiers and the conditional and quantile profile stores "
-    "are not ported yet: they arrive with the premodel slice of the port "
-    "(ROADMAP, queue A item 6)")
 
 
 # ----------------------------------------------------------------------
@@ -365,7 +361,10 @@ class ScenarioHarness:
         wl = self.scenario.workload
         if pol.premodel == "none" or not wl.input_classes:
             return None
-        raise NotImplementedError(_PREMODEL_STUB)
+        from repro_torch.premodel import make_classifier
+        centers = tuple(c.feature_center for c in wl.input_classes)
+        return make_classifier(pol.premodel, len(wl.input_classes),
+                               len(centers[0]), centers=centers)
 
     # -- entry-point factories -----------------------------------------
     def engine(self, n_replicas: Optional[int] = None,
@@ -382,14 +381,38 @@ class ScenarioHarness:
         pol = self.scenario.policy
         wl = self.scenario.workload
         entries = build_entries(self.scenario)
-        if (pol.premodel != "none" and wl.input_classes) \
-                or pol.latency_quantile is not None:
-            # ConditionalProfileStore / QuantileProfileStore
-            raise NotImplementedError(_PREMODEL_STUB)
-        return make_store(entries, alpha=pol.alpha, cold_age=pol.cold_age,
-                          warm=pol.warm, profile=pol.profile,
-                          window=pol.window, stale_after=pol.stale_after,
-                          explore_bonus=pol.explore_bonus)
+        q = pol.latency_quantile
+        if pol.premodel != "none" and wl.input_classes:
+            from repro_torch.premodel import ConditionalProfileStore
+            store = ConditionalProfileStore(
+                [ModelProfile(name=e.name, accuracy=e.top1 / 100.0)
+                 for e in entries],
+                n_classes=len(wl.input_classes), q=q,
+                alpha=pol.alpha, cold_age=pol.cold_age)
+        elif q is not None:
+            from repro_torch.premodel import QuantileProfileStore
+            store = QuantileProfileStore(
+                [ModelProfile(name=e.name, accuracy=e.top1 / 100.0)
+                 for e in entries],
+                q=q, alpha=pol.alpha, cold_age=pol.cold_age)
+        else:
+            return make_store(entries, alpha=pol.alpha,
+                              cold_age=pol.cold_age, warm=pol.warm,
+                              profile=pol.profile, window=pol.window,
+                              stale_after=pol.stale_after,
+                              explore_bonus=pol.explore_bonus)
+        if pol.warm:
+            # Same 1000-request warm-up as make_store: the trackers stay
+            # cold, so quantile presentation starts at the Gaussian
+            # μ + z_q·σ of the seeded truth and hands over to measured
+            # quantiles as observations arrive.
+            for e in entries:
+                p = store[e.name]
+                p.mu = e.mu_ms
+                p.var = e.sigma_ms ** 2
+                p.n_obs = 1000
+            store.invalidate()
+        return store
 
     # -- workload slicing ----------------------------------------------
     def epoch_sizes(self) -> List[int]:
@@ -425,9 +448,8 @@ class ScenarioHarness:
             # Multi-cell (or trace-replaying) fleets run on the fleet
             # engine; a 1-cell generative fleet stays on this path —
             # that is the bit-identity guarantee the parity golden pins.
-            raise NotImplementedError(
-                "the multi-cell fleet engine is not ported yet: it arrives "
-                "with the fleet slice of the port (ROADMAP, queue A item 7)")
+            from repro_torch.fleet.engine import FleetEngine
+            return FleetEngine(sc).run().as_scenario_result()
         policy = build_policy(sc)
         store = self.store()
         premodel = self.premodel()

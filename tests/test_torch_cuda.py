@@ -12,7 +12,9 @@ to max |y| (2e-5 in float32, 2e-2 in bfloat16, as
 and the sequential plain version sum in different orders); stage-3
 probabilities exactly at gamma 1 and to the float32 tolerance at gamma 2
 (torch.pow special-cases an exponent of 2), picks and all of the charged
-pass's outputs exactly (same operations in the same order).
+pass's outputs exactly (same operations in the same order), and the
+stacked selection's picks and has_base flags exactly, in its classed
+(premodel) and fleet forms.
 """
 from dataclasses import replace
 
@@ -562,3 +564,183 @@ def test_engine_bursts_with_dead_models(gen, monkeypatch):
     assert res.n_completed + res.n_rejected == 2000
     assert (c.replica[~c.rejected] >= 0).all()
     assert "no live replica for NasNet-Large" in reasons
+
+
+# ----------------------------------------------------------------------
+# B4: the stacked selection (premodel's classed form, the fleet's form)
+# ----------------------------------------------------------------------
+
+def stacked_inputs(gen, form, P, n, B, shifts=False, seed=0):
+    """The stacked kernel's operands on the card.  ``classed``: P class
+    rows of mu/sigma over one shared acc/rank, a random class a request;
+    ``fleet``: P cells of B requests each (B·P rows in all), acc/rank a
+    row each, every cell but the first narrower than n, its padded lanes
+    at PAD_MU/0/1/PAD_RANK.  The first 2% of the requests have no base,
+    the next 3% a negative mass (uniform over their eligible models)."""
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(5.0, 60.0, (P, n))
+    sig = rng.uniform(0.0, 5.0, (P, n))
+    if form == "classed":
+        acc = rng.uniform(0.3, 0.9, n)
+        rank = np.argsort(np.argsort(-acc, kind="stable"))
+        row = rng.integers(0, P, B)
+    else:
+        acc = rng.uniform(0.3, 0.9, (P, n))
+        rank = np.argsort(np.argsort(-acc, kind="stable", axis=1), axis=1)
+        for c, w in enumerate(rng.integers(1, n + 1, P)):
+            w = n if c == 0 else w
+            mu[c, w:], sig[c, w:] = policy_select.PAD_MU, 0.0
+            acc[c, w:], rank[c, w:] = 1.0, policy_select.PAD_RANK
+        row = np.repeat(np.arange(P), B)
+        B = P * B
+    t_u = rng.uniform(-5.0, 90.0, B)
+    t_u[: B // 50] = float(mu.min()) - 50.0
+    t_l = t_u - 25.0
+    t_l[B // 50: B // 20] = t_u[B // 50: B // 20] + 40.0
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+    args = (f32(mu), f32(sig), f32(acc), f32(rank),
+            torch.tensor(row, dtype=torch.int32, device="cuda"), f32(t_u),
+            f32(t_l), torch.rand(B, generator=gen, device="cuda"))
+    kw = dict(shifts=f32(rng.uniform(0.0, 20.0, n)) if shifts else None,
+              fallback=form == "classed")
+    return args, kw
+
+
+# (form, P, n, B (a cell's B in the fleet form), shifts)
+STACKED = {"classed_k1": ("classed", 1, 11, 200, True),
+           "classed_k2": ("classed", 2, 11, 200, True),
+           "classed_k2_noshift": ("classed", 2, 11, 97, False),
+           "classed_k8": ("classed", 8, 3, 97, True),
+           "classed_b1": ("classed", 2, 11, 1, True),
+           "classed_n128": ("classed", 3, 128, 500, True),
+           "fleet_6x5": ("fleet", 6, 5, 2550, False),
+           "fleet_4x11": ("fleet", 4, 11, 1200, False),
+           "fleet_b97": ("fleet", 3, 11, 97, False),
+           "fleet_b1": ("fleet", 2, 4, 1, False)}
+
+
+@pytest.mark.parametrize("name", sorted(STACKED))
+def test_stacked_kernel_matches_plain(gen, name):
+    form, P, n, B, shifts = STACKED[name]
+    args, kw = stacked_inputs(gen, form, P, n, B, shifts, seed=len(name))
+    before = ops.stacked_select.launches
+    picks, has = ops.stacked_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.stacked_select.launches == before + 1
+    want, whas = ref.stacked_select_ref(*args, **kw)
+    assert picks.dtype == want.dtype and has.dtype == whas.dtype
+    assert torch.equal(picks, want) and torch.equal(has, whas)
+    if args[5].shape[0] > 50:
+        assert (~has).any() and has.any()
+        assert ((picks >= 0) == has).all() if form == "fleet" \
+            else (picks >= 0).all()
+
+
+def test_stacked_kernel_at_gamma_2(gen):
+    """At gamma 2 powf and torch.pow may round differently, so a pick
+    may differ where a draw lands on a boundary: all but a few equal."""
+    args, kw = stacked_inputs(gen, "classed", 2, 11, 4000, True, seed=3)
+    picks, has = ops.stacked_select(*args, gamma=2.0, **kw)
+    want, whas = ref.stacked_select_ref(*args, gamma=2.0, **kw)
+    assert torch.equal(has, whas)
+    assert (picks != want).sum().item() <= 4
+
+
+def test_stacked_host_entry_points_launch_once(gen):
+    from repro_torch.core.profiles import ModelProfile
+    from repro_torch.core.zoo import TABLE2
+    from repro_torch.premodel import ConditionalProfileStore
+    store = ConditionalProfileStore(
+        [ModelProfile(name=e.name, accuracy=e.top1 / 100.0) for e in TABLE2],
+        n_classes=2)
+    for i, e in enumerate(TABLE2):
+        store.observe_class(i % 2, e.name, e.mu_ms)
+    t_u = np.linspace(5.0, 400.0, 300)
+    before = ops.launch_counts()
+    idx, has = policy_select.select_classed(
+        store.stacked_pool("cuda"), np.arange(300) % 2, t_u, t_u - 20.0,
+        shifts=np.linspace(0.0, 30.0, len(TABLE2)), seed=3)
+    fleet = policy_select.select_fleet_stacked(
+        *stacked_inputs(gen, "fleet", 3, 5, 1)[0][:4],
+        np.tile(t_u, (3, 1)), np.tile(t_u - 20.0, (3, 1)), seed=4)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * (k == "stacked_select") for k in after}
+    assert idx.shape == has.shape == (300,) and fleet.shape == (3, 300)
+    assert (~has).any() and has.any() and (fleet == -1).any()
+
+
+def test_stacked_wrapper_raises_on_the_card(gen):
+    args, kw = stacked_inputs(gen, "classed", 2, 3, 8)
+    for i, bad in ((4, args[4].long()), (0, args[0].double()),
+                   (5, args[5].cpu())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises((ValueError, TypeError)):
+            ops.stacked_select(*a, **kw)
+
+
+def _recorded(monkeypatch, name="stacked_select"):
+    wrapper, calls = getattr(policy_select, name), []
+
+    class Record:
+        launches = property(lambda self: wrapper.launches,
+                            lambda self, v: setattr(wrapper, "launches", v))
+
+        def __call__(self, *a, **kw):
+            out = wrapper(*a, **kw)
+            calls.append((a, kw, tuple(o.clone() for o in out)))
+            return out
+
+    monkeypatch.setattr(policy_select, name, Record())
+    return wrapper, calls
+
+
+def test_premodel_bursts_on_the_card(gen, monkeypatch):
+    """The registered ``premodel_mix`` as 5 simultaneous bursts of 200
+    on ``backend="cuda"``: one stacked launch a burst, each equal to the
+    plain version on its operands."""
+    import dataclasses
+    from repro_torch.scenario import build, get_scenario
+    sc = get_scenario("premodel_mix")
+    times = np.repeat(np.arange(5) * 2000.0, 200)
+    sc = dataclasses.replace(
+        sc, workload=dataclasses.replace(sc.workload, arrival="trace",
+                                         n_requests=1000,
+                                         times_ms=tuple(times.tolist())),
+        network=dataclasses.replace(sc.network, std_ms=0.0),
+        policy=dataclasses.replace(sc.policy, backend="cuda"))
+    wrapper, calls = _recorded(monkeypatch)
+    before = wrapper.launches
+    out = build(sc).run()
+    assert wrapper.launches - before == len(calls) == 5
+    for a, kw, outs in calls:
+        assert a[0].shape == (2, 11) and a[4].shape == (200,)
+        for g, w in zip(outs, ref.stacked_select_ref(*a, **kw)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert out.result.n_arrived == 1000
+
+
+def test_fleet_on_the_card(gen, monkeypatch):
+    """A 3-cell fleet on ``backend="cuda"``: one stacked launch an epoch
+    with pending requests, each equal to the plain version."""
+    import dataclasses
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.scenario import fleet_scenario
+    sc = fleet_scenario(n_cells=3, rate_rps=90.0, n_requests=3000,
+                        subset=("DenseNet", "InceptionV3", "NasNet-Large"),
+                        spill_threshold_ms=20.0)
+    sc = dataclasses.replace(sc, policy=dataclasses.replace(
+        sc.policy, backend="cuda"))
+    wrapper, calls = _recorded(monkeypatch)
+    before = wrapper.launches
+    res = FleetEngine(sc).run()
+    assert wrapper.launches - before == len(calls) == len(res.epochs) > 1
+    for a, kw, outs in calls:
+        assert a[0].shape == (3, 3)
+        for g, w in zip(outs, ref.stacked_select_ref(*a, **kw)):
+            assert torch.equal(g, w)
+    assert res.n_arrived == 3000

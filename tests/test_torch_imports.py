@@ -44,7 +44,11 @@ def test_port_package_is_not_empty():
             "core/policy_vec.py", "router/router.py", "models/ssm.py",
             "models/rglru.py", "kernels/ssd_scan.py",
             "kernels/rglru_scan.py", "sim/engine.py", "core/simulate.py",
-            "scenario/build.py", "scenario/registry.py"} <= names
+            "scenario/build.py", "scenario/registry.py",
+            "premodel/__init__.py", "premodel/quantile.py",
+            "premodel/classifier.py", "premodel/conditional.py",
+            "fleet/__init__.py", "fleet/spec.py", "fleet/device.py",
+            "fleet/frontend.py", "fleet/engine.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
         "rglru_scan.cu", "policy_select.cu"}

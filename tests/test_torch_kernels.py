@@ -275,6 +275,42 @@ def test_probs_wrapper_raises(case):
         ops.modipick_probs(*args)
 
 
+def _stacked_args(P=2, n=3, B=4):
+    return [torch.ones(P, n), torch.ones(P, n), torch.ones(n), torch.ones(n),
+            torch.zeros(B, dtype=torch.int32), torch.ones(B), torch.ones(B),
+            torch.ones(B)]
+
+
+@pytest.mark.parametrize("case", ["mu_1d", "row_int64", "row_length",
+                                  "acc_shape", "rank_per_row_only",
+                                  "shifts_shape", "float64", "pool_too_wide",
+                                  "no_rows"])
+def test_stacked_wrapper_raises(case):
+    """The stacked selection's wrapper refuses what its kernel does not
+    take, on the CPU as on the card."""
+    args, kw = _stacked_args(), {}
+    if case == "mu_1d":
+        args[0] = torch.ones(3)
+    elif case == "row_int64":
+        args[4] = torch.zeros(4, dtype=torch.int64)
+    elif case == "row_length":
+        args[4] = torch.zeros(5, dtype=torch.int32)
+    elif case == "acc_shape":
+        args[2] = torch.ones(3, 3)
+    elif case == "rank_per_row_only":
+        args[3] = torch.ones(2, 3)
+    elif case == "shifts_shape":
+        kw["shifts"] = torch.ones(4)
+    elif case == "float64":
+        args[5] = torch.ones(4, dtype=torch.float64)
+    elif case == "pool_too_wide":
+        args = _stacked_args(n=129)
+    else:
+        args = _stacked_args(P=0)
+    with pytest.raises((ValueError, TypeError)):
+        ops.stacked_select(*args, **kw)
+
+
 def test_cpu_path_launches_nothing():
     ops.reset_launch_counts()
     q, k, v = _attn_args()
@@ -291,11 +327,13 @@ def test_cpu_path_launches_nothing():
     ops.charged_select(pool, pool, pool, pool, pool,
                        torch.ones(3, 2, dtype=torch.bool), torch.ones(2),
                        torch.zeros(2), rows, rows, rows, rows)
+    ops.stacked_select(torch.ones(2, 3), torch.ones(2, 3), pool, pool,
+                       torch.zeros(4, dtype=torch.int32), rows, rows, rows)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "ssd_scan": 0, "rglru_scan": 0,
                                    "modipick_probs": 0, "fused_select": 0,
-                                   "charged_select": 0}
+                                   "charged_select": 0, "stacked_select": 0}
 
 
 def test_plain_versions_are_the_reference_twins():

@@ -122,17 +122,6 @@ def test_auto_backend_keeps_large_charged_batches_off_the_stub(monkeypatch):
                       trace_detail=False)._use_charged_scan(B)
 
 
-def test_unported_router_device_paths_raise():
-    """Premodel (class-conditional) routing is the one Router path still
-    to port."""
-    _, store = _stores()
-    r = Router(store, ModiPick(20.0), queue_aware=True, backend="cpu",
-               trace_detail=False)
-    with pytest.raises(NotImplementedError, match="premodel"):
-        r.route_batch_classed(np.full(8, 100.0), np.full(8, 5.0),
-                              np.zeros(8), np.random.default_rng(0))
-
-
 # ----------------------------------------------------------------------
 # PoolExecutor: the same execution shell around the same decisions, on
 # the reduced qwen2 variants with ``Variant.run`` replaced by a fixed

@@ -2,19 +2,18 @@
 
 - every registered scenario is the same plain data on both sides (its
   ``to_dict``), and round-trips through a dict and JSON on the port;
-- each of the twelve registered scenarios the port runs gives, from
+- each of the sixteen registered scenarios gives, from
   ``build(sc).run()``, the same epochs as the reference: the engine's
   summary, the Router's counters and the replica history, equal bit for
-  bit (numpy backend, the default at these batch widths);
+  bit (numpy backend, the default at these batch widths; the premodel
+  and fleet scenarios' stacked selections run the kernel's plain
+  version on the CPU, on the reference's uniforms);
 - the pinned goldens of ``tests/test_scenario.py`` (``steady`` and the
   paper's closed loop) as literals;
 - ``examples/drift.toml`` and ``examples/elastic.toml`` load to the
   same scenario;
 - ``PolicySpec.backend``: ``jax`` is refused with the valid values
   named, the port's own backends are accepted;
-- the stubs: the premodel and multi-cell fleet branches of
-  ``scenario.build`` raise ``NotImplementedError``, and so do the four
-  registered scenarios that reach them;
 - the ``from_scenario`` adapters of the engine, the closed loop and the
   pool executor.
 """
@@ -24,8 +23,11 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.scenario as J
 import repro_torch.scenario as T
@@ -33,7 +35,8 @@ from repro.serving.executor import PoolExecutor as JExecutor
 from repro_torch.core.policy import ModiPick
 from repro_torch.core.simulate import Simulator
 from repro_torch.core.zoo import TABLE2
-from repro_torch.router import Router, SlaAwareAdmission
+from repro_torch.kernels import policy_select
+from repro_torch.router import SlaAwareAdmission
 from repro_torch.scenario.spec import (DeploymentSpec, NetworkSpec,
                                        PolicySpec, Scenario, WorkloadSpec)
 from repro_torch.serving.executor import PoolExecutor
@@ -42,15 +45,27 @@ from repro_torch.sim import (PoissonArrivals, ServingSimulator,
 from repro_torch.core.netmodel import NetworkModel
 
 REPO = Path(__file__).resolve().parent.parent
-# The registered scenarios that reach a stub: premodel classifiers and
-# quantile stores (queue A item 6), the multi-cell fleet (item 7).
-UNPORTED = ("fleet_diurnal", "fleet_steady", "premodel_mix", "tail_sla")
+# The registered scenarios the port cannot run yet: none.
+UNPORTED = ()
 RUNNABLE = [n for n in T.list_scenarios() if n not in UNPORTED]
+
+
+def _reference_uniforms(seed, n, device):
+    r = jax.random.uniform(jax.random.PRNGKey(seed), (n,), dtype=jnp.float32)
+    return torch.from_numpy(np.array(r)).to(device)
+
+
+def _reference_cell_uniforms(seed, C, n, device):
+    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
+        jax.random.PRNGKey(seed), jnp.arange(C, dtype=jnp.uint32))
+    r = jax.vmap(lambda k: jax.random.uniform(k, (n,), dtype=jnp.float32))(
+        keys)
+    return torch.from_numpy(np.array(r)).to(device)
 
 
 def test_registry_holds_the_reference_scenarios_as_data():
     assert T.list_scenarios() == J.list_scenarios()
-    assert len(T.list_scenarios()) == 16 and len(RUNNABLE) == 12
+    assert len(T.list_scenarios()) == 16 and len(RUNNABLE) == 16
     for name in T.list_scenarios():
         assert (T.get_scenario(name).to_dict()
                 == J.get_scenario(name).to_dict()), name
@@ -64,7 +79,10 @@ def test_scenario_dict_round_trip(name):
 
 
 @pytest.mark.parametrize("name", RUNNABLE)
-def test_registered_scenario_matches_reference(name):
+def test_registered_scenario_matches_reference(name, monkeypatch):
+    monkeypatch.setattr(policy_select, "uniforms", _reference_uniforms)
+    monkeypatch.setattr(policy_select, "cell_uniforms",
+                        _reference_cell_uniforms)
     got = T.build(T.get_scenario(name)).run()
     want = J.build(J.get_scenario(name)).run()
     assert len(got.epochs) == len(want.epochs)
@@ -128,30 +146,6 @@ def test_backend_jax_refused_and_port_backends_accepted():
                              policy=PolicySpec(queue_aware=True,
                                                backend="cpu"))
     assert T.build(sc).engine().backend == "cpu"
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_scenarios_raise(name):
-    with pytest.raises(NotImplementedError, match="queue A item"):
-        T.build(T.get_scenario(name)).run()
-
-
-def test_premodel_and_fleet_branches_are_stubs():
-    h = T.build(T.get_scenario("premodel_mix"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        h.premodel()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        h.store()                            # ConditionalProfileStore
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.build(T.get_scenario("tail_sla")).store()   # QuantileProfileStore
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.build(T.get_scenario("fleet_steady")).run()
-    # a scenario without a premodel has none, and the plain store
-    assert T.build(T.get_scenario("steady")).premodel() is None
-    with pytest.raises(NotImplementedError):
-        Router(T.build(T.get_scenario("steady")).store(),
-               ModiPick(20.0)).route_batch_classed(
-            [250.0], [50.0], [0], np.random.default_rng(0))
 
 
 def test_engine_and_closed_loop_adapters():
