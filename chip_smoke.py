@@ -14,7 +14,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the plain version and, where there is one, a PyTorch library call as
    a yardstick; the SSD scan (with its final state) and the RG-LRU scan
    also at a ragged multi-chunk length, and the attention kernels also
-   at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head);
+   at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head),
+   moonshot's (G = 1) and gemma3's (G = 2 at hd 256 in float32, an
+   1100-token prompt, per-slot positions in a wrapped ring);
    K4's occupancy (two blocks an SM at the serve shape) and its time
    over S; K5's segment plan; the selection kernels (K1 bit for bit at
    gamma 1, the fused selection's picks, all five of the charged pass's
@@ -25,14 +27,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
-   answering requests; the launch counters are zeroed just before and
+   answering requests; and moonshot-v1-16b-a3b (48 layers of a 64-expert
+   top-6 MoE) the same way at widths 0.25 and 1.0 (69.0 GB of weights;
+   each pool is released before the next is built, and its peak memory
+   logged); the launch counters are zeroed just before and
    read just after, and must show that every layer of every request ran
    its kernels (prefill attention per attention layer, decode attention
    per attention layer and decode step, the SSD scan per SSD layer, the
    RG-LRU scan per RG-LRU layer); the full-width variant's logits on the
    kernel path are held against the plain path, for prefill and one
-   decode step;
-4. the batched selection on the qwen2 executor's profile store, each
+   decode step, layer by layer (a MoE layer on one routing, from the
+   plain path's input); one MoE layer's routing, expert products and
+   ``moe_ffn`` are timed beside its attention kernel (``[moe]``);
+4. the continuous batcher (``ContinuousBatcher``) over gemma3-4b at full
+   width in float32: 8 requests with prompts of 5 to 1100 tokens (the
+   longest two wrap the 1024-slot local ring in prefill) on 4 slots,
+   which retire and are reused mid-run; its launches counted as in
+   phase 3; each request's logits, step by step, held to 1e-4 of their
+   max |logit| against the request run alone, teacher-forced on its
+   tokens (``[batcher ...]`` lines);
+5. the batched selection on the qwen2 executor's profile store, each
    entry point with the counters zeroed just before and read just after
    and required to launch exactly its one kernel:
    ``ModiPick.select_batch`` on the card at B = 8192 (the fused
@@ -43,7 +57,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    uniforms; then each of the three kernels on the very operands its
    entry point handed it, held against its plain version there and
    timed there for its row of the kernels line;
-5. the discrete-event engine (``repro_torch.sim``) at the reference
+6. the discrete-event engine (``repro_torch.sim``) at the reference
    engine benchmark's ``batched`` size: 100,000 requests in 200-wide
    simultaneous bursts over Table 2's 11 models, 4 replicas each, on
    ``cuda`` (one charged pass a burst) and on numpy, ``batched_snapshot``
@@ -55,7 +69,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    current profiles, and (on ``cuda``) to have its first 20 launches
    equal to the plain version on the same operands; the charged
    ``batched`` run must attain 0.5 (``[engine ...]`` lines);
-6. premodel and the multi-cell fleet through the stacked selection
+7. premodel and the multi-cell fleet through the stacked selection
    kernel (B4, ``stacked_select``): first the kernel against its plain
    version, exactly, on synthetic operands (classed rows with K = 1, 2
    and 8 classes and queue shifts, fleet cells of unequal widths padded
@@ -70,7 +84,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each run equal to the same run on ``cpu`` (the plain version) on the
    card's uniforms (``[stacked ...]`` lines; ``fleet_diurnal`` must
    spill);
-7. timings for the record: per-variant warm prefill / prefill+decode
+8. timings for the record: per-variant warm prefill / prefill+decode
    with a profiler trace; ``select_batch`` and charged routing on numpy
    and on the card (``[perf]``), and the batch size at which the card
    overtakes numpy for each (``[crossover]``, three rounds);
@@ -95,7 +109,12 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
             torch.float32: 67e12}          # fp32 outside the tensor cores
 SEQ, BATCH, N_DECODE = 128, 4, 2
-N_REQUESTS = {"qwen2-1.5b": 24, "mamba2-1.3b": 12, "recurrentgemma-2b": 12}
+N_REQUESTS = {"qwen2-1.5b": 24, "mamba2-1.3b": 12, "recurrentgemma-2b": 12,
+              "moonshot-v1-16b-a3b": 12}
+# Each pool's widths of the published config.  moonshot's experts keep
+# their width at every width (``scaled`` leaves ``moe`` alone): widths 0.5
+# and 1.0 would hold 82.8 GB of bf16 weights, 0.25 and 1.0 hold 69.0 GB.
+WIDTHS = {"moonshot-v1-16b-a3b": (0.25, 1.0)}
 # The published dims each pool's full-width variant must have: layers,
 # d_model, vocab and padded vocab, then the family's own widths.
 PUBLISHED = {
@@ -110,7 +129,25 @@ PUBLISHED = {
                               n_heads=10, n_kv_heads=1,
                               resolved_head_dim=256, d_ff=7680,
                               window=2048, lru_width=2560),
+    "moonshot-v1-16b-a3b": dict(n_layers=48, d_model=2048,
+                                vocab_size=163_840, padded_vocab=163_840,
+                                n_heads=16, n_kv_heads=16,
+                                resolved_head_dim=128, d_ff=1408,
+                                moe=(64, 6, 1408)),
+    "gemma3-4b": dict(n_layers=34, d_model=2560, vocab_size=262_144,
+                      padded_vocab=262_144, n_heads=8, n_kv_heads=4,
+                      resolved_head_dim=256, d_ff=10_240, window=1024),
 }
+# The continuous batcher's run: gemma3-4b at full width in float32 (so
+# that greedy tokens are stable), 4 slots of 1152 positions; prompts of
+# these lengths (the last two wrap the 1024-slot local ring in prefill)
+# and token budgets, so that slots retire and are reused mid-run.  Each
+# request's logits, step by step, are held to BATCHER_RTOL of their max
+# |logit| against the request run alone, teacher-forced on its tokens.
+BATCHER = dict(arch="gemma3-4b", slots=4, cache_len=1152,
+               prompts=(5, 17, 64, 128, 300, 777, 1030, 1100),
+               max_new=(12, 3, 9, 5, 11, 4, 8, 6))
+BATCHER_RTOL = 1e-4
 T_SLA_MS, THRESHOLD_MS = 120.0, 25.0
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),   # summation order only
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}  # ~1 bf16 ulp of |x| ≤ 2
@@ -430,6 +467,7 @@ def phase_kernels(ops, ref, policy_select, gen):
               qs, kc, vc, enable_gqa=True), label="K3 G10 SDPA"))
 
     attention_edges(ops, ref, randn)
+    serving_shapes(ops, ref, randn)
 
     # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
     # G 1, chunk 256), inputs as the model hands them: transposed views
@@ -621,6 +659,88 @@ def attention_edges(ops, ref, randn) -> None:
         log(f"K3 decode_attention edges B={B} KV={KV} C={C} "
             f"pos={pos.tolist()} G=1,6,10,17 hd=128,256,64(window 20) "
             f"{dt}: worst max_abs_err={worst:.3g} tol={TOL[dt]}")
+
+
+def serving_shapes(ops, ref, randn) -> None:
+    """K2 and K3 at the shapes moonshot-v1-16b-a3b's serve phase and
+    gemma3-4b's batcher give them, held against their plain versions and
+    timed as ``[extra]`` lines beside SDPA: moonshot's 16 query heads
+    over 16 KV heads (G = 1) at hd 128 in bf16; gemma3's 8 over 4
+    (G = 2) at hd 256 in float32 — K2 over an 1100-token prompt with the
+    1024-position window (local) and without (global), K3 over 4 slots
+    with their own positions in the 1024-slot local ring (pos_eff =
+    min(pos, C − 1): two slots have wrapped) and in the 1152-slot global
+    cache."""
+    import torch.nn.functional as F
+    name = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    for label, B, H, KV, S, hd, window, dtype in (
+            ("moonshot", BATCH, 16, 16, SEQ, 128, 0, torch.bfloat16),
+            ("gemma3 local", 1, 8, 4, 1100, 256, 1024, torch.float32),
+            ("gemma3 global", 1, 8, 4, 1100, 256, 0, torch.float32)):
+        q = randn(B, S, H, hd, dtype=dtype).transpose(1, 2)
+        k = randn(B, S, KV, hd, dtype=dtype).transpose(1, 2)
+        v = randn(B, S, KV, hd, dtype=dtype).transpose(1, 2)
+        shape = (f"{label} B={B} H={H} KV={KV} S={S} hd={hd} "
+                 f"window={window} {name[dtype]}")
+        err = check(f"flash_attention {shape}",
+                    ops.flash_attention(q, k, v, window=window),
+                    ref.flash_attention_ref(q, k, v, window=window),
+                    TOL[dtype])
+        log(f"K2 flash_attention {shape}: max_abs_err={err:.3g} "
+            f"tol={TOL[dtype]}")
+        i = torch.arange(S, device="cuda")
+        mask = i[None, :] <= i[:, None]
+        if window:
+            mask &= i[None, :] > i[:, None] - window
+        pairs = int(mask.sum())
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, enable_gqa=True)) if window else (
+            lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True))
+        extra(f"flash_attention {shape}",
+              time_ms(lambda: ops.flash_attention(q, k, v, window=window),
+                      label=f"K2 {label} kernel"),
+              time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                      window=window),
+                      iters=10),
+              bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                    4 * hd * pairs * B * H, dtype),
+              time_ms(sdpa))
+
+    for label, KV, G, C, hd, pos, dtype in (
+            ("moonshot", 16, 1, SEQ + 16, 128,
+             [SEQ, SEQ + 5, SEQ + 11, SEQ + 15], torch.bfloat16),
+            ("gemma3 local ring", 4, 2, 1024, 256, [5, 300, 1023, 1023],
+             torch.float32),
+            ("gemma3 global", 4, 2, 1152, 256, [5, 300, 1030, 1100],
+             torch.float32)):
+        B, H = BATCH, KV * G
+        q = randn(B, 1, H + 2 * KV, hd, dtype=dtype)[:, :, :H]
+        q = q.reshape(B, KV, G, hd)
+        ck = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+        cv = randn(B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+        pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        shape = (f"{label} B={B} KV={KV} G={G} C={C} hd={hd} "
+                 f"pos={pos.tolist()} {name[dtype]}")
+        err = check(f"decode_attention {shape}",
+                    ops.decode_attention(q, ck, cv, pos),
+                    ref.decode_attention_ref(q, ck, cv, pos), TOL[dtype])
+        log(f"K3 decode_attention {shape}: max_abs_err={err:.3g} "
+            f"tol={TOL[dtype]}")
+        live = int((pos.to(torch.int64) + 1).sum()) * KV
+        qs = q.reshape(B, H, 1, hd).contiguous()
+        kc, vc = ck.contiguous(), cv.contiguous()
+        mask = (torch.arange(C, device="cuda")[None, :]
+                <= pos[:, None])[:, None, None, :]
+        extra(f"decode_attention {shape}",
+              time_ms(lambda: ops.decode_attention(q, ck, cv, pos),
+                      label=f"K3 {label} kernel"),
+              time_ms(lambda: ref.decode_attention_ref(q, ck, cv, pos)),
+              bound(q.element_size() * (2 * q.numel() + 2 * live * hd)
+                    + 4 * B, 4 * G * hd * live, dtype),
+              time_ms(lambda: F.scaled_dot_product_attention(
+                  qs, kc, vc, attn_mask=mask, enable_gqa=True)))
 
 
 def probs_bound(B, n) -> tuple:
@@ -831,30 +951,37 @@ def published_dims(cfg) -> dict:
                                             s.n_heads(cfg.d_model))
     if cfg.rglru is not None:
         out["lru_width"] = cfg.rglru.width(cfg.d_model)
+    if cfg.moe is not None:
+        e = cfg.moe
+        out["moe"] = (e.n_experts, e.top_k, e.d_ff_expert)
     return out
 
 
+def check_published(arch, cfg) -> None:
+    want = PUBLISHED[arch]
+    got = {k: v for k, v in published_dims(cfg).items() if k in want}
+    if got != want:
+        raise AssertionError(f"{arch} full width is not the published "
+                             f"config: {got} != {want}")
+
+
 def build_pool(arch, gen):
-    """Widths 0.5 and 1.0 of the published config of ``arch``, at full
-    depth, bf16, random weights from ``gen``."""
+    """The ``WIDTHS`` of the published config of ``arch`` (0.5 and 1.0
+    unless it says otherwise), at full depth, bf16, random weights from
+    ``gen``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.serving.pool import Variant
 
     base = get_config(arch)
     pool = []
-    for w in (0.5, 1.0):
+    for w in WIDTHS.get(arch, (0.5, 1.0)):
         cfg = base.scaled(w, name=f"{base.name}-w{w:g}")
         v = Variant(name=cfg.name, cfg=cfg,
                     quality=base.quality * (0.6 + 0.4 * w),
                     cache_len=SEQ + 16)
         v.build(gen, torch.bfloat16)
         pool.append(v)
-    dims = published_dims(pool[-1].cfg)
-    want = PUBLISHED[arch]
-    got = {k: dims[k] for k in want}
-    if got != want:
-        raise AssertionError(f"{arch} full width is not the published "
-                             f"config: {got} != {want}")
+    check_published(arch, pool[-1].cfg)
     return pool
 
 
@@ -913,12 +1040,29 @@ def free_running(arch, v, M, ops, tokens) -> None:
                                  f"disagree: {err} > {LOGIT_RTOL} * {scale}")
 
 
+def routing_changes(a, b, T) -> int:
+    """(token, k) entries of the first T tokens that two routings send
+    to another expert or keep differently."""
+    K = a.idx.shape[-1]
+    diff = (a.idx != b.idx) | (a.keep != b.keep)
+    return int(diff.reshape(-1, K)[:T].sum())
+
+
 def layer_by_layer(arch, v, M, ops, tokens) -> None:
     """Prefill and one decode step of the full-width variant with every
     layer run on both paths from the plain path's input to it: each
     layer's output, and the logits of the last layer's output, held to
     LOGIT_RTOL of their largest magnitude.  This bounds what each
-    layer's kernels change without the depth amplifying it."""
+    layer's kernels change without the depth amplifying it.
+
+    A MoE layer routes once, from the plain path's input to its
+    feed-forward, and both paths apply that routing: a bf16 difference
+    there could flip a near-tied top-k choice or a capacity drop and
+    move a token by a whole expert's share, whatever the kernels do.
+    How many (token, k) entries the kernel path's own input would have
+    routed differently is logged."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm
     cfg, params = v.cfg, v.params
     layers = list(enumerate(zip(cfg.block_kinds, params["layers"])))
 
@@ -930,9 +1074,31 @@ def layer_by_layer(arch, v, M, ops, tokens) -> None:
                                  f"{err} > {LOGIT_RTOL} * {scale}")
         return err / scale
 
-    def report(label, worst, x_k, x_p) -> None:
+    def ffn(kind, p, x_k, x_p, changed):
+        """Both paths' feed-forward, a MoE on the plain path's routing;
+        adds the kernel path's own routing changes to ``changed``."""
+        if kind == "ssd":
+            return x_k, x_p
+        route = None
+        if cfg.moe is not None:
+            norm2 = lambda x: apply_norm(cfg.norm, x, p["norm2"],
+                                         cfg.norm_eps)
+            router = p["mlp"]["router"]
+            route = moe.moe_route(router, norm2(x_p), cfg)
+            changed[0] += routing_changes(
+                route, moe.moe_route(router, norm2(x_k), cfg),
+                x_p.shape[0] * x_p.shape[1])
+            changed[1] += x_p.shape[0] * x_p.shape[1] * cfg.moe.top_k
+        return (M.ffn_block(cfg, p, x_k, route),
+                M.ffn_block(cfg, p, x_p, route))
+
+    def report(label, worst, x_k, x_p, changed) -> None:
         log(f"[serve {arch}] layer by layer {label}: worst layer output "
             f"err {worst:.4g} of its max |x| over {cfg.n_layers} layers")
+        if cfg.moe is not None:
+            log(f"[serve {arch}] layer by layer {label}: {changed[0]} of "
+                f"{changed[1]} (token, k) entries would route differently "
+                "on the kernel path's own input")
         err, scale = logits_err(f"[serve {arch}] layer by layer {label}",
                                 M.final_logits(cfg, params, x_k),
                                 M.final_logits(cfg, params, x_p),
@@ -945,30 +1111,31 @@ def layer_by_layer(arch, v, M, ops, tokens) -> None:
     positions = torch.arange(SEQ, device="cuda")[None, :].expand(BATCH, SEQ)
     tables = M.rope_for(cfg, positions)
     x = M.embed_tokens(cfg, params, tok)
-    caches, worst = [], 0.0
+    caches, worst, changed = [], 0.0, [0, 0]
     for i, (kind, p) in layers:
-        x_k, _ = M.block_prefill(cfg, kind, p, x, tables, v.cache_len,
-                                 ops.KERNELS)
-        x, c = M.block_prefill(cfg, kind, p, x, tables, v.cache_len,
-                               ops.PLAIN)
+        x_k, _ = M.mix_prefill(cfg, kind, p, x, tables, v.cache_len,
+                               ops.KERNELS)
+        x, c = M.mix_prefill(cfg, kind, p, x, tables, v.cache_len, ops.PLAIN)
+        x_k, x = ffn(kind, p, x_k, x, changed)
         worst = max(worst, held(f"prefill layer {i} ({kind})", x_k, x))
         caches.append(c)
-    report("prefill", worst, x_k, x)
+    report("prefill", worst, x_k, x, changed)
 
     nxt = torch.argmax(M.final_logits(cfg, params, x), -1)
     pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
     tables = M.rope_for(cfg, pos[:, None])
     x = M.embed_tokens(cfg, params, nxt[:, None])
-    worst = 0.0
+    worst, changed = 0.0, [0, 0]
     for i, (kind, p) in layers:
         # an attention cache is written in place: the kernel path gets a copy
         copy = {k: t.clone() for k, t in caches[i].items()}
-        x_k, _ = M.block_decode(cfg, kind, p, x, copy, pos, tables,
-                                ops.KERNELS)
-        x, _ = M.block_decode(cfg, kind, p, x, caches[i], pos, tables,
-                              ops.PLAIN)
+        x_k, _ = M.mix_decode(cfg, kind, p, x, copy, pos, tables,
+                              ops.KERNELS)
+        x, _ = M.mix_decode(cfg, kind, p, x, caches[i], pos, tables,
+                            ops.PLAIN)
+        x_k, x = ffn(kind, p, x_k, x, changed)
         worst = max(worst, held(f"decode layer {i} ({kind})", x_k, x))
-    report("decode step", worst, x_k, x)
+    report("decode step", worst, x_k, x, changed)
 
 
 def serve_family(arch, gen, tokens):
@@ -984,7 +1151,14 @@ def serve_family(arch, gen, tokens):
     from repro_torch.serving.executor import PoolExecutor
 
     t0 = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
     pool = build_pool(arch, gen)
+    log(f"[serve {arch}] weights: " + ", ".join(
+        f"{v.name} {v.cfg.param_count() / 1e9:.2f} B parameters "
+        f"({2 * v.cfg.param_count() / 1e9:.1f} GB bf16)" for v in pool)
+        + f"; allocated after the build {torch.cuda.memory_allocated() / 1e9:.2f}"
+        " GB")
     ex = PoolExecutor(pool, NetworkModel.from_cv(20.0, 0.5),
                       ModiPick(THRESHOLD_MS))
     ex.warm_up(tokens, n_decode=N_DECODE)
@@ -1010,6 +1184,8 @@ def serve_family(arch, gen, tokens):
     with torch.inference_mode():
         free_running(arch, pool[-1], M, ops, tokens)
         layer_by_layer(arch, pool[-1], M, ops, tokens)
+        if pool[-1].cfg.moe is not None:
+            moe_timings(ops, pool[-1], gen)
 
     for v in pool:
         pre = wall_ms(lambda: v.run(tokens, n_decode=0))
@@ -1018,8 +1194,203 @@ def serve_family(arch, gen, tokens):
             f"{N_DECODE} decode {both:.3f} ms (B={BATCH}, S={SEQ}, "
             f"median of 7)")
         trace_request(v, tokens)
-        v.params = None  # free the card for the next family
+    log(f"[serve {arch}] peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for v in pool:
+        v.params = None  # free the card for the next phase
+    release()
     return ex, counts
+
+
+def release() -> None:
+    """Hand the allocator's cached blocks of freed tensors back to the
+    card, so that the next phase's weights find room."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_timings(ops, v, gen) -> None:
+    """One MoE layer of ``v`` at the serve phase's prefill (B x S tokens)
+    and decode (B tokens) shapes: the routing, the experts' three batched
+    products over all E experts (the port's choice) and, for the record,
+    over only the experts that hold a token (their weights gathered
+    first), and the whole ``moe_ffn``; beside that layer's attention
+    kernel at the same step (K2 in prefill, K3 in decode)."""
+    from repro_torch.models import moe
+    cfg, p = v.cfg, v.params["layers"][0]["mlp"]
+    e = cfg.moe
+    E, D, F = e.n_experts, cfg.d_model, e.d_ff_expert
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for label, S in (("prefill", SEQ), ("decode", 1)):
+        x = randn(BATCH, S, D)
+        r = moe.moe_route(p["router"], x, cfg)
+        G, g, K = r.idx.shape
+        n = E * G * r.capacity
+        xin = randn(E, n // E, D)
+        used = torch.unique(r.idx[r.keep])
+        route_ms = time_ms(lambda: moe.moe_route(p["router"], x, cfg))
+        all_ms = time_ms(lambda: moe.expert_ffn(p, xin))
+        some = lambda: moe.expert_ffn({k: w[used] for k, w in p.items()
+                                       if k != "router"}, xin[used])
+        some_ms = time_ms(some)
+        ffn_ms = time_ms(lambda: moe.moe_ffn(p, x, cfg),
+                         label=f"moe_ffn {v.name} {label}")
+        b = bound(2 * (3 * E * D * F + 2 * n * D), 2 * 3 * n * D * F,
+                  torch.bfloat16)
+        if S > 1:
+            q = randn(BATCH, S, H, hd).transpose(1, 2)
+            k = randn(BATCH, S, KV, hd).transpose(1, 2)
+            att = ("K2", time_ms(lambda: ops.flash_attention(q, k, k)))
+        else:
+            C = SEQ + 16
+            q = randn(BATCH, KV, H // KV, hd)
+            k = randn(BATCH, C, KV, hd).permute(0, 2, 1, 3)
+            pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+            att = ("K3", time_ms(lambda: ops.decode_attention(q, k, k, pos)))
+        log(f"[moe] {v.name} layer 0 {label}: T={BATCH * S} tokens, "
+            f"G={G} group(s) of {g}, capacity {r.capacity}, {n // E} slots "
+            f"an expert, {used.numel()} of {E} experts hold a token; "
+            f"route {route_ms:.5g} ms; expert products over all {E} "
+            f"experts (library ms: 3 torch.bmm) {all_ms:.5g} ms, bound "
+            f"{b[0]:.4g} ms ({b[1]}); over the {used.numel()} used experts "
+            f"with their weights gathered {some_ms:.5g} ms; moe_ffn "
+            f"{ffn_ms:.5g} ms; the layer's {att[0]} {att[1]:.5g} ms")
+    log_timing()
+
+
+def batcher_phase(gen) -> dict:
+    """The continuous batcher (``ContinuousBatcher``) over BATCHER's
+    config at full width in float32: its requests submitted at once and
+    run to completion, with the launch counters zeroed just before and
+    read just after (prefill attention per attention layer and request,
+    decode attention per attention layer and batched step).  Each
+    request's prefill and per-step logits are then held to BATCHER_RTOL
+    of their max |logit| against the request run alone (batch 1, the
+    kernel path, teacher-forced on the batched run's tokens).  Returns
+    the launch counts of the batched run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.batcher import ContinuousBatcher, GenRequest
+
+    t0 = time.perf_counter()
+    arch = BATCHER["arch"]
+    cfg = get_config(arch)
+    check_published(arch, cfg)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, gen, torch.float32)
+    eng = ContinuousBatcher(cfg, params, max_slots=BATCHER["slots"],
+                            cache_len=BATCHER["cache_len"],
+                            dtype=torch.float32, model_name=arch)
+    rng = np.random.default_rng(7)
+    reqs = [GenRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, n,
+                                                  dtype=np.int32),
+                       max_new=m)
+            for i, (n, m) in enumerate(zip(BATCHER["prompts"],
+                                           BATCHER["max_new"]))]
+
+    # record each request's logits: its prefill's (admission is FIFO, so
+    # the i-th prefill is request i's) and each batched step's row
+    first, steps, inserted = [], [], []
+    prefill, decode, insert = eng._prefill, eng._decode, eng._insert_slot
+
+    def recording_prefill(tokens):
+        cache, logits = prefill(tokens)
+        first.append(logits[0].clone())
+        return cache, logits
+
+    def recording_decode(tokens, pos):
+        logits = decode(tokens, pos)
+        steps.append({r.rid: logits[s].clone()
+                      for s, r in enumerate(eng.slots) if r is not None})
+        return logits
+
+    def recording_insert(slot, req):
+        inserted.append(slot)
+        return insert(slot, req)
+
+    eng._prefill, eng._decode = recording_prefill, recording_decode
+    eng._insert_slot = recording_insert
+    for r in reqs:
+        eng.submit(r)
+    telemetry = eng.telemetry()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds)
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = n_attn * len(reqs)
+    want["decode_attention"] = n_attn * eng.n_steps
+    log(f"[batcher {arch}] launches " + json.dumps(counts))
+    if counts != want:
+        raise AssertionError(f"batcher launches {counts} != {want}")
+    n_tok = sum(len(r.generated) for r in reqs)
+    reuses = len(inserted) - len(set(inserted))
+    log(f"[batcher {arch}] {len(reqs)} requests (prompts "
+        f"{list(BATCHER['prompts'])}, max_new {list(BATCHER['max_new'])}) "
+        f"on {eng.max_slots} slots of {eng.cache_len}: {eng.n_steps} "
+        f"batched steps, {reuses} slot reuses (slots in order "
+        f"{inserted}), {n_tok} tokens in {wall * 1e3:.1f} ms "
+        f"({n_tok / wall:.1f} tokens/s, prefills included); telemetry "
+        f"at submission {json.dumps(telemetry)}, after "
+        f"{json.dumps(eng.telemetry())}")
+    if not all(r.done and len(r.generated) == r.max_new for r in reqs) \
+            or reuses < 1:
+        raise AssertionError("batcher run did not finish every request "
+                             "or reuse a slot")
+
+    # each request alone, teacher-forced on the batched run's tokens
+    worst, agree, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for r in reqs:
+            tok = torch.as_tensor(r.prompt[None, :], device="cuda")
+            cache, logits = M.prefill(cfg, params, tok, eng.cache_len)
+            alone = [logits[0]]
+            batched = [first[r.rid]] + [s[r.rid] for s in steps
+                                        if r.rid in s]
+            if len(batched) != len(r.generated):
+                raise AssertionError(f"batcher request {r.rid}: "
+                                     f"{len(batched)} logit rows for "
+                                     f"{len(r.generated)} tokens")
+            pos = torch.full((1,), len(r.prompt), dtype=torch.int32,
+                             device="cuda")
+            for j, t in enumerate(r.generated[:-1]):
+                logits, cache = M.decode_step(
+                    cfg, params, cache,
+                    torch.tensor([t], dtype=torch.int32, device="cuda"),
+                    pos + j)
+                alone.append(logits[0])
+            a = torch.stack(alone)[:, :cfg.vocab_size]
+            b = torch.stack(batched)[:, :cfg.vocab_size]
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"batcher request {r.rid}: logits "
+                                     "are not finite")
+            err = float((a - b).abs().max()) / float(a.abs().max())
+            worst = max(worst, err)
+            agree += int((a.argmax(-1).cpu()
+                          == torch.tensor(r.generated)).sum())
+            total += len(r.generated)
+            if err > BATCHER_RTOL:
+                raise AssertionError(
+                    f"batcher request {r.rid} (prompt {len(r.prompt)}): "
+                    f"logits differ from the request alone by {err} of "
+                    f"max |logit| > {BATCHER_RTOL}")
+    log(f"[batcher {arch}] each request alone (batch 1, teacher-forced): "
+        f"worst logit err {worst:.3g} of max |logit| (tol {BATCHER_RTOL}), "
+        f"greedy agreement {agree}/{total}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return counts
 
 
 def charged_router(ex, backend):
@@ -1788,7 +2159,12 @@ def main() -> int:
             launches[name] += c
     ex = executors["qwen2-1.5b"]
 
-    # 4. the batched selection entry points on the executor's store
+    # 4. the continuous batcher
+    for name, c in batcher_phase(gen).items():
+        launches[name] += c
+    release()
+
+    # 5. the batched selection entry points on the executor's store
     counts, selection_rows = main_selection(ex, ops, ref, policy_select)
     log_timing()
     rows.update(selection_rows)
@@ -1799,13 +2175,13 @@ def main() -> int:
         if not row["launches"] > 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # 5. the discrete-event engine's bursts through the selection kernels
+    # 6. the discrete-event engine's bursts through the selection kernels
     for name, c in engine_phase(ops, ref).items():
         launches[name] += c
     for name, row in rows.items():
         row["launches"] = launches[name]
 
-    # 6. premodel and the fleet through the stacked selection kernel
+    # 7. premodel and the fleet through the stacked selection kernel
     launches["stacked_select"], rows["stacked_select"] = stacked_phase(
         ops, ref, policy_select, gen)
     for name, row in rows.items():
@@ -1813,7 +2189,7 @@ def main() -> int:
         if not row["launches"] > 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # 7. timings for the record
+    # 8. timings for the record
     perf_selection(ex)
     crossover(ex)
 

@@ -2,11 +2,11 @@
 reference's config system.
 
 A :class:`ModelConfig` carries the same fields, defaults and derived
-sizes as the reference's, for the block kinds this package implements
-(global and sliding-window attention, Mamba-2 SSD, RG-LRU); ``reduced``
-and ``scaled`` give the same shapes the reference gives, so a port model
-and a reference model built from the same arguments hold the same
-parameters.
+sizes as the reference's, for the block kinds and feed-forwards this
+package implements (global and sliding-window attention, Mamba-2 SSD,
+RG-LRU; dense MLPs and mixtures of experts); ``reduced`` and ``scaled``
+give the same shapes the reference gives, so a port model and a
+reference model built from the same arguments hold the same parameters.
 """
 from __future__ import annotations
 
@@ -16,6 +16,17 @@ from typing import Optional, Tuple
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # Tokens a routing group holds; each expert takes at most its capacity
+    # of entries from a group (``models/moe.py``).
+    group_size: int = 512
 
 
 @dataclass(frozen=True)
@@ -49,7 +60,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm | hybrid (the families this package implements)
+    family: str  # dense | moe | ssm | hybrid (the families this package implements)
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,10 +75,11 @@ class ModelConfig:
     use_rope: bool = True
     qkv_bias: bool = False
     mlp: str = "swiglu"  # swiglu | geglu | gelu
-    norm: str = "rms"
+    norm: str = "rms"  # rms | layer
     tie_embeddings: bool = True
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model)
     norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     dtype: str = "bfloat16"
@@ -100,6 +112,49 @@ class ModelConfig:
     def tail_kinds(self) -> Tuple[str, ...]:
         return self.pattern[: self.n_layers - self.n_superblocks * len(self.pattern)]
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks), as the
+        reference counts it for the decoders."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.padded_vocab * d  # embedding
+        if not self.tie_embeddings:
+            n += self.padded_vocab * d
+        for kind in self.block_kinds:
+            if kind in ("attn", "local"):
+                n += (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                      + self.n_heads * hd * d)
+            elif kind == "ssd":
+                s = self.ssm
+                di, nh = s.d_inner(d), s.n_heads(d)
+                conv_ch = di + 2 * s.n_groups * s.d_state
+                n += d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+                n += conv_ch * s.conv_width + nh + nh  # conv, A_log, D
+                n += di * d  # out proj
+            elif kind == "rglru":
+                w = self.rglru.width(d)
+                n += (2 * d * w + w * self.rglru.conv_width + 2 * w * w
+                      + 4 * w + w * d)
+            if kind != "ssd":  # MLP for every non-ssd block
+                if self.moe is not None:
+                    e = self.moe
+                    n += d * e.n_experts  # router
+                    n += e.n_experts * (3 * d * e.d_ff_expert)
+                else:  # the reference counts geglu's wi, wg, wo as two
+                    mults = 3 if self.mlp == "swiglu" else 2
+                    n += mults * d * self.d_ff
+            n += 2 * d  # two norms
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        per_layer_delta = (e.n_experts - e.top_k) * 3 * self.d_model \
+            * e.d_ff_expert
+        n_moe_layers = sum(1 for k in self.block_kinds if k != "ssd")
+        return self.param_count() - n_moe_layers * per_layer_delta
+
     def reduced(self) -> "ModelConfig":
         """Small same-family variant for CPU smoke tests."""
         pat = len(self.pattern)
@@ -116,6 +171,9 @@ class ModelConfig:
             vocab_size=512,
             window=min(self.window, 64),
         )
+        if self.moe is not None:
+            cfg = replace(cfg, moe=MoEConfig(n_experts=4, top_k=2,
+                                             d_ff_expert=64, group_size=32))
         if self.ssm is not None:
             cfg = replace(cfg, ssm=SSMConfig(d_state=16, head_dim=16,
                                              chunk_size=32))
@@ -126,8 +184,8 @@ class ModelConfig:
     def scaled(self, width_mult: float, depth_mult: float = 1.0,
                name: str = "") -> "ModelConfig":
         """Scale width/depth — used to build ModiPick accuracy/latency pools.
-        As in the reference, neither ``ssm.head_dim`` nor
-        ``rglru.lru_width`` is scaled."""
+        As in the reference, none of ``ssm.head_dim``,
+        ``rglru.lru_width`` and ``moe.d_ff_expert`` is scaled."""
         d_model = _ceil_to(int(self.d_model * width_mult), 64)
         return replace(
             self,

@@ -46,12 +46,23 @@ def prefill_cache(cfg: ModelConfig, kind: str, k, v, cache_len: int):
     """The cache after a full prefill of S tokens (RoPE already applied to
     k), zero-padded along the sequence to ``cache_len`` slots.  A local
     layer whose window is shorter keeps ``window`` slots instead, slot j
-    holding the latest position p < S with p % window == j."""
+    holding the latest position p < S with p % window == j.
+
+    Before the ring wraps (S < window) that p is negative for the slots
+    j ≥ S, which no decode step reads before it writes them.  The
+    reference takes p as a wrapped index there: a value of the prompt
+    while p ≥ −S, and NaN below (out of range), which its decode step
+    then spreads through 0 · NaN.  Here those slots hold the
+    reference's value while p ≥ −S and zero below."""
     S = k.shape[1]
     if kind == "local" and cfg.window < cache_len:
         slots = torch.arange(cfg.window, device=k.device)
         pos = (S - 1) - torch.remainder(S - 1 - slots, cfg.window)
-        return {"k": k[:, pos], "v": v[:, pos]}
+        held = pos >= -S
+        pos = torch.where(held, pos, 0)
+        held = held[None, :, None, None]
+        return {"k": torch.where(held, k[:, pos], 0.0),
+                "v": torch.where(held, v[:, pos], 0.0)}
     if kind == "local":  # C = cache_len ≤ window: the first C positions
         k, v = k[:, :cache_len], v[:, :cache_len]
     pad = (0, 0, 0, 0, 0, max(0, cache_len - S))

@@ -10,7 +10,9 @@ the port runs as one matmul side by side: ``wq | wk | wv`` (and their
 biases) as ``wqkv`` (``bqkv``); an SSD layer's ``in_z | in_x | in_B |
 in_C | in_dt`` as ``w_in`` and its x, B and C convs as one; an RG-LRU
 layer's ``in_x | in_gate`` as ``w_in`` and ``w_inp | w_rec`` (and their
-biases) as ``w_gates`` (``b_gates``).  Every leaf is copied with
+biases) as ``w_gates`` (``b_gates``).  An MLP's leaves, or a MoE layer's
+``router``, ``wi``, ``wg`` and ``wo``, and an untied ``lm_head`` are
+carried as they are.  Every leaf is copied with
 ``np.array`` before it becomes a tensor, so no tensor shares memory with
 a read-only buffer.
 """

@@ -60,6 +60,20 @@ def rmsnorm(x, scale, eps):
             * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def layernorm(x, scale, eps):
+    """LayerNorm without a bias, with fp32 statistics and the same
+    ``(1 + scale)`` gain as ``rmsnorm``."""
+    h = x.to(torch.float32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(h - mu), dim=-1, keepdim=True)
+    return ((h - mu) * torch.rsqrt(var + eps)
+            * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def apply_norm(kind, x, scale, eps):
+    return rmsnorm(x, scale, eps) if kind == "rms" else layernorm(x, scale, eps)
+
+
 # ----------------------------------------------------------------------
 # RoPE
 # ----------------------------------------------------------------------

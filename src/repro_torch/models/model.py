@@ -1,5 +1,5 @@
 """Model assembly: decoder LMs of attention, local-attention, Mamba-2
-SSD and RG-LRU blocks.
+SSD and RG-LRU blocks, with dense or mixture-of-experts feed-forwards.
 
 The reference scans over stacked superblocks (one repetition of the
 config's block pattern) plus an unrolled tail; here the layers are a
@@ -11,7 +11,9 @@ loop over it.  Parameters are plain dictionaries of tensors:
 
 where an ``attn`` or ``local`` layer is ``{"norm1", "wqkv", ["bqkv"],
 "wo", "norm2", "mlp": {"wi", ["wg"], "wo"}}`` (``wqkv`` is the
-reference's ``wq | wk | wv`` side by side, ``bqkv`` their biases), an
+reference's ``wq | wk | wv`` side by side, ``bqkv`` their biases; a MoE
+config's ``mlp`` is ``{"router", "wi", "wg", "wo"}``, see
+``models/moe.py``), an
 ``rglru`` layer ``{"norm1", "rglru", "norm2", "mlp"}`` and an ``ssd``
 layer ``{"norm1", "ssd"}`` (no MLP; see ``models/ssm.py`` and
 ``models/rglru.py``).  A cache is a list with one entry per layer: a
@@ -28,9 +30,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import KERNELS, ModelKernels
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (init_normal, mlp_apply, rmsnorm,
+from repro_torch.models.layers import (apply_norm, init_normal, mlp_apply,
                                        rope_tables)
 
 Params = Dict[str, Any]
@@ -39,19 +42,21 @@ ATTENTION_KINDS = ("attn", "local")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration outside the decoder subset this package
-    implements: dense, SSM and hybrid families of attention, local
+    implements: dense, MoE, SSM and hybrid families of attention, local
     attention, SSD and RG-LRU blocks."""
     unsupported = []
-    if cfg.family not in ("dense", "ssm", "hybrid") or not set(
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or not set(
             cfg.pattern) <= {"attn", "local", "ssd", "rglru"}:
         unsupported.append(f"family {cfg.family!r} / pattern {cfg.pattern}")
+    if cfg.family == "moe" and cfg.moe is None:
+        unsupported.append("family 'moe' without a MoEConfig")
     if "ssd" in cfg.pattern and cfg.ssm is None:
         unsupported.append("ssd blocks without an SSMConfig")
     if "rglru" in cfg.pattern and cfg.rglru is None:
         unsupported.append("rglru blocks without an RGLRUConfig")
     if not cfg.use_rope:
         unsupported.append("absolute positions (use_rope=False)")
-    if cfg.norm != "rms":
+    if cfg.norm not in ("rms", "layer"):
         unsupported.append(f"norm {cfg.norm!r}")
     if cfg.kv_cache_dtype != "bf16":
         unsupported.append(f"kv_cache_dtype {cfg.kv_cache_dtype!r}")
@@ -104,9 +109,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             p["rglru"] = rglru_mod.init_params(cfg, generator, dtype)
         else:
             p.update(attention_layer())
-        mlp = {"wi": normal(d, f), "wo": normal(f, d, out_proj=True)}
-        if cfg.mlp in ("swiglu", "geglu"):
-            mlp["wg"] = normal(d, f)
+        if cfg.moe is not None:
+            mlp = moe_mod.init_params(cfg, generator, dtype)
+        else:
+            mlp = {"wi": normal(d, f), "wo": normal(f, d, out_proj=True)}
+            if cfg.mlp in ("swiglu", "geglu"):
+                mlp["wg"] = normal(d, f)
         p["norm2"], p["mlp"] = zeros(d), mlp
         layers.append(p)
     params = {"embed": normal(v, d), "layers": layers,
@@ -163,8 +171,12 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def _mlp_block(cfg, p, x):
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+def ffn_block(cfg: ModelConfig, p, x, routing=None):
+    """x + the layer's feed-forward of its second norm: the MLP, or the
+    MoE (routed by ``routing`` when given, else by its own input)."""
+    h2 = apply_norm(cfg.norm, x, p["norm2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_mod.moe_ffn(p["mlp"], h2, cfg, routing)[0]
     return x + mlp_apply(p["mlp"], h2, cfg.mlp)
 
 
@@ -176,42 +188,57 @@ def rope_for(cfg: ModelConfig, positions):
     return rope_tables(positions, cfg.rope_theta, cfg.resolved_head_dim)
 
 
-def block_prefill(cfg: ModelConfig, kind: str, p, x, tables,
-                  cache_len: int, impl: ModelKernels = KERNELS):
-    """One layer over the full sequence.  x: (B,S,D).  Returns (x, the
-    layer's cache)."""
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
+                impl: ModelKernels = KERNELS):
+    """A layer's first half over the full sequence: x + its mixer
+    (attention, SSD or RG-LRU) of its first norm.  x: (B,S,D).  Returns
+    (x, the layer's cache)."""
+    h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps)
     if kind == "ssd":
         out, cache = ssm_mod.ssd_prefill(p["ssd"], h, cfg, impl)
-        return x + out, cache  # no MLP
-    if kind == "rglru":
+    elif kind == "rglru":
         out, cache = rglru_mod.rglru_prefill(p["rglru"], h, cfg, impl)
     else:
         out, cache = attn.prefill_attention(p, h, tables, cfg, kind,
                                             cache_len=cache_len, impl=impl)
-    return _mlp_block(cfg, p, x + out), cache
+    return x + out, cache
+
+
+def mix_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, tables,
+               impl: ModelKernels = KERNELS):
+    """A layer's first half for one decode step.  x: (B,1,D).  Returns
+    (x, the layer's cache): an attention cache is written in place and
+    returned, a recurrent one replaced."""
+    h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps)
+    if kind == "ssd":
+        out, cache = ssm_mod.ssd_decode_step(p["ssd"], cache, h, cfg)
+    elif kind == "rglru":
+        out, cache = rglru_mod.rglru_decode_step(p["rglru"], cache, h, cfg)
+    else:
+        out, cache = attn.decode_attention(p, cache, h, pos, tables, cfg,
+                                           kind, impl=impl)
+    return x + out, cache
+
+
+def block_prefill(cfg: ModelConfig, kind: str, p, x, tables,
+                  cache_len: int, impl: ModelKernels = KERNELS):
+    """One layer over the full sequence.  x: (B,S,D).  Returns (x, the
+    layer's cache)."""
+    x, cache = mix_prefill(cfg, kind, p, x, tables, cache_len, impl)
+    return (x if kind == "ssd" else ffn_block(cfg, p, x)), cache
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, tables,
                  impl: ModelKernels = KERNELS):
     """One layer, one decode step.  x: (B,1,D).  Returns (x, the layer's
-    cache): an attention cache is written in place and returned, a
-    recurrent one replaced."""
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    if kind == "ssd":
-        out, cache = ssm_mod.ssd_decode_step(p["ssd"], cache, h, cfg)
-        return x + out, cache  # no MLP
-    if kind == "rglru":
-        out, cache = rglru_mod.rglru_decode_step(p["rglru"], cache, h, cfg)
-    else:
-        out, cache = attn.decode_attention(p, cache, h, pos, tables, cfg,
-                                           kind, impl=impl)
-    return _mlp_block(cfg, p, x + out), cache
+    cache)."""
+    x, cache = mix_decode(cfg, kind, p, x, cache, pos, tables, impl)
+    return (x if kind == "ssd" else ffn_block(cfg, p, x)), cache
 
 
 def final_logits(cfg: ModelConfig, params, x):
     """Logits (B, Vpad) of the last position of x (B,S,D)."""
-    x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    x = apply_norm(cfg.norm, x[:, -1:], params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0]
 
 

@@ -744,3 +744,107 @@ def test_fleet_on_the_card(gen, monkeypatch):
         for g, w in zip(outs, ref.stacked_select_ref(*a, **kw)):
             assert torch.equal(g, w)
     assert res.n_arrived == 3000
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (4, 16, 16, 128, 128, 0),     # moonshot-v1-16b-a3b: G = 1
+    (1, 8, 4, 1100, 256, 1024),   # gemma3-4b local, G = 2
+    (1, 8, 4, 1100, 256, 0)])     # gemma3-4b global
+def test_flash_kernel_at_the_new_serving_shapes(gen, dtype, B, H, KV, S,
+                                                hd, window):
+    q = _randn(gen, B, S, H, hd, dtype=dtype).transpose(1, 2)
+    k = _randn(gen, B, S, KV, hd, dtype=dtype).transpose(1, 2)
+    v = _randn(gen, B, S, KV, hd, dtype=dtype).transpose(1, 2)
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ref.flash_attention_ref(q, k, v, window=window), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,C,hd,pos", [
+    (16, 1, 144, 128, [128, 133, 139, 143]),     # moonshot: G = 1
+    (4, 2, 1024, 256, [5, 300, 1023, 1023]),     # gemma3's wrapped ring
+    (4, 2, 1152, 256, [5, 300, 1030, 1100])])    # gemma3 global, per slot
+def test_decode_kernel_at_the_new_serving_shapes(gen, dtype, KV, G, C, hd,
+                                                 pos):
+    B = len(pos)
+    q = _randn(gen, B, 1, KV * (G + 2), hd, dtype=dtype)[:, :, :KV * G]
+    q = q.reshape(B, KV, G, hd)
+    k = _randn(gen, B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    v = _randn(gen, B, C, KV, hd, dtype=dtype).permute(0, 2, 1, 3)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out = ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.decode_attention_ref(q, k, v, pos),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("width,shape,factor", [
+    (None, (3, 15), 1.25), (None, (2, 32), 0.5), (0.25, (4, 32), 1.25),
+    (0.25, (4, 1), 1.25)])
+def test_moe_ffn_on_the_card_matches_the_cpu(gen, width, shape, factor):
+    """moonshot's MoE feed-forward in float32 (reduced, and the width-0.25
+    layer of the published config: 64 experts, top 6) on the card against
+    the same call on the CPU: the same routing, the output to the float32
+    tolerance.  No kernel of the port runs in it."""
+    from repro_torch.models import moe
+    base = get_config("moonshot-v1-16b-a3b")
+    cfg = base.reduced() if width is None else base.scaled(width)
+    cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=factor))
+    params = moe.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (*shape, cfg.d_model)).astype(np.float32))
+    want, want_aux = moe.moe_ffn(params, x, cfg)
+    card = {k: w.cuda() for k, w in params.items()}
+    before = ops.launch_counts()
+    got, aux = moe.moe_ffn(card, x.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    r, r_cpu = (moe.moe_route(card["router"], x.cuda(), cfg),
+                moe.moe_route(params["router"], x, cfg))
+    assert torch.equal(r.idx.cpu(), r_cpu.idx)
+    assert torch.equal(r.keep.cpu(), r_cpu.keep)
+    torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
+    torch.testing.assert_close(aux.cpu(), want_aux, **TOL[torch.float32])
+
+
+def test_batcher_on_the_card_matches_the_cpu(gen):
+    """The continuous batcher over reduced gemma3-4b (a 64-slot local
+    ring, 96 cache slots) in float32 on the card and on the CPU: the
+    same tokens for every request; each prefill launches the prefill
+    kernel once per attention layer, each batched step the decode kernel
+    once per attention layer."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.batcher import ContinuousBatcher, GenRequest
+    cfg = get_config("gemma3-4b").reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (5, 17, 40, 70, 90)]
+    runs = []
+    for device in ("cpu", "cuda"):
+        p = {"embed": params["embed"].to(device),
+             "final_norm": params["final_norm"].to(device),
+             "layers": [{k: ({kk: t.to(device) for kk, t in w.items()}
+                             if isinstance(w, dict) else w.to(device))
+                         for k, w in layer.items()}
+                        for layer in params["layers"]]}
+        eng = ContinuousBatcher(cfg, p, max_slots=2, cache_len=96,
+                                device=device)
+        reqs = [GenRequest(rid=i, prompt=q, max_new=4 + i % 3)
+                for i, q in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = ops.launch_counts()
+        eng.run_to_completion()
+        after = ops.launch_counts()
+        runs.append([r.generated for r in reqs])
+    assert after["flash_attention"] - before["flash_attention"] == \
+        cfg.n_layers * len(prompts)
+    assert after["decode_attention"] - before["decode_attention"] == \
+        cfg.n_layers * eng.n_steps
+    assert runs[0] == runs[1]
