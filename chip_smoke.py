@@ -16,7 +16,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    also at a ragged multi-chunk length, and the attention kernels also
    at recurrentgemma's shapes (hd 256, 10 query heads over 1 KV head),
    moonshot's (G = 1) and gemma3's (G = 2 at hd 256 in float32, an
-   1100-token prompt, per-slot positions in a wrapped ring);
+   1100-token prompt, per-slot positions in a wrapped ring), K2
+   without the causal mask and K3 over 1500 frames at whisper-tiny's
+   encoder and cross-attention shapes, and K3 over an int8 cache
+   (``decode_attention_int8``) at the int8 serve phase's shape and
+   beside bf16 K3 over a 32768-slot cache;
    K4's occupancy (two blocks an SM at the serve shape) and its time
    over S; K5's segment plan; the selection kernels (K1 bit for bit at
    gamma 1, the fused selection's picks, all five of the charged pass's
@@ -30,7 +34,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    answering requests; and moonshot-v1-16b-a3b (48 layers of a 64-expert
    top-6 MoE) the same way at widths 0.25 and 1.0 (69.0 GB of weights;
    each pool is released before the next is built, and its peak memory
-   logged); the launch counters are zeroed just before and
+   logged); and qwen2-1.5b again with an int8 KV cache (``[serve
+   qwen2-1.5b int8kv]``: 24 requests; one request's decode logits held
+   against the same weights with a bf16 cache to the reference's 5e-2
+   of max |logit|); the launch counters are zeroed just before and
    read just after, and must show that every layer of every request ran
    its kernels (prefill attention per attention layer, decode attention
    per attention layer and decode step, the SSD scan per SSD layer, the
@@ -39,6 +46,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    decode step, layer by layer (a MoE layer on one routing, from the
    plain path's input); one MoE layer's routing, expert products and
    ``moe_ffn`` are timed beside its attention kernel (``[moe]``);
+   then whisper-tiny (``[encdec whisper-tiny]``: 4 encoder and 4
+   decoder layers, 1500 frames, B 4, 64 text tokens, 80 cache slots, 4
+   decode steps) and internvl2-2b (``[vlm internvl2-2b]``: 24 layers,
+   B 4, 256 image embeddings before 128 text tokens, 400 slots, 2
+   steps) at their published widths in bf16, each request through
+   ``models/api.py``'s prefill and serve steps on inputs from its
+   ``make_train_batch``, with the counters zeroed just before and read
+   just after, held layer by layer (the encoder's layers, each decoder
+   layer's self- and cross-attention and feed-forward), logits finite;
 4. the continuous batcher (``ContinuousBatcher``) over gemma3-4b at full
    width in float32: 8 requests with prompts of 5 to 1100 tokens (the
    longest two wrap the 1024-slot local ring in prefill) on 4 slots,
@@ -137,7 +153,24 @@ PUBLISHED = {
     "gemma3-4b": dict(n_layers=34, d_model=2560, vocab_size=262_144,
                       padded_vocab=262_144, n_heads=8, n_kv_heads=4,
                       resolved_head_dim=256, d_ff=10_240, window=1024),
+    "whisper-tiny": dict(n_layers=4, d_model=384, vocab_size=51_865,
+                         padded_vocab=51_968, n_heads=6, n_kv_heads=6,
+                         resolved_head_dim=64, d_ff=1536, encdec=(4, 1500)),
+    "internvl2-2b": dict(n_layers=24, d_model=2048, vocab_size=92_553,
+                         padded_vocab=92_672, n_heads=16, n_kv_heads=8,
+                         resolved_head_dim=128, d_ff=8192, vlm=256),
 }
+# The int8-KV serve phase: ModiPick over qwen2-1.5b with
+# kv_cache_dtype="int8" at widths 0.5 and 1.0, as the other serve phases;
+# one request's decode logits are held against the same weights with a
+# bf16 cache to the reference's bound (tests/test_models.py
+# test_int8_kv_cache_decode_close_to_bf16), of max |logit|.
+INT8_ARCH, INT8_REQUESTS, INT8_RTOL = "qwen2-1.5b", 24, 5e-2
+# The encoder-decoder and VLM phases: each model at its published width
+# and depth in bf16, random weights, inputs from api.make_train_batch;
+# B, text tokens, cache slots, decode steps.
+MODEL_PHASES = {"whisper-tiny": dict(B=4, S=64, cache_len=80, steps=4),
+                "internvl2-2b": dict(B=4, S=128, cache_len=400, steps=2)}
 # The continuous batcher's run: gemma3-4b at full width in float32 (so
 # that greedy tokens are stable), 4 slots of 1152 positions; prompts of
 # these lengths (the last two wrap the 1024-slot local ring in prefill)
@@ -272,11 +305,11 @@ def check(name, got, want, tol) -> float:
     return err
 
 
-# The bf16 tensor-core kernels ptxas must report on without a spill:
-# library → (kernel, instantiations): K2 and K3 at five head sizes, K4
-# at four.
+# The bf16 kernels ptxas must report on without a spill: library →
+# (kernel, instantiations): K2 at five head sizes, K3 at five over a bf16
+# and five over an int8 cache, K4 at four.
 BF16_KERNELS = {"flash_attention": ("flash_bf16_kernel", 5),
-                "decode_attention": ("decode_kernel", 5),
+                "decode_attention": ("decode_kernel", 10),
                 "ssd_scan": ("ssd_bf16_kernel", 4)}
 
 
@@ -307,6 +340,8 @@ def bf16_ptxas(logs) -> None:
                 continue
             smem = re.search(r"(\d+) bytes smem", line)
             tmpl = ",".join(re.findall(r"Li(\d+)E", entry))
+            if "aLi" in entry:  # a signed char (int8) template argument
+                tmpl = "int8 cache," + tmpl
             log(f"[ptxas bf16] {kern} <{tmpl}>: registers={m.group(1)} "
                 f"static_smem={smem.group(1) if smem else 0} bytes "
                 f"spill_stores={spill[0]} spill_loads={spill[1]}")
@@ -468,6 +503,8 @@ def phase_kernels(ops, ref, policy_select, gen):
 
     attention_edges(ops, ref, randn)
     serving_shapes(ops, ref, randn)
+    encdec_shapes(ops, ref, randn)
+    rows["decode_attention_int8"] = int8_decode(ops, ref, randn, gen)
 
     # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
     # G 1, chunk 256), inputs as the model hands them: transposed views
@@ -743,6 +780,169 @@ def serving_shapes(ops, ref, randn) -> None:
                   qs, kc, vc, attn_mask=mask, enable_gqa=True)))
 
 
+def encdec_shapes(ops, ref, randn) -> None:
+    """K2 without the causal mask at whisper-tiny's encoder shape (B 4,
+    H = KV = 6, 1500 frames, hd 64) and its cross-attention prefill (64
+    text tokens over the 1500 frames), and K3 over the 1500-frame cross
+    cache at pos 1499 (no multiple of its 16-slot tile; B·KV = 24), each
+    held against its plain version and timed as an ``[extra]`` line
+    beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import split_plan
+    dtype, B, H, hd, Fr = torch.bfloat16, BATCH, 6, 64, 1500
+    for label, Sq in (("encoder", Fr), ("cross prefill", 64)):
+        q = randn(B, Sq, H, hd, dtype=dtype).transpose(1, 2)
+        k = randn(B, Fr, H, hd, dtype=dtype).transpose(1, 2)
+        v = randn(B, Fr, H, hd, dtype=dtype).transpose(1, 2)
+        shape = f"whisper {label} B={B} H={H} KV={H} Sq={Sq} Sk={Fr} hd={hd}"
+        err = check(f"flash_attention {shape}",
+                    ops.flash_attention(q, k, v, causal=False),
+                    ref.flash_attention_ref(q, k, v, causal=False),
+                    TOL[dtype])
+        log(f"K2 flash_attention {shape} non-causal bf16: "
+            f"max_abs_err={err:.3g} tol={TOL[dtype]}")
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        extra(f"flash_attention {shape} non-causal bf16",
+              time_ms(lambda: ops.flash_attention(q, k, v, causal=False),
+                      label=f"K2 whisper {label} kernel"),
+              time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False),
+                      iters=10),
+              bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * hd * Sq * Fr * B * H, dtype),
+              time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc)))
+    q = randn(B, 1, H, hd, dtype=dtype).reshape(B, H, 1, hd)
+    ck = randn(B, Fr, H, hd, dtype=dtype).permute(0, 2, 1, 3)
+    cv = randn(B, Fr, H, hd, dtype=dtype).permute(0, 2, 1, 3)
+    pos = torch.full((B,), Fr - 1, dtype=torch.int32, device="cuda")
+    chunk, n_split = split_plan(B, H, Fr, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    shape = (f"whisper cross decode B={B} KV={H} G=1 C={Fr} hd={hd} "
+             f"pos={Fr - 1} (n_split={n_split}, chunk={chunk})")
+    err = check(f"decode_attention {shape}",
+                ops.decode_attention(q, ck, cv, pos),
+                ref.decode_attention_ref(q, ck, cv, pos), TOL[dtype])
+    log(f"K3 decode_attention {shape} bf16: max_abs_err={err:.3g} "
+        f"tol={TOL[dtype]}")
+    kc, vc = ck.contiguous(), cv.contiguous()
+    extra(f"decode_attention {shape} bf16",
+          time_ms(lambda: ops.decode_attention(q, ck, cv, pos),
+                  label="K3 whisper cross kernel"),
+          time_ms(lambda: ref.decode_attention_ref(q, ck, cv, pos)),
+          bound(2 * (2 * q.numel() + 2 * ck.numel()) + 4 * B,
+                4 * hd * B * H * Fr, dtype),
+          time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc)))
+
+
+def int8_bound(q, pos, KV, hd) -> tuple:
+    """K3-int8: the live slots' int8 k and v rows and their two fp32
+    scales read once, q read and the output written once, pos read."""
+    live = int((pos.to(torch.int64) + 1).sum()) * KV
+    G = q.shape[2]
+    return bound(live * (2 * hd + 2 * 4) + 2 * q.element_size() * q.numel()
+                 + 4 * pos.numel(), 4 * G * hd * live, q.dtype)
+
+
+def int8_decode(ops, ref, randn, gen) -> dict:
+    """K3 over an int8 cache (``decode_attention_int8``) against its
+    plain version: at the int8 serve phase's shape (qwen2-1.5b's B 4,
+    KV 2, G 6, 144 slots, pos 128–143, hd 128, bf16 q), which gives its
+    row of the kernels line, with dequantize + SDPA (two calls) timed as
+    an ``[extra]`` line for reference; and beside bf16 K3 over a long
+    cache (B 8, KV 2, G 6, 32768 slots, hd 128, pos near the end), where
+    both are bound by the cache's bytes."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    dtype = torch.bfloat16
+
+    def cache(B, C, KV, hd):
+        k8, ks = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
+        v8, vs = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
+        return (k8.permute(0, 2, 1, 3), v8.permute(0, 2, 1, 3),
+                ks.transpose(1, 2), vs.transpose(1, 2))
+
+    B, KV, G, C, hd = BATCH, 2, 6, SEQ + 16, 128
+    q = randn(B, 1, KV * (G + 2), hd, dtype=dtype)[:, :, :KV * G]
+    q = q.reshape(B, KV, G, hd)
+    k, v, ks, vs = cache(B, C, KV, hd)
+    pos = torch.randint(SEQ, C, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for window in (0, 40):
+        err = check(f"decode_attention_int8 window={window}",
+                    ops.decode_attention_int8(q, k, v, ks, vs, pos,
+                                              window=window),
+                    ref.decode_attention_int8_ref(q, k, v, ks, vs, pos,
+                                                  window=window),
+                    TOL[dtype])
+        log(f"K3-int8 decode_attention_int8 B={B} KV={KV} G={G} C={C} "
+            f"hd={hd} pos={pos.tolist()} window={window} bf16 q, int8 "
+            f"cache: max_abs_err={err:.3g} tol={TOL[dtype]}")
+        if window == 0:
+            row_err = err
+    b = int8_bound(q, pos, KV, hd)
+    qs = q.reshape(B, KV * G, 1, hd)
+    mask = (torch.arange(C, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    pair = lambda: F.scaled_dot_product_attention(
+        qs, dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype),
+        attn_mask=mask, enable_gqa=True)
+    row = dict(name="decode_attention_int8", route="cuda",
+               source="src/repro_torch/csrc/decode_attention.cu",
+               # the reference's int8 decode step (dequantize, then
+               # einsums); it reaches no pallas_call
+               replaces="src/repro/models/attention.py:325",
+               max_abs_err=row_err,
+               ms=time_ms(lambda: ops.decode_attention_int8(q, k, v, ks, vs,
+                                                            pos),
+                          label="K3-int8 qwen2 kernel"),
+               plain_ms=time_ms(lambda: ref.decode_attention_int8_ref(
+                   q, k, v, ks, vs, pos)),
+               bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[extra] decode_attention_int8 B={B} KV={KV} G={G} C={C} hd={hd}: "
+        f"dequantize + SDPA (two calls, for reference only) "
+        f"ms={time_ms(pair):.5g}")
+
+    B, C = 8, 32768
+    q = randn(B, KV, G, hd, dtype=dtype)
+    k, v, ks, vs = cache(B, C, KV, hd)
+    kb, vb = (dequantize_kv(k, ks, dtype).permute(0, 2, 1, 3).contiguous()
+              .permute(0, 2, 1, 3),
+              dequantize_kv(v, vs, dtype).permute(0, 2, 1, 3).contiguous()
+              .permute(0, 2, 1, 3))
+    pos = torch.tensor([C - 1 - 37 * i for i in range(B)], dtype=torch.int32,
+                       device="cuda")
+    shape = (f"B={B} KV={KV} G={G} C={C} hd={hd} "
+             f"pos={C - 1 - 37 * (B - 1)}..{C - 1}")
+    err8 = check(f"decode_attention_int8 {shape}",
+                 ops.decode_attention_int8(q, k, v, ks, vs, pos),
+                 ref.decode_attention_int8_ref(q, k, v, ks, vs, pos),
+                 TOL[dtype])
+    err16 = check(f"decode_attention {shape}",
+                  ops.decode_attention(q, kb, vb, pos),
+                  ref.decode_attention_ref(q, kb, vb, pos), TOL[dtype])
+    live = int((pos.to(torch.int64) + 1).sum()) * KV
+    ms8 = time_ms(lambda: ops.decode_attention_int8(q, k, v, ks, vs, pos))
+    ms16 = time_ms(lambda: ops.decode_attention(q, kb, vb, pos))
+    qs, kc, vc = q.reshape(B, KV * G, 1, hd), kb.contiguous(), vb.contiguous()
+    pair = lambda: F.scaled_dot_product_attention(
+        qs, dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype),
+        enable_gqa=True)
+    extra(f"decode_attention_int8 long cache {shape} (max_abs_err "
+          f"{err8:.3g}; library_ms: dequantize + SDPA, two calls)", ms8,
+          time_ms(lambda: ref.decode_attention_int8_ref(q, k, v, ks, vs, pos),
+                  iters=5),
+          int8_bound(q, pos, KV, hd), time_ms(pair, iters=10))
+    extra(f"decode_attention (bf16 cache) long cache {shape} (max_abs_err "
+          f"{err16:.3g}; library_ms: SDPA)", ms16,
+          time_ms(lambda: ref.decode_attention_ref(q, kb, vb, pos), iters=5),
+          bound(2 * (2 * q.numel() + 2 * live * hd) + 4 * B,
+                4 * G * hd * live, dtype),
+          time_ms(lambda: F.scaled_dot_product_attention(
+              qs, kc, vc, enable_gqa=True), iters=10))
+    log(f"[extra] K3-int8 against bf16 K3 at {C} slots: {ms8:.5g} ms "
+        f"against {ms16:.5g} ms ({ms16 / ms8:.3f}x)")
+    return row
+
+
 def probs_bound(B, n) -> tuple:
     """K1: the pool, the row bounds and the eligibility read once, the
     probabilities written; ~12 fp32 operations a (request, model)."""
@@ -954,6 +1154,10 @@ def published_dims(cfg) -> dict:
     if cfg.moe is not None:
         e = cfg.moe
         out["moe"] = (e.n_experts, e.top_k, e.d_ff_expert)
+    if cfg.encdec is not None:
+        out["encdec"] = (cfg.encdec.n_encoder_layers, cfg.encdec.n_frames)
+    if cfg.vlm is not None:
+        out["vlm"] = cfg.vlm.n_image_tokens
     return out
 
 
@@ -965,14 +1169,15 @@ def check_published(arch, cfg) -> None:
                              f"config: {got} != {want}")
 
 
-def build_pool(arch, gen):
+def build_pool(arch, gen, kv_cache_dtype="bf16"):
     """The ``WIDTHS`` of the published config of ``arch`` (0.5 and 1.0
     unless it says otherwise), at full depth, bf16, random weights from
-    ``gen``."""
+    ``gen``, with a KV cache of ``kv_cache_dtype``."""
+    from dataclasses import replace
     from repro_torch.configs.registry import get_config
     from repro_torch.serving.pool import Variant
 
-    base = get_config(arch)
+    base = replace(get_config(arch), kv_cache_dtype=kv_cache_dtype)
     pool = []
     for w in WIDTHS.get(arch, (0.5, 1.0)):
         cfg = base.scaled(w, name=f"{base.name}-w{w:g}")
@@ -990,14 +1195,17 @@ def expected_launches(cfgs) -> dict:
     each config: prefill and decode attention per attention layer (and
     decode step), the SSD scan per SSD layer, the RG-LRU scan per RG-LRU
     layer; no selection kernel on the scalar path."""
-    want = dict(flash_attention=0, decode_attention=0, ssd_scan=0,
-                rglru_scan=0, modipick_probs=0, fused_select=0,
-                charged_select=0, stacked_select=0)
+    want = dict(flash_attention=0, decode_attention=0,
+                decode_attention_int8=0, ssd_scan=0, rglru_scan=0,
+                modipick_probs=0, fused_select=0, charged_select=0,
+                stacked_select=0)
     for cfg in cfgs:
         kinds = cfg.block_kinds
         n_attn = sum(k in ("attn", "local") for k in kinds)
         want["flash_attention"] += n_attn
-        want["decode_attention"] += n_attn * N_DECODE
+        decode = ("decode_attention_int8" if cfg.kv_cache_dtype == "int8"
+                  else "decode_attention")
+        want[decode] += n_attn * N_DECODE
         want["ssd_scan"] += kinds.count("ssd")
         want["rglru_scan"] += kinds.count("rglru")
     return want
@@ -1025,7 +1233,8 @@ def free_running(arch, v, M, ops, tokens) -> None:
     pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
     outs, nxt = {}, None
     for label, impl in (("plain", ops.PLAIN), ("kernel", ops.KERNELS)):
-        cache, logits = M.prefill(v.cfg, v.params, tok, v.cache_len,
+        cache, logits = M.prefill(v.cfg, v.params, {"tokens": tok},
+                                  v.cache_len,
                                   impl=impl)
         if nxt is None:  # both paths decode the same next tokens
             nxt = torch.argmax(logits, -1)
@@ -1048,12 +1257,14 @@ def routing_changes(a, b, T) -> int:
     return int(diff.reshape(-1, K)[:T].sum())
 
 
-def layer_by_layer(arch, v, M, ops, tokens) -> None:
-    """Prefill and one decode step of the full-width variant with every
-    layer run on both paths from the plain path's input to it: each
-    layer's output, and the logits of the last layer's output, held to
-    LOGIT_RTOL of their largest magnitude.  This bounds what each
-    layer's kernels change without the depth amplifying it.
+def layer_by_layer(label, cfg, params, batch, cache_len, M, ops) -> None:
+    """Prefill of ``batch`` and one decode step with every layer run on
+    both paths from the plain path's input to it: each layer's output,
+    and the logits of the last layer's output, held to LOGIT_RTOL of
+    their largest magnitude.  This bounds what each layer's kernels
+    change without the depth amplifying it.  An encoder's layers are
+    held the same way, and a decoder layer's self-attention and
+    cross-attention each on their own before its feed-forward.
 
     A MoE layer routes once, from the plain path's input to its
     feed-forward, and both paths apply that routing: a bf16 difference
@@ -1062,15 +1273,14 @@ def layer_by_layer(arch, v, M, ops, tokens) -> None:
     How many (token, k) entries the kernel path's own input would have
     routed differently is logged."""
     from repro_torch.models import moe
-    from repro_torch.models.layers import apply_norm
-    cfg, params = v.cfg, v.params
-    layers = list(enumerate(zip(cfg.block_kinds, params["layers"])))
+    from repro_torch.models.layers import apply_norm, sinusoidal_pos
+    layers = list(enumerate(zip(M.layer_kinds(cfg), params["layers"])))
 
-    def held(label, x_k, x_p) -> float:
+    def held(what, x_k, x_p) -> float:
         err = float((x_k.float() - x_p.float()).abs().max())
         scale = float(x_p.float().abs().max())
         if err > LOGIT_RTOL * scale:
-            raise AssertionError(f"{arch} layer by layer {label} disagrees: "
+            raise AssertionError(f"{label} layer by layer {what} disagrees: "
                                  f"{err} > {LOGIT_RTOL} * {scale}")
         return err / scale
 
@@ -1092,57 +1302,83 @@ def layer_by_layer(arch, v, M, ops, tokens) -> None:
         return (M.ffn_block(cfg, p, x_k, route),
                 M.ffn_block(cfg, p, x_p, route))
 
-    def report(label, worst, x_k, x_p, changed) -> None:
-        log(f"[serve {arch}] layer by layer {label}: worst layer output "
-            f"err {worst:.4g} of its max |x| over {cfg.n_layers} layers")
+    def report(what, worst, x_k, x_p, changed) -> None:
+        log(f"{label} layer by layer {what}: worst layer output err "
+            f"{worst:.4g} of its max |x| over {cfg.n_layers} layers")
         if cfg.moe is not None:
-            log(f"[serve {arch}] layer by layer {label}: {changed[0]} of "
+            log(f"{label} layer by layer {what}: {changed[0]} of "
                 f"{changed[1]} (token, k) entries would route differently "
                 "on the kernel path's own input")
-        err, scale = logits_err(f"[serve {arch}] layer by layer {label}",
+        err, scale = logits_err(f"{label} layer by layer {what}",
                                 M.final_logits(cfg, params, x_k),
                                 M.final_logits(cfg, params, x_p),
                                 cfg.vocab_size)
         if err > LOGIT_RTOL * scale:
-            raise AssertionError(f"{arch} layer-by-layer {label} logits "
+            raise AssertionError(f"{label} layer-by-layer {what} logits "
                                  f"disagree: {err} > {LOGIT_RTOL} * {scale}")
 
-    tok = torch.as_tensor(tokens, device="cuda")
-    positions = torch.arange(SEQ, device="cuda")[None, :].expand(BATCH, SEQ)
+    if cfg.encdec is not None:
+        frames = batch["frames"]
+        dt = params["embed"].dtype
+        x = frames.to(dt) + sinusoidal_pos(
+            torch.arange(frames.shape[1], device="cuda"), cfg.d_model).to(dt)
+        worst = 0.0
+        for i, p in enumerate(params["encoder"]["layers"]):
+            x_k = M.encoder_block(cfg, p, x, ops.KERNELS)
+            x = M.encoder_block(cfg, p, x, ops.PLAIN)
+            worst = max(worst, held(f"encoder layer {i}", x_k, x))
+        log(f"{label} layer by layer encoder: worst layer output err "
+            f"{worst:.4g} of its max |x| over "
+            f"{cfg.encdec.n_encoder_layers} layers")
+    x, positions, enc = M.assemble_input(cfg, params, batch, ops.PLAIN)
     tables = M.rope_for(cfg, positions)
-    x = M.embed_tokens(cfg, params, tok)
     caches, worst, changed = [], 0.0, [0, 0]
     for i, (kind, p) in layers:
-        x_k, _ = M.mix_prefill(cfg, kind, p, x, tables, v.cache_len,
+        mix = "attn" if kind == "xdec" else kind
+        x_k, _ = M.mix_prefill(cfg, mix, p, x, tables, cache_len,
                                ops.KERNELS)
-        x, c = M.mix_prefill(cfg, kind, p, x, tables, v.cache_len, ops.PLAIN)
+        x, c = M.mix_prefill(cfg, mix, p, x, tables, cache_len, ops.PLAIN)
+        if kind == "xdec":
+            worst = max(worst, held(f"prefill layer {i} self", x_k, x))
+            x_k = M.cross_block(cfg, p, x, enc, ops.KERNELS)[0]
+            x, c["xk"], c["xv"] = M.cross_block(cfg, p, x, enc, ops.PLAIN)
+            worst = max(worst, held(f"prefill layer {i} cross", x_k, x))
         x_k, x = ffn(kind, p, x_k, x, changed)
         worst = max(worst, held(f"prefill layer {i} ({kind})", x_k, x))
         caches.append(c)
     report("prefill", worst, x_k, x, changed)
 
     nxt = torch.argmax(M.final_logits(cfg, params, x), -1)
-    pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+    pos = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                     device="cuda")
     tables = M.rope_for(cfg, pos[:, None])
-    x = M.embed_tokens(cfg, params, nxt[:, None])
+    x = M.embed_tokens(cfg, params, nxt[:, None], pos[:, None])
     worst, changed = 0.0, [0, 0]
     for i, (kind, p) in layers:
+        mix = "attn" if kind == "xdec" else kind
         # an attention cache is written in place: the kernel path gets a copy
         copy = {k: t.clone() for k, t in caches[i].items()}
-        x_k, _ = M.mix_decode(cfg, kind, p, x, copy, pos, tables,
+        x_k, _ = M.mix_decode(cfg, mix, p, x, copy, pos, tables,
                               ops.KERNELS)
-        x, _ = M.mix_decode(cfg, kind, p, x, caches[i], pos, tables,
+        x, _ = M.mix_decode(cfg, mix, p, x, caches[i], pos, tables,
                             ops.PLAIN)
+        if kind == "xdec":
+            worst = max(worst, held(f"decode layer {i} self", x_k, x))
+            x_k = M.cross_decode_block(cfg, p, x, caches[i], ops.KERNELS)
+            x = M.cross_decode_block(cfg, p, x, caches[i], ops.PLAIN)
+            worst = max(worst, held(f"decode layer {i} cross", x_k, x))
         x_k, x = ffn(kind, p, x_k, x, changed)
         worst = max(worst, held(f"decode layer {i} ({kind})", x_k, x))
     report("decode step", worst, x_k, x, changed)
 
 
-def serve_family(arch, gen, tokens):
-    """Serve ``N_REQUESTS[arch]`` requests from a pool of ``arch``
-    through PoolExecutor → Router → ModiPick, with the launch counters
-    zeroed just before and read just after; hold the full-width logits
-    on the kernel path against the plain path; time each variant.
+def serve_family(arch, gen, tokens, kv_cache_dtype="bf16"):
+    """Serve ``N_REQUESTS[arch]`` requests (``INT8_REQUESTS`` with an
+    int8 KV cache) from a pool of ``arch`` through PoolExecutor → Router
+    → ModiPick, with the launch counters zeroed just before and read just
+    after; hold the full-width logits on the kernel path against the
+    plain path (and, with an int8 cache, one request's decode logits
+    against the same weights with a bf16 cache); time each variant.
     Returns (executor, the launch counts of the serve run)."""
     from repro_torch.core.netmodel import NetworkModel
     from repro_torch.core.policy import ModiPick
@@ -1150,56 +1386,180 @@ def serve_family(arch, gen, tokens):
     from repro_torch.models import model as M
     from repro_torch.serving.executor import PoolExecutor
 
+    int8 = kv_cache_dtype == "int8"
+    label = f"[serve {arch}{' int8kv' if int8 else ''}]"
     t0 = time.perf_counter()
     release()
     torch.cuda.reset_peak_memory_stats()
-    pool = build_pool(arch, gen)
-    log(f"[serve {arch}] weights: " + ", ".join(
+    pool = build_pool(arch, gen, kv_cache_dtype)
+    log(f"{label} weights: " + ", ".join(
         f"{v.name} {v.cfg.param_count() / 1e9:.2f} B parameters "
         f"({2 * v.cfg.param_count() / 1e9:.1f} GB bf16)" for v in pool)
         + f"; allocated after the build {torch.cuda.memory_allocated() / 1e9:.2f}"
-        " GB")
+        f" GB; KV cache {kv_cache_dtype}")
     ex = PoolExecutor(pool, NetworkModel.from_cv(20.0, 0.5),
                       ModiPick(THRESHOLD_MS))
     ex.warm_up(tokens, n_decode=N_DECODE)
-    log(f"[serve {arch}] pool built and warmed in "
+    log(f"{label} pool built and warmed in "
         f"{time.perf_counter() - t0:.1f}s: "
         + ", ".join(f"{v.name} d={v.cfg.d_model} L={v.cfg.n_layers} "
                     f"kinds={sorted(set(v.cfg.block_kinds))}" for v in pool))
-    n = N_REQUESTS[arch]
+    n = INT8_REQUESTS if int8 else N_REQUESTS[arch]
     ops.reset_launch_counts()
     results = [ex.execute(tokens, t_sla=T_SLA_MS, n_decode=N_DECODE)
                for _ in range(n)]
     counts = ops.launch_counts()
     summary = ex.summary()
-    log(f"[serve {arch}] summary " + json.dumps(summary))
-    log(f"[serve {arch}] launches " + json.dumps(counts))
+    log(f"{label} summary " + json.dumps(summary))
+    log(f"{label} launches " + json.dumps(counts))
     want = expected_launches(ex.by_name[r.variant].cfg for r in results)
     if counts != want:
-        raise AssertionError(f"{arch} serve launches {counts} != {want}")
+        raise AssertionError(f"{label} serve launches {counts} != {want}")
     if summary["n"] != n or not all(
             np.isfinite(r.t_infer_ms) and r.t_infer_ms > 0 for r in results):
-        raise AssertionError(f"{arch} serve phase returned bad results")
+        raise AssertionError(f"{label} serve phase returned bad results")
 
     with torch.inference_mode():
-        free_running(arch, pool[-1], M, ops, tokens)
-        layer_by_layer(arch, pool[-1], M, ops, tokens)
-        if pool[-1].cfg.moe is not None:
-            moe_timings(ops, pool[-1], gen)
+        v = pool[-1]
+        free_running(arch, v, M, ops, tokens)
+        layer_by_layer(label, v.cfg, v.params,
+                       {"tokens": torch.as_tensor(tokens, device="cuda")},
+                       v.cache_len, M, ops)
+        if int8:
+            int8_against_bf16(label, v, M, tokens)
+        if v.cfg.moe is not None:
+            moe_timings(ops, v, gen)
 
     for v in pool:
         pre = wall_ms(lambda: v.run(tokens, n_decode=0))
         both = wall_ms(lambda: v.run(tokens, n_decode=N_DECODE))
-        log(f"[perf] {v.name}: warm prefill {pre:.3f} ms, prefill + "
-            f"{N_DECODE} decode {both:.3f} ms (B={BATCH}, S={SEQ}, "
-            f"median of 7)")
+        log(f"[perf] {v.name}{' int8kv' if int8 else ''}: warm prefill "
+            f"{pre:.3f} ms, prefill + {N_DECODE} decode {both:.3f} ms "
+            f"(B={BATCH}, S={SEQ}, median of 7)")
         trace_request(v, tokens)
-    log(f"[serve {arch}] peak allocated "
+    log(f"{label} peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     for v in pool:
         v.params = None  # free the card for the next phase
     release()
     return ex, counts
+
+
+def int8_against_bf16(label, v, M, tokens) -> None:
+    """One request's decode step on the int8 cache against the same
+    weights, tokens and next token with a bf16 cache, both on the kernel
+    path: held to INT8_RTOL of max |logit|, the reference's bound."""
+    from dataclasses import replace
+    tok = torch.as_tensor(tokens, device="cuda")
+    pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+    outs, nxt = [], None
+    for cfg in (v.cfg, replace(v.cfg, kv_cache_dtype="bf16")):
+        cache, logits = M.prefill(cfg, v.params, {"tokens": tok},
+                                  v.cache_len)
+        if nxt is None:
+            nxt = torch.argmax(logits, -1)
+        outs.append(M.decode_step(cfg, v.params, cache, nxt, pos)[0])
+    a, b = (o.float()[:, :v.cfg.vocab_size] for o in outs)
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{label} int8-cache logits are not finite")
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"{label} decode logits, int8 against bf16 cache: max_abs_err="
+        f"{err:.4g} = {err / scale:.4g} of max |logit| (bound {INT8_RTOL}), "
+        f"greedy_agreement={agree:.3f}")
+    if err > INT8_RTOL * scale:
+        raise AssertionError(f"{label} int8-cache decode logits are "
+                             f"{err / scale} of max |logit| from the bf16 "
+                             f"cache's > {INT8_RTOL}")
+
+
+def model_phase(arch, gen) -> dict:
+    """``MODEL_PHASES[arch]`` at the published width and depth in bf16:
+    one request (a prefill of the batch, then greedy decode steps)
+    through ``api.make_prefill_step`` and ``api.make_serve_step``, with
+    the launch counters zeroed just before and read just after (K2 per
+    encoder layer and per decoder self- and cross-attention, K3 per
+    decoder attention per step, the cross decode's too); its logits
+    finite, and beside the plain path's; every layer held layer by
+    layer; prefill and step ms, peak memory.  Returns the launch
+    counts."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    ph = MODEL_PHASES[arch]
+    cfg = get_config(arch)
+    check_published(arch, cfg)
+    label = f"[{'encdec' if cfg.encdec is not None else 'vlm'} {arch}]"
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, gen, torch.bfloat16)
+    n_img = cfg.vlm.n_image_tokens if cfg.vlm is not None else 0
+    B, S, C, steps = ph["B"], ph["S"], ph["cache_len"], ph["steps"]
+    batch = api.make_train_batch(cfg, ShapeConfig(arch, S + n_img, B,
+                                                  "prefill"), gen)
+    log(f"{label} {cfg.param_count() / 1e9:.4g} B parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.3f} GB allocated); batch "
+        + ", ".join(f"{k} {tuple(t.shape)} {t.dtype}"
+                    for k, t in batch.items())
+        + f"; {C} cache slots, {steps} decode steps")
+
+    def request(impl):
+        prefill = api.make_prefill_step(cfg, C, impl)
+        step = api.make_serve_step(cfg, impl)
+        cache, logits = prefill(params, batch)
+        outs = [logits]
+        for i in range(steps):
+            pos = torch.full((B,), S + n_img + i, dtype=torch.int32,
+                             device="cuda")
+            logits, cache = step(params, cache, torch.argmax(outs[-1], -1),
+                                 pos)
+            outs.append(logits)
+        return outs, cache
+
+    with torch.inference_mode():
+        request(ops.KERNELS)  # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outs, cache = request(ops.KERNELS)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        n_enc = cfg.encdec.n_encoder_layers if cfg.encdec is not None else 0
+        x = 2 if cfg.encdec is not None else 1  # self (and cross) a layer
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = n_enc + x * cfg.n_layers
+        want["decode_attention"] = x * cfg.n_layers * steps
+        log(f"{label} launches " + json.dumps(counts))
+        if counts != want:
+            raise AssertionError(f"{label} launches {counts} != {want}")
+        for i, lg in enumerate(outs):
+            if lg.shape != (B, cfg.padded_vocab) or not torch.isfinite(
+                    lg[:, :cfg.vocab_size]).all():
+                raise AssertionError(f"{label} logits {i} are not finite "
+                                     f"of shape {(B, cfg.padded_vocab)}")
+        plain, _ = request(ops.PLAIN)
+        for i, what in ((0, "prefill"), (1, "first decode step")):
+            logits_err(f"{label} free-running {what}", outs[i], plain[i],
+                       cfg.vocab_size)
+        layer_by_layer(label, cfg, params, batch, C, M, ops)
+        prefill = api.make_prefill_step(cfg, C)
+        step = api.make_serve_step(cfg)
+        nxt = torch.argmax(outs[-1], -1)
+        pos = torch.full((B,), S + n_img + steps, dtype=torch.int32,
+                         device="cuda")
+        pre_ms = wall_ms(lambda: prefill(params, batch))
+        step_ms = wall_ms(lambda: step(params, cache, nxt, pos))
+    log(f"{label} prefill {pre_ms:.3f} ms, decode step {step_ms:.3f} ms "
+        f"(B={B}, {S} text tokens{f' after {n_img} image embeddings' if n_img else ''}"
+        f", median of 7); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    del params, cache, outs, plain
+    release()
+    return counts
 
 
 def release() -> None:
@@ -1354,7 +1714,8 @@ def batcher_phase(gen) -> dict:
     with torch.inference_mode():
         for r in reqs:
             tok = torch.as_tensor(r.prompt[None, :], device="cuda")
-            cache, logits = M.prefill(cfg, params, tok, eng.cache_len)
+            cache, logits = M.prefill(cfg, params, {"tokens": tok},
+                                      eng.cache_len)
             alone = [logits[0]]
             batched = [first[r.rid]] + [s[r.rid] for s in steps
                                         if r.rid in s]
@@ -2158,6 +2519,14 @@ def main() -> int:
         for name, c in counts.items():
             launches[name] += c
     ex = executors["qwen2-1.5b"]
+    _, counts = serve_family(INT8_ARCH, gen, tokens, kv_cache_dtype="int8")
+    for name, c in counts.items():
+        launches[name] += c
+
+    # 3b. the encoder-decoder and the VLM through models/api.py
+    for arch in MODEL_PHASES:
+        for name, c in model_phase(arch, gen).items():
+            launches[name] += c
 
     # 4. the continuous batcher
     for name, c in batcher_phase(gen).items():
@@ -2198,9 +2567,9 @@ def main() -> int:
             if row[key] is not None and not row[key] > 0:
                 raise AssertionError(f"{row['name']}: bad {key} {row[key]}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
-    order = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-             "modipick_probs", "fused_select", "charged_select",
-             "stacked_select")
+    order = ("flash_attention", "decode_attention", "decode_attention_int8",
+             "ssd_scan", "rglru_scan", "modipick_probs", "fused_select",
+             "charged_select", "stacked_select")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}

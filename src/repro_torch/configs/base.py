@@ -1,12 +1,15 @@
-"""Model configuration for the port: the decoder-only subset of the
-reference's config system.
+"""Model configuration for the port: the reference's config system
+without its training settings.
 
 A :class:`ModelConfig` carries the same fields, defaults and derived
 sizes as the reference's, for the block kinds and feed-forwards this
 package implements (global and sliding-window attention, Mamba-2 SSD,
-RG-LRU; dense MLPs and mixtures of experts); ``reduced`` and ``scaled``
-give the same shapes the reference gives, so a port model and a
-reference model built from the same arguments hold the same parameters.
+RG-LRU; dense MLPs and mixtures of experts; a whisper-style encoder with
+cross-attention, image embeddings before the text; bf16 or int8 KV
+caches); ``reduced`` and ``scaled`` give the same shapes the reference
+gives, so a port model and a reference model built from the same
+arguments hold the same parameters.  :data:`SHAPES` are the reference's
+batch shapes.
 """
 from __future__ import annotations
 
@@ -58,9 +61,24 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (whisper) extras; the frontend is a stub that
+    provides precomputed frame embeddings."""
+    n_encoder_layers: int = 4
+    n_frames: int = 1500  # whisper 30s @ 50Hz after conv frontend
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """VLM extras; the ViT frontend is a stub that provides patch
+    embeddings."""
+    n_image_tokens: int = 256
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid (the families this package implements)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,7 +90,7 @@ class ModelConfig:
     pattern: Tuple[str, ...] = ("attn",)
     window: int = 1024  # sliding window for "local" blocks
     rope_theta: float = 10_000.0
-    use_rope: bool = True
+    use_rope: bool = True  # False → sinusoidal absolute positions at embed
     qkv_bias: bool = False
     mlp: str = "swiglu"  # swiglu | geglu | gelu
     norm: str = "rms"  # rms | layer
@@ -82,8 +100,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
     dtype: str = "bfloat16"
-    kv_cache_dtype: str = "bf16"
+    kv_cache_dtype: str = "bf16"  # bf16 | int8 (per-slot-scaled quantized KV)
     # Accuracy proxy used by ModiPick pools (top-1-style score in [0,1]).
     quality: float = 0.0
 
@@ -111,6 +131,14 @@ class ModelConfig:
     @property
     def tail_kinds(self) -> Tuple[str, ...]:
         return self.pattern[: self.n_layers - self.n_superblocks * len(self.pattern)]
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: at most a quarter of the layers are
+        global attention (the reference's rule)."""
+        kinds = self.block_kinds
+        n_global = sum(1 for k in kinds if k == "attn")
+        return n_global == 0 or (n_global / len(kinds)) <= 0.25
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), as the
@@ -143,6 +171,15 @@ class ModelConfig:
                     mults = 3 if self.mlp == "swiglu" else 2
                     n += mults * d * self.d_ff
             n += 2 * d  # two norms
+        if self.encdec is not None:
+            attn = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                    + self.n_heads * hd * d)
+            enc_block = attn + (3 if self.mlp == "swiglu" else 2) \
+                * d * self.d_ff + 2 * d
+            n += self.encdec.n_encoder_layers * enc_block
+            # decoder cross-attention per layer (the reference counts its
+            # q, k, v, o and one norm, as it holds them)
+            n += self.n_layers * (attn + d)
         return n
 
     def active_param_count(self) -> int:
@@ -179,6 +216,11 @@ class ModelConfig:
                                              chunk_size=32))
         if self.rglru is not None:
             cfg = replace(cfg, rglru=RGLRUConfig(lru_width=128))
+        if self.encdec is not None:
+            cfg = replace(cfg, encdec=EncDecConfig(n_encoder_layers=2,
+                                                   n_frames=64))
+        if self.vlm is not None:
+            cfg = replace(cfg, vlm=VLMConfig(n_image_tokens=16))
         return cfg
 
     def scaled(self, width_mult: float, depth_mult: float = 1.0,
@@ -195,3 +237,19 @@ class ModelConfig:
             d_ff=_ceil_to(int(self.d_ff * width_mult), 64),
             head_dim=max(16, _ceil_to(int(self.resolved_head_dim * width_mult), 16)),
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -45,6 +45,18 @@
 // Tensor cores would add nothing here: the arithmetic is 4·G·hd flops
 // per slot and the kernel waits on latency, not on math.
 //
+// The int8 cache (`decode_attention_int8_fwd`, the reference's
+// kv_cache_dtype="int8": src/repro/models/attention.py dequantizes the
+// whole cache every step and attends with einsums) is the same kernel
+// with the cache's element type C = int8_t: the rows arrive by the same
+// 16-byte `cp.async` copies (hd bytes a row) and each slot's k and v
+// scales by 4-byte ones, into the same two-buffer ring.  Once a tile has
+// landed, one pass dequantizes it into a T tile in shared memory as the
+// reference rounds it, T(float(x) · scale), and the rest runs on that
+// tile unchanged.  At a long cache the kernel is bound by bytes, and
+// these are half of the bf16 cache's (plus 8 bytes of scales a slot and
+// KV head); nothing is written back.
+//
 // Layout: q (B, KV, G, hd) and k/v (B, KV, S, hd) are addressed through
 // their (batch, head, row) strides with hd contiguous; every row must
 // start on 16 bytes (the wrapper checks the pointers and the strides).
@@ -54,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -89,6 +103,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4-byte asynchronous copy global → shared (a scale); `valid` false
+// zero-fills.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -98,10 +119,16 @@ struct Strides {
   long long b, h, s;
 };
 
-// Shared memory of one block, in bytes.
-template <typename T, int HD>
+template <typename C>
+constexpr bool kQuant = std::is_same<C, int8_t>::value;
+
+// Shared memory of the tiles of one block, in bytes: K and V, two
+// buffers each, in the cache's type C; an int8 cache adds the slots' k
+// and v scales (two buffers each) and one dequantized K and V tile in T.
+template <typename T, typename C, int HD>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return 2 * 2 * kT * HD * sizeof(T);  // K and V, two buffers each
+  return 2 * 2 * kT * HD * sizeof(C) +
+         (kQuant<C> ? 2 * 2 * kT * sizeof(float) + 2 * kT * HD * sizeof(T) : 0);
 }
 inline size_t smem_bytes(size_t tiles, size_t esize, int G, int HD,
                          int n_split) {
@@ -111,23 +138,32 @@ inline size_t smem_bytes(size_t tiles, size_t esize, int G, int HD,
   return q_at + esize * G * HD;
 }
 
-template <typename T, int HD>
+// C is the cache's element type: T, or int8_t with the fp32 scales
+// k_scale and v_scale (addressed through kss and vss; unused otherwise).
+template <typename T, typename C, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ pos,
+decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
+              const C* __restrict__ v, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, const int* __restrict__ pos,
               T* __restrict__ o, float* __restrict__ part_o,
               float* __restrict__ part_ml, int* __restrict__ counters, int KV,
               int G, int S, int chunk, Strides qs, Strides ks, Strides vs,
-              int window, float scale) {
+              Strides kss, Strides vss, int window, float scale) {
   constexpr int VE = 16 / sizeof(T);  // elements per 16-byte vector
   constexpr int NV = HD / VE;         // vectors per row
+  constexpr int VC = 16 / sizeof(C);  // cache elements per 16-byte copy
+  constexpr int NVC = HD / VC;        // copies per cache row
   constexpr int VPL = (NV + 7) / 8;   // vectors per lane (8 lanes a row)
   constexpr int NCP = HD / 2;         // column pairs of the output
   constexpr int GS = NCP >= kThreads ? 1 : kThreads / NCP;  // row slices
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);                       // [2][kT][HD]
-  T* sV = sK + 2 * kT * HD;                                 // [2][kT][HD]
-  float* sAcc = reinterpret_cast<float*>(smem + tile_bytes<T, HD>());  // [G][HD]
+  C* sK = reinterpret_cast<C*>(smem);                       // [2][kT][HD]
+  C* sV = sK + 2 * kT * HD;                                 // [2][kT][HD]
+  float* sKs = reinterpret_cast<float*>(sV + 2 * kT * HD);  // [2][kT], int8
+  float* sVs = sKs + 2 * kT;                                // [2][kT], int8
+  T* sKd = reinterpret_cast<T*>(sVs + 2 * kT);              // [kT][HD], int8
+  T* sVd = sKd + kT * HD;                                   // [kT][HD], int8
+  float* sAcc = reinterpret_cast<float*>(smem + tile_bytes<T, C, HD>());  // [G][HD]
   float* sS = sAcc + G * HD;                                // [G][kT]
   float* sAlpha = sS + G * kT;                              // [G]
   float* sM = sAlpha + G;                                   // [G]
@@ -158,16 +194,26 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ehi = min(min(c0 + chunk, S) - 1, p);
   const int n_tiles = elo <= ehi ? (ehi - elo + kT) / kT : 0;
 
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const C* kb = k + b * ks.b + kvh * ks.h;
+  const C* vb = v + b * vs.b + kvh * vs.h;
   auto load_tile = [&](int t, int buf) {
     const int j0 = elo + t * kT;
-    for (int e = tid; e < kT * NV; e += kThreads) {
-      const int j = e / NV, c = e % NV;
+    for (int e = tid; e < kT * NVC; e += kThreads) {
+      const int j = e / NVC, c = e % NVC;
       const bool ok = j0 + j <= ehi;
       const long long row = ok ? j0 + j : elo;
-      cp_async16(sK + (buf * kT + j) * HD + c * VE, kb + row * ks.s + c * VE, ok);
-      cp_async16(sV + (buf * kT + j) * HD + c * VE, vb + row * vs.s + c * VE, ok);
+      cp_async16(sK + (buf * kT + j) * HD + c * VC, kb + row * ks.s + c * VC, ok);
+      cp_async16(sV + (buf * kT + j) * HD + c * VC, vb + row * vs.s + c * VC, ok);
+    }
+    if constexpr (kQuant<C>) {  // one k and one v scale a slot
+      if (tid < 2 * kT) {
+        const int j = tid % kT;
+        const bool is_v = tid >= kT, ok = j0 + j <= ehi;
+        const long long row = ok ? j0 + j : elo;
+        const float* src = is_v ? v_scale + b * vss.b + kvh * vss.h + row * vss.s
+                                : k_scale + b * kss.b + kvh * kss.h + row * kss.s;
+        cp_async4((is_v ? sVs : sKs) + buf * kT + j, src, ok);
+      }
     }
     cp_async_commit();
   };
@@ -190,6 +236,35 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int nj = min(kT, ehi - (elo + t * kT) + 1);  // live slots
 
+    // The tile the math reads: the ring's buffer, or for an int8 cache
+    // its dequantization, rounded to T as the reference rounds it.
+    const T* kt;
+    const T* vt;
+    if constexpr (kQuant<C>) {
+      for (int e = tid; e < kT * HD / 4; e += kThreads) {
+        const int j = 4 * e / HD, d = 4 * e % HD;
+        const char4 k4 = reinterpret_cast<const char4*>(sK + buf * kT * HD)[e];
+        const char4 v4 = reinterpret_cast<const char4*>(sV + buf * kT * HD)[e];
+        const float sk = sKs[buf * kT + j], sv = sVs[buf * kT + j];
+        T* kd = sKd + j * HD + d;
+        T* vd = sVd + j * HD + d;
+        kd[0] = from_f32<T>(static_cast<float>(k4.x) * sk);
+        kd[1] = from_f32<T>(static_cast<float>(k4.y) * sk);
+        kd[2] = from_f32<T>(static_cast<float>(k4.z) * sk);
+        kd[3] = from_f32<T>(static_cast<float>(k4.w) * sk);
+        vd[0] = from_f32<T>(static_cast<float>(v4.x) * sv);
+        vd[1] = from_f32<T>(static_cast<float>(v4.y) * sv);
+        vd[2] = from_f32<T>(static_cast<float>(v4.z) * sv);
+        vd[3] = from_f32<T>(static_cast<float>(v4.w) * sv);
+      }
+      __syncthreads();
+      kt = sKd;
+      vt = sVd;
+    } else {
+      kt = sK + buf * kT * HD;
+      vt = sV + buf * kT * HD;
+    }
+
     // Scores: 8 lanes per position; kRowBlock query rows at a time, so
     // that their products and shuffles interleave.
     {
@@ -199,8 +274,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
         const int c = min(lp + 8 * i, NV - 1);  // lanes past the row repeat it
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            sK + (buf * kT + jj) * HD + c * VE);
+        const uint4 raw = *reinterpret_cast<const uint4*>(kt + jj * HD + c * VE);
         const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
         for (int u = 0; u < VE; ++u)
@@ -271,7 +345,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // acc = acc · alpha + P · V: a thread owns a column pair and the rows
     // g ≡ its slice (mod GS), kRowBlock of them at a time.  Slots past nj
     // have p = 0 and zero-filled V rows.
-    const T* vt = sV + buf * kT * HD;
     for (int cp = tid % NCP; cp < NCP; cp += kThreads) {
       for (int g0 = tid / NCP; g0 < G; g0 += GS * kRowBlock) {
         float2 a[kRowBlock];
@@ -397,14 +470,24 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) counters[pair] = 0;  // every block of this pair has counted
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* o, float* part_o, float* part_ml, int* counters, int B,
-           int KV, int G, int S, int chunk, int n_split, const Strides* st,
+// The pointers and strides of one call: q, k, v and, for an int8 cache,
+// the scales; st[0..4] are the strides of q, k, v, k_scale, v_scale.
+struct Args {
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;
+  const int* pos;
+  void* o;
+  float *part_o, *part_ml;
+  int* counters;
+  Strides st[5];
+};
+
+template <typename T, typename C, int HD>
+int launch(const Args& a, int B, int KV, int G, int S, int chunk, int n_split,
            int window, float scale, cudaStream_t stream) {
   static size_t configured = 48 * 1024;  // opt-in above the default
-  const size_t smem = smem_bytes(tile_bytes<T, HD>(), sizeof(T), G, HD, n_split);
-  auto kern = decode_kernel<T, HD>;
+  const size_t smem = smem_bytes(tile_bytes<T, C, HD>(), sizeof(T), G, HD, n_split);
+  auto kern = decode_kernel<T, C, HD>;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -413,25 +496,44 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   }
   dim3 grid(n_split, KV, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(o), part_o, part_ml,
-      counters, KV, G, S, chunk, st[0], st[1], st[2], window, scale);
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k),
+      static_cast<const C*>(a.v), a.k_scale, a.v_scale, a.pos,
+      static_cast<T*>(a.o), a.part_o, a.part_ml, a.counters, KV, G, S, chunk,
+      a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const int* pos, void* o, float* po, float* pml, int* cnt,
-                int B, int KV, int G, int S, int chunk, int n_split,
-                const Strides* st, int window, float scale, cudaStream_t s) {
+template <typename T, typename C>
+int dispatch_hd(int hd, const Args& a, int B, int KV, int G, int S, int chunk,
+                int n_split, int window, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, pos, o, po, pml, cnt, B, KV, G, S, chunk, n_split, st, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, pos, o, po, pml, cnt, B, KV, G, S, chunk, n_split, st, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, pos, o, po, pml, cnt, B, KV, G, S, chunk, n_split, st, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, pos, o, po, pml, cnt, B, KV, G, S, chunk, n_split, st, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, pos, o, po, pml, cnt, B, KV, G, S, chunk, n_split, st, window, scale, s);
+    case 16: return launch<T, C, 16>(a, B, KV, G, S, chunk, n_split, window, scale, s);
+    case 32: return launch<T, C, 32>(a, B, KV, G, S, chunk, n_split, window, scale, s);
+    case 64: return launch<T, C, 64>(a, B, KV, G, S, chunk, n_split, window, scale, s);
+    case 128: return launch<T, C, 128>(a, B, KV, G, S, chunk, n_split, window, scale, s);
+    case 256: return launch<T, C, 256>(a, B, KV, G, S, chunk, n_split, window, scale, s);
     default: return -1;
   }
+}
+
+// dtype 0: T = float, 1: T = bfloat16; the cache holds T, or int8_t
+// when `quant`.
+int dispatch(int dtype, bool quant, int hd, const Args& a, int B, int KV,
+             int G, int S, int chunk, int n_split, int window, float scale,
+             void* stream) {
+  if (G < 1 || n_split < 1 || n_split > kMaxSplit || chunk < 1 || chunk % kT ||
+      (long long)chunk * n_split < S ||
+      (n_split > 1 && !(a.part_o && a.part_ml && a.counters)) ||
+      (quant && !(a.k_scale && a.v_scale)))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return quant ? dispatch_hd<float, int8_t>(hd, a, B, KV, G, S, chunk, n_split, window, scale, s)
+                 : dispatch_hd<float, float>(hd, a, B, KV, G, S, chunk, n_split, window, scale, s);
+  if (dtype == 1)
+    return quant ? dispatch_hd<__nv_bfloat16, int8_t>(hd, a, B, KV, G, S, chunk, n_split, window, scale, s)
+                 : dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, B, KV, G, S, chunk, n_split, window, scale, s);
+  return -1;
 }
 
 }  // namespace
@@ -455,21 +557,33 @@ extern "C" int decode_attention_fwd(int dtype, int hd, const void* q,
                                     long long vsb, long long vsh,
                                     long long vss, int window, float scale,
                                     void* stream) {
-  if (G < 1 || n_split < 1 || n_split > kMaxSplit || chunk < 1 || chunk % kT ||
-      (long long)chunk * n_split < S || (n_split > 1 && !(part_o && part_ml && counters)))
-    return -1;
-  const Strides st[3] = {{qsb, qsh, qsg}, {ksb, ksh, kss}, {vsb, vsh, vss}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  float* po = static_cast<float*>(part_o);
-  float* pml = static_cast<float*>(part_ml);
-  int* cnt = static_cast<int*>(counters);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, p, o, po, pml, cnt, B, KV, G, S,
-                              chunk, n_split, st, window, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, p, o, po, pml, cnt, B, KV,
-                                      G, S, chunk, n_split, st, window, scale,
-                                      s);
-  return -1;
+  const Args a{q, k, v, nullptr, nullptr, static_cast<const int*>(pos), o,
+               static_cast<float*>(part_o), static_cast<float*>(part_ml),
+               static_cast<int*>(counters),
+               {{qsb, qsh, qsg}, {ksb, ksh, kss}, {vsb, vsh, vss}, {0, 0, 0}, {0, 0, 0}}};
+  return dispatch(dtype, false, hd, a, B, KV, G, S, chunk, n_split, window,
+                  scale, stream);
+}
+
+// The same over an int8 cache: k and v int8 (strides in elements, that
+// is bytes), k_scale and v_scale float32 (B, KV, S) views with their own
+// (batch, head, row) strides; q and o in `dtype`.  Returns as above, or
+// -1 without both scales.
+extern "C" int decode_attention_int8_fwd(
+    int dtype, int hd, const void* q, const void* k, const void* v,
+    const void* k_scale, const void* v_scale, const void* pos, void* o,
+    void* part_o, void* part_ml, void* counters, int B, int KV, int G, int S,
+    int chunk, int n_split, long long qsb, long long qsh, long long qsg,
+    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, long long kssb, long long kssh, long long ksss,
+    long long vssb, long long vssh, long long vsss, int window, float scale,
+    void* stream) {
+  const Args a{q, k, v, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<const int*>(pos),
+               o, static_cast<float*>(part_o), static_cast<float*>(part_ml),
+               static_cast<int*>(counters),
+               {{qsb, qsh, qsg}, {ksb, ksh, kss}, {vsb, vsh, vss},
+                {kssb, kssh, ksss}, {vssb, vssh, vsss}}};
+  return dispatch(dtype, true, hd, a, B, KV, G, S, chunk, n_split, window,
+                  scale, stream);
 }

@@ -20,9 +20,17 @@ and every launch leaves them at zero).  The
 kernel reads rows with 16-byte copies, so on the card every row of q, k
 and v must start on 16 bytes.
 
-On a CPU tensor the wrapper runs the plain version
-(``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel
-or raises.
+:func:`decode_attention_int8` is the same kernel over an int8 cache
+(the reference's ``kv_cache_dtype="int8"``): k and v as (B,KV,S,hd)
+int8 views and their scales as (B,KV,S) fp32 views of the model's
+(B,C,KV,hd) and (B,C,KV) cache.  The kernel copies the int8 rows (hd
+bytes) and one scale a slot into shared memory, dequantizes them there
+as the reference does (float(x) · scale rounded to q's dtype) and runs
+the same softmax and P·V; it reads half the bytes of the bf16 cache.
+
+On a CPU tensor each wrapper runs its plain version
+(``ref.decode_attention_ref``, ``ref.decode_attention_int8_ref``); on a
+CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_I, _I] + [_P] * 8 + [_I] * 6
              + [_L] * 9 + [_I, ctypes.c_float, _P])
+_ARGTYPES_INT8 = ([_I, _I] + [_P] * 10 + [_I] * 6
+                  + [_L] * 15 + [_I, ctypes.c_float, _P])
 
 TILE = 16        # positions a block loads at a time (kT in the kernel)
 MAX_SPLIT = 64   # bounds the scratch and the merge's reads
@@ -80,7 +90,9 @@ def _scratch(device, stream: int, pairs: int, floats: int):
     return bufs
 
 
-def _check(q, k, v, pos, window: int) -> None:
+def _check(q, k, v, pos, window: int, cache_dtype=None) -> None:
+    """Raise on what the kernel does not take; k and v hold q's dtype
+    unless ``cache_dtype`` names theirs."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
         raise ValueError("decode_attention wants q (B,KV,G,hd), k, v "
                          f"(B,KV,S,hd) and pos (B,); got {tuple(q.shape)}, "
@@ -99,9 +111,11 @@ def _check(q, k, v, pos, window: int) -> None:
         raise ValueError("decode_attention needs non-empty B and S")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported; one of {HEAD_DIMS}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("decode_attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    want = q.dtype if cache_dtype is None else cache_dtype
+    if q.dtype not in DTYPES or k.dtype != want or v.dtype != want:
+        raise TypeError("decode_attention takes float32 or bfloat16 q and "
+                        f"k, v of {'its' if cache_dtype is None else want} "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device == pos.device):
         raise ValueError("q, k, v and pos must lie on one device")
     if not pos.is_contiguous():
@@ -111,6 +125,35 @@ def _check(q, k, v, pos, window: int) -> None:
                          "contiguous (stride 1) in q, k and v")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch(symbol, argtypes, q, k, v, pos, window, scales=()):
+    """Launch ``symbol`` on the card: the split plan, the output, the
+    scratch, then the pointers and strides of q, k, v (and the scales)."""
+    check_aligned("decode_attention", q, k, v)
+    fn = build.function("decode_attention", symbol, argtypes)
+    B, KV, G, hd = q.shape
+    S = k.shape[2]
+    chunk, n_split = split_plan(B, KV, S, _sm_count(q.device.index))
+    out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_o = part_ml = counters = None
+    if n_split > 1:
+        n_part = B * KV * n_split * G
+        cnt, part = _scratch(q.device, stream, B * KV, n_part * (hd + 2))
+        counters, part_o = cnt.data_ptr(), part.data_ptr()
+        part_ml = part_o + 4 * n_part * hd  # bytes past the partial acc
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    ptrs += [t.data_ptr() for t in scales]
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+    for t in scales:
+        strides += t.stride()
+    err = fn(DTYPES[q.dtype], hd, *ptrs, pos.data_ptr(), out.data_ptr(),
+             part_o, part_ml, counters, B, KV, G, S, chunk, n_split,
+             *strides, window, hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed (error {err})")
+    return out
 
 
 def decode_attention(q, k, v, pos, *, window: int = 0):
@@ -124,28 +167,38 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
         return ref.decode_attention_ref(q, k, v, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention has no path for {q.device}")
-    check_aligned("decode_attention", q, k, v)
-    fn = build.function("decode_attention", "decode_attention_fwd",
-                        _ARGTYPES)
-    B, KV, G, hd = q.shape
-    S = k.shape[2]
-    chunk, n_split = split_plan(B, KV, S, _sm_count(q.device.index))
-    out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    part_o = part_ml = counters = None
-    if n_split > 1:
-        n_part = B * KV * n_split * G
-        cnt, part = _scratch(q.device, stream, B * KV, n_part * (hd + 2))
-        counters, part_o = cnt.data_ptr(), part.data_ptr()
-        part_ml = part_o + 4 * n_part * hd  # bytes past the partial acc
-    err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             pos.data_ptr(), out.data_ptr(), part_o, part_ml, counters,
-             B, KV, G, S, chunk, n_split, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], window, hd ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed (error {err})")
+    out = _launch("decode_attention_fwd", _ARGTYPES, q, k, v, pos, window)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_int8(q, k, v, k_scale, v_scale, pos, *,
+                          window: int = 0):
+    """:func:`decode_attention` over an int8 cache.  q: (B,KV,G,hd)
+    float32 or bfloat16; k, v: (B,KV,S,hd) int8; k_scale, v_scale:
+    (B,KV,S) float32; pos: (B,) int32.
+
+    Returns (B,KV,G,hd) in q.dtype."""
+    _check(q, k, v, pos, window, cache_dtype=torch.int8)
+    for t in (k_scale, v_scale):
+        if t.shape != k.shape[:3] or t.dtype != torch.float32:
+            raise TypeError(f"decode_attention_int8 wants float32 scales of "
+                            f"{tuple(k.shape[:3])}; got {tuple(t.shape)} "
+                            f"{t.dtype}")
+        if t.device != q.device:
+            raise ValueError("the scales must lie on q's device")
+    if q.device.type == "cpu":
+        return ref.decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos,
+                                             window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_int8 has no path for {q.device}")
+    out = _launch("decode_attention_int8_fwd", _ARGTYPES_INT8, q, k, v, pos,
+                  window, (k_scale, v_scale))
+    decode_attention_int8.launches += 1
+    return out
+
+
+decode_attention_int8.launches = 0

@@ -11,6 +11,7 @@ each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
 | ------------------ | ------------------------------- | -------------------------------------------- |
 | ``flash_attention``  | ``csrc/flash_attention.cu``   | ``flash_attention.py`` ``_flash_kernel``         |
 | ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
+| ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode (``models/attention.py``: dequantize, then einsums) |
 | ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
 | ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |
@@ -23,15 +24,17 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.policy_select import (charged_select, fused_select,
                                                modipick_probs, stacked_select)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
-WRAPPERS = (flash_attention, decode_attention, ssd_scan, rglru_scan,
-            modipick_probs, fused_select, charged_select, stacked_select)
+WRAPPERS = (flash_attention, decode_attention, decode_attention_int8,
+            ssd_scan, rglru_scan, modipick_probs, fused_select,
+            charged_select, stacked_select)
 
 
 class ModelKernels(NamedTuple):
@@ -41,14 +44,16 @@ class ModelKernels(NamedTuple):
     decode_attention: Callable
     ssd_scan: Callable
     rglru_scan: Callable
+    decode_attention_int8: Callable
 
 
 # The kernel wrappers: what the model runs.
 KERNELS = ModelKernels(flash_attention, decode_attention, ssd_scan,
-                       rglru_scan)
+                       rglru_scan, decode_attention_int8)
 # The plain versions on any device: what a check holds the model against.
 PLAIN = ModelKernels(ref.flash_attention_ref, ref.decode_attention_ref,
-                     ref.ssd_scan_ref, ref.rglru_scan_ref)
+                     ref.ssd_scan_ref, ref.rglru_scan_ref,
+                     ref.decode_attention_int8_ref)
 
 
 def launch_counts() -> Dict[str, int]:

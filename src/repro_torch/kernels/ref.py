@@ -47,6 +47,17 @@ def decode_attention_ref(q, k, v, pos, *, window=0):
     return torch.einsum("bngk,bnkd->bngd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos, *, window=0):
+    """``decode_attention_ref`` over an int8 cache: q: (B,KV,G,hd); k, v:
+    (B,KV,S,hd) int8; k_scale, v_scale: (B,KV,S) fp32.  Each element is
+    dequantized as the reference's ``_dequantize_kv(…, q.dtype)`` does,
+    float(x) · scale rounded to q's dtype, before the products."""
+    def deq(x, scale):
+        return (x.to(torch.float32) * scale[..., None]).to(q.dtype)
+    return decode_attention_ref(q, deq(k, k_scale), deq(v, v_scale), pos,
+                                window=window)
+
+
 def _utility_rows(mu, sigma, acc, t_u, t_l, e, gamma, eps):
     """The Eq. 3–4 utilities (B, n) masked by ``e`` (zero where
     ineligible) — mu/sigma/acc (n,), shared by every request, or (B, n),

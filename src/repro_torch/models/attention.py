@@ -1,8 +1,9 @@
 """Attention blocks: GQA causal and sliding-window attention, prefill KV
-caches, decode.
+caches, decode; a whisper encoder's full attention and its decoder's
+cross-attention over the encoder output.
 
 Prefill attention goes through the hand-written prefill kernel and each
-decode step through the decode kernel (``repro_torch.kernels.ops``); on
+decode step through a decode kernel (``repro_torch.kernels.ops``); on
 CPU tensors those wrappers run their plain versions.  The activations
 stay in the reference's (B, S, H, hd) layout and the cache in its
 (B, C, KV, hd) layout; the kernels read both through strides, so no
@@ -11,11 +12,23 @@ layout copy is made on the way in or out.
 q, k and v come from one fused projection (``wqkv``: the reference's
 ``wq | wk | wv`` side by side), and RoPE rotates the q and k heads of
 that output together: eager PyTorch pays per launched operation, and
-this keeps a layer's attention to a handful of them.
+this keeps a layer's attention to a handful of them.  A config without
+RoPE (``use_rope=False``: whisper's absolute positions, added at the
+embedding) passes no tables and nothing is rotated.  Cross-attention
+projects q from the decoder and k, v from the encoder output (``wkv``:
+``wk | wv``).
 
 A ``local`` layer attends over the last ``cfg.window`` positions and
 keeps ``C = min(cache_len, window)`` cache slots: position p lives in
 slot p % C, a ring once p ≥ C.
+
+``kv_cache_dtype="int8"`` stores k and v as int8 with an fp32 scale per
+(batch, slot, KV head), ``{"k", "v", "k_scale", "v_scale"}``, as the
+reference does.  Prefill attention still runs on the unquantized k/v;
+each decode step quantizes the new token's k/v (plain torch: a few
+small launches) and attends with the int8 decode kernel, which
+dequantizes one tile at a time in shared memory, so no bf16 copy of
+the cache is made.
 """
 from __future__ import annotations
 
@@ -30,16 +43,35 @@ from repro_torch.models.layers import rope
 
 
 def _project_qkv(params, x, tables, cfg: ModelConfig):
-    """q (B,S,H,hd) and k, v (B,S,KV,hd), RoPE applied to q and k; all
-    three are views of two buffers, with hd contiguous."""
+    """q (B,S,H,hd) and k, v (B,S,KV,hd), RoPE applied to q and k unless
+    ``tables`` is None; all three are views of one or two buffers, with
+    hd contiguous."""
     B, S, _ = x.shape
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qkv = x @ params["wqkv"]
     if cfg.qkv_bias:
         qkv = qkv + params["bqkv"]
-    qk = rope(qkv[..., :(H + KV) * hd].view(B, S, H + KV, hd), tables)
+    qk = qkv[..., :(H + KV) * hd].view(B, S, H + KV, hd)
+    if tables is not None:
+        qk = rope(qk, tables)
     v = qkv[..., (H + KV) * hd:].view(B, S, KV, hd)
     return qk[:, :, :H], qk[:, :, H:], v
+
+
+def quantize_kv(x):
+    """x (..., hd) → (int8 values, fp32 scale over the trailing dim), the
+    reference's ``_quantize_kv``: x / scale divided in fp32 and rounded
+    half to even, so the int8 bits are the reference's."""
+    xf = x.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """The reference's ``_dequantize_kv``: float(q) · scale, rounded to
+    ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 def prefill_cache(cfg: ModelConfig, kind: str, k, v, cache_len: int):
@@ -53,7 +85,10 @@ def prefill_cache(cfg: ModelConfig, kind: str, k, v, cache_len: int):
     reference takes p as a wrapped index there: a value of the prompt
     while p ≥ −S, and NaN below (out of range), which its decode step
     then spreads through 0 · NaN.  Here those slots hold the
-    reference's value while p ≥ −S and zero below."""
+    reference's value while p ≥ −S and zero below.
+
+    An int8 cache quantizes the padded (or gathered) slots, as the
+    reference does: a zero slot holds 0 at scale 1e-12."""
     S = k.shape[1]
     if kind == "local" and cfg.window < cache_len:
         slots = torch.arange(cfg.window, device=k.device)
@@ -61,26 +96,33 @@ def prefill_cache(cfg: ModelConfig, kind: str, k, v, cache_len: int):
         held = pos >= -S
         pos = torch.where(held, pos, 0)
         held = held[None, :, None, None]
-        return {"k": torch.where(held, k[:, pos], 0.0),
-                "v": torch.where(held, v[:, pos], 0.0)}
-    if kind == "local":  # C = cache_len ≤ window: the first C positions
-        k, v = k[:, :cache_len], v[:, :cache_len]
-    pad = (0, 0, 0, 0, 0, max(0, cache_len - S))
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+        k, v = torch.where(held, k[:, pos], 0.0), torch.where(held, v[:, pos],
+                                                                0.0)
+    else:
+        if kind == "local":  # C = cache_len ≤ window: the first C positions
+            k, v = k[:, :cache_len], v[:, :cache_len]
+        pad = (0, 0, 0, 0, 0, max(0, cache_len - S))
+        k, v = F.pad(k, pad), F.pad(v, pad)
+    if cfg.kv_cache_dtype != "int8":
+        return {"k": k, "v": v}
+    (qk, sk), (qv, sv) = quantize_kv(k), quantize_kv(v)
+    return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
 
 
 def prefill_attention(params, x, tables, cfg: ModelConfig, kind: str = "attn",
                       cache_len: Optional[int] = None,
-                      impl: ModelKernels = KERNELS):
-    """Full-sequence causal attention, windowed for a ``local`` layer.
-    x: (B, S, D); tables: the forward pass's ``rope_tables`` at
-    positions (B, S).
+                      impl: ModelKernels = KERNELS, causal: bool = True):
+    """Full-sequence causal attention, windowed for a ``local`` layer
+    (``causal=False``: an encoder's full attention).  x: (B, S, D);
+    tables: the forward pass's ``rope_tables`` at positions (B, S), or
+    None.
 
     Returns (out (B,S,D), cache_or_None)."""
     q, k, v = _project_qkv(params, x, tables, cfg)
     window = cfg.window if kind == "local" else 0
     out = impl.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True, window=window)
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
     B, S = x.shape[:2]
     out = out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
     cache = (prefill_cache(cfg, kind, k, v, cache_len)
@@ -113,10 +155,65 @@ def decode_attention(params, cache, x, pos, tables, cfg: ModelConfig,
     if kind == "local":
         slot = torch.remainder(slot, C)
         pos = torch.clamp(pos, max=C - 1)
-    cache["k"][rows, slot] = k_new[:, 0]
-    cache["v"][rows, slot] = v_new[:, 0]
     qg = q.reshape(B, KV, cfg.n_heads // KV, hd)
-    out = impl.decode_attention(qg, cache["k"].permute(0, 2, 1, 3),
-                                cache["v"].permute(0, 2, 1, 3), pos)
+    k, v = cache["k"].permute(0, 2, 1, 3), cache["v"].permute(0, 2, 1, 3)
+    if cfg.kv_cache_dtype == "int8":
+        for key, new in (("k", k_new), ("v", v_new)):
+            cache[key][rows, slot], cache[f"{key}_scale"][rows, slot] = \
+                quantize_kv(new[:, 0])
+        out = impl.decode_attention_int8(
+            qg, k, v, cache["k_scale"].transpose(1, 2),
+            cache["v_scale"].transpose(1, 2), pos)
+    else:
+        cache["k"][rows, slot] = k_new[:, 0]
+        cache["v"][rows, slot] = v_new[:, 0]
+        out = impl.decode_attention(qg, k, v, pos)
     out = out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
     return out, cache
+
+
+def _project_cross(params, x, enc_out, cfg: ModelConfig):
+    """Cross-attention's q (B,S,H,hd) from the decoder's x and k, v
+    (B,F,KV,hd) from the encoder output: views of two buffers, hd
+    contiguous.  The reference projects q through ``wq`` for the encoder
+    output too and drops it; only k and v are projected here."""
+    B, S, _ = x.shape
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = x @ params["wq"]
+    kv = enc_out @ params["wkv"]
+    if cfg.qkv_bias:
+        q, kv = q + params["bq"], kv + params["bkv"]
+    Fr = enc_out.shape[1]
+    return (q.view(B, S, H, hd), kv[..., :KV * hd].view(B, Fr, KV, hd),
+            kv[..., KV * hd:].view(B, Fr, KV, hd))
+
+
+def cross_attention(params, x, enc_out, cfg: ModelConfig,
+                    impl: ModelKernels = KERNELS):
+    """The decoder's queries over the encoder output, unmasked (K2 with
+    ``causal=False``).  x: (B,S,D); enc_out: (B,F,D).  Returns (out
+    (B,S,D), xk, xv (B,F,KV,hd)): the cross cache of a decode step."""
+    q, xk, xv = _project_cross(params, x, enc_out, cfg)
+    out = impl.flash_attention(q.transpose(1, 2), xk.transpose(1, 2),
+                               xv.transpose(1, 2), causal=False)
+    B, S = x.shape[:2]
+    return out.transpose(1, 2).reshape(B, S, -1) @ params["wo"], xk, xv
+
+
+def cross_decode_attention(params, xk, xv, x, cfg: ModelConfig,
+                           impl: ModelKernels = KERNELS):
+    """One decode step's cross-attention over all F frames of the cross
+    cache xk, xv (B,F,KV,hd): the decode kernel at pos = F − 1 with no
+    window reads every slot, the reference's unmasked softmax.  x:
+    (B,1,D).  Returns (B,1,D)."""
+    B = x.shape[0]
+    hd, KV, H = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    pos = torch.full((B,), xk.shape[1] - 1, dtype=torch.int32,
+                     device=x.device)
+    out = impl.decode_attention(q.view(B, KV, H // KV, hd),
+                                xk.permute(0, 2, 1, 3),
+                                xv.permute(0, 2, 1, 3), pos)
+    return out.reshape(B, 1, H * hd) @ params["wo"]

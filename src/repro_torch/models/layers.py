@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, RoPE, MLPs, parameter init."""
+"""Shared layer primitives: norms, RoPE, sinusoidal positions, MLPs,
+parameter init."""
 from __future__ import annotations
 
 import math
@@ -99,6 +100,16 @@ def rope(x, tables):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions, d, max_scale=10_000.0):
+    """Absolute sinusoidal position embeddings (..., d) at ``positions``,
+    in fp32: sines then cosines, as the reference lays them out."""
+    half = d // 2
+    freqs = max_scale ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------------

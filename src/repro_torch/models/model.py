@@ -1,5 +1,6 @@
 """Model assembly: decoder LMs of attention, local-attention, Mamba-2
-SSD and RG-LRU blocks, with dense or mixture-of-experts feed-forwards.
+SSD and RG-LRU blocks, with dense or mixture-of-experts feed-forwards;
+whisper's encoder-decoder and a VLM's image embeddings before the text.
 
 The reference scans over stacked superblocks (one repetition of the
 config's block pattern) plus an unrolled tail; here the layers are a
@@ -7,7 +8,8 @@ Python list in the order of ``cfg.block_kinds`` and the forward pass a
 loop over it.  Parameters are plain dictionaries of tensors:
 
     {"embed": (Vpad, D), "final_norm": (D,), "lm_head": (D, Vpad) when
-     untied, "layers": [one dict per layer]}
+     untied, "layers": [one dict per layer], "encoder": {"layers": [...],
+     "final_norm": (D,)} for an encoder-decoder}
 
 where an ``attn`` or ``local`` layer is ``{"norm1", "wqkv", ["bqkv"],
 "wo", "norm2", "mlp": {"wi", ["wg"], "wo"}}`` (``wqkv`` is the
@@ -16,9 +18,21 @@ config's ``mlp`` is ``{"router", "wi", "wg", "wo"}``, see
 ``models/moe.py``), an
 ``rglru`` layer ``{"norm1", "rglru", "norm2", "mlp"}`` and an ``ssd``
 layer ``{"norm1", "ssd"}`` (no MLP; see ``models/ssm.py`` and
-``models/rglru.py``).  A cache is a list with one entry per layer: a
-``{"k", "v"}`` (B, C, KV, hd) pair for attention, the conv history and
-recurrent state for ``ssd`` and ``rglru``.
+``models/rglru.py``).  In an encoder-decoder every ``attn`` layer of the
+decoder is an ``xdec`` layer (the reference's ``decoder_kind``): an
+``attn`` layer with ``"norm_x"`` and ``"xattn": {"wq", ["bq"], "wkv",
+["bkv"], "wo"}`` (``wkv``: ``wk | wv``) for cross-attention over the
+encoder output; the encoder's layers are ``attn`` layers with a dense
+MLP, run without a mask.  A cache is a list with one entry per layer: a
+``{"k", "v"}`` (B, C, KV, hd) pair for attention (int8 with ``"k_scale"``
+and ``"v_scale"`` (B, C, KV) fp32 under ``kv_cache_dtype="int8"``; an
+``xdec`` layer adds the cross cache ``"xk"``, ``"xv"`` (B, F, KV, hd)),
+the conv history and recurrent state for ``ssd`` and ``rglru``.
+
+``prefill`` takes the reference's batch dict: ``{"tokens"}``, with
+``"frames"`` (B, F, D) for an encoder-decoder or ``"image_embeds"``
+(B, n_img, D) for a VLM, whose positions then run over ``n_img + S``
+(a decode step's ``pos`` continues from there).
 """
 from __future__ import annotations
 
@@ -34,38 +48,50 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_norm, init_normal, mlp_apply,
-                                       rope_tables)
+                                       rope_tables, sinusoidal_pos)
 
 Params = Dict[str, Any]
-ATTENTION_KINDS = ("attn", "local")
+ATTENTION_KINDS = ("attn", "local", "xdec")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the decoder subset this package
-    implements: dense, MoE, SSM and hybrid families of attention, local
-    attention, SSD and RG-LRU blocks."""
+    """Raise for a malformed configuration: an unknown family, block
+    kind, norm, MLP or KV-cache type, or a family or block kind without
+    its sub-config."""
     unsupported = []
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or not set(
+    if cfg.family not in FAMILIES or not set(
             cfg.pattern) <= {"attn", "local", "ssd", "rglru"}:
         unsupported.append(f"family {cfg.family!r} / pattern {cfg.pattern}")
-    if cfg.family == "moe" and cfg.moe is None:
-        unsupported.append("family 'moe' without a MoEConfig")
+    for family, sub, name in (("moe", cfg.moe, "MoEConfig"),
+                              ("encdec", cfg.encdec, "EncDecConfig"),
+                              ("vlm", cfg.vlm, "VLMConfig")):
+        if cfg.family == family and sub is None:
+            unsupported.append(f"family {family!r} without a {name}")
     if "ssd" in cfg.pattern and cfg.ssm is None:
         unsupported.append("ssd blocks without an SSMConfig")
     if "rglru" in cfg.pattern and cfg.rglru is None:
         unsupported.append("rglru blocks without an RGLRUConfig")
-    if not cfg.use_rope:
-        unsupported.append("absolute positions (use_rope=False)")
     if cfg.norm not in ("rms", "layer"):
         unsupported.append(f"norm {cfg.norm!r}")
-    if cfg.kv_cache_dtype != "bf16":
+    if cfg.kv_cache_dtype not in ("bf16", "int8"):
         unsupported.append(f"kv_cache_dtype {cfg.kv_cache_dtype!r}")
     if cfg.mlp not in ("swiglu", "geglu", "gelu"):
         unsupported.append(f"mlp {cfg.mlp!r}")
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: not implemented in the port yet: "
+            f"{cfg.name}: not a configuration the port implements: "
             + "; ".join(unsupported))
+
+
+def decoder_kind(cfg: ModelConfig, kind: str) -> str:
+    """An encoder-decoder's ``attn`` layers are ``xdec`` layers."""
+    return "xdec" if cfg.encdec is not None and kind == "attn" else kind
+
+
+def layer_kinds(cfg: ModelConfig):
+    """The kind of each decoder layer, in order."""
+    return tuple(decoder_kind(cfg, k) for k in cfg.block_kinds)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -98,8 +124,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             p["bqkv"] = zeros((h + 2 * kv) * hd)
         return p
 
+    def cross_attention():
+        p = {"wq": normal(d, h * hd),
+             "wkv": torch.cat([normal(d, kv * hd), normal(d, kv * hd)],
+                              dim=1),
+             "wo": normal(h * hd, d, out_proj=True)}
+        if cfg.qkv_bias:
+            p["bq"], p["bkv"] = zeros(h * hd), zeros(2 * kv * hd)
+        return p
+
+    def dense_mlp():
+        mlp = {"wi": normal(d, f), "wo": normal(f, d, out_proj=True)}
+        if cfg.mlp in ("swiglu", "geglu"):
+            mlp["wg"] = normal(d, f)
+        return mlp
+
     layers = []
-    for kind in cfg.block_kinds:
+    for kind in layer_kinds(cfg):
         p = {"norm1": zeros(d)}
         if kind == "ssd":
             p["ssd"] = ssm_mod.init_params(cfg, generator, dtype)
@@ -109,19 +150,58 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             p["rglru"] = rglru_mod.init_params(cfg, generator, dtype)
         else:
             p.update(attention_layer())
-        if cfg.moe is not None:
-            mlp = moe_mod.init_params(cfg, generator, dtype)
-        else:
-            mlp = {"wi": normal(d, f), "wo": normal(f, d, out_proj=True)}
-            if cfg.mlp in ("swiglu", "geglu"):
-                mlp["wg"] = normal(d, f)
-        p["norm2"], p["mlp"] = zeros(d), mlp
+        if kind == "xdec":
+            p["norm_x"], p["xattn"] = zeros(d), cross_attention()
+        p["norm2"] = zeros(d)
+        p["mlp"] = (moe_mod.init_params(cfg, generator, dtype)
+                    if cfg.moe is not None else dense_mlp())
         layers.append(p)
     params = {"embed": normal(v, d), "layers": layers,
               "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, v)
+    if cfg.encdec is not None:
+        params["encoder"] = {
+            "layers": [dict(norm1=zeros(d), **attention_layer(),
+                            norm2=zeros(d), mlp=dense_mlp())
+                       for _ in range(cfg.encdec.n_encoder_layers)],
+            "final_norm": zeros(d)}
     return params
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16) -> List[dict]:
+    """The (shape, dtype) of each tensor of a cache of ``cache_len``
+    slots, layer by layer: what ``init_cache`` allocates and a prefill
+    returns."""
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    specs = []
+    for kind in layer_kinds(cfg):
+        if kind in ATTENTION_KINDS:
+            C = min(cache_len, cfg.window) if kind == "local" else cache_len
+            if cfg.kv_cache_dtype == "int8":
+                c = {"k": ((batch, C, kv, hd), torch.int8),
+                     "v": ((batch, C, kv, hd), torch.int8),
+                     "k_scale": ((batch, C, kv), torch.float32),
+                     "v_scale": ((batch, C, kv), torch.float32)}
+            else:
+                c = {"k": ((batch, C, kv, hd), dtype),
+                     "v": ((batch, C, kv, hd), dtype)}
+            if kind == "xdec":
+                F = cfg.encdec.n_frames
+                c["xk"] = c["xv"] = ((batch, F, kv, hd), dtype)
+        elif kind == "ssd":
+            s = cfg.ssm
+            d_in, n = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+            c = {"conv": ((batch, s.conv_width - 1, d_in + 2 * n), dtype),
+                 "state": ((batch, s.n_heads(cfg.d_model), s.head_dim,
+                            s.d_state), dtype)}
+        else:
+            w = cfg.rglru.width(cfg.d_model)
+            c = {"conv": ((batch, cfg.rglru.conv_width - 1, w), dtype),
+                 "h": ((batch, w), dtype)}
+        specs.append(c)
+    return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -129,35 +209,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """An empty cache: zeros of the shapes a prefill of ``cache_len``
     slots produces."""
     dev = resolve_device(device)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    cache = []
-    for kind in cfg.block_kinds:
-        if kind in ATTENTION_KINDS:
-            C = min(cache_len, cfg.window) if kind == "local" else cache_len
-            shape = (batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
-            cache.append({"k": zeros(*shape), "v": zeros(*shape)})
-        elif kind == "ssd":
-            s = cfg.ssm
-            d_in, n = s.d_inner(cfg.d_model), s.n_groups * s.d_state
-            cache.append({"conv": zeros(batch, s.conv_width - 1,
-                                        d_in + 2 * n),
-                          "state": zeros(batch, s.n_heads(cfg.d_model),
-                                         s.head_dim, s.d_state)})
-        else:
-            w = cfg.rglru.width(cfg.d_model)
-            cache.append({"conv": zeros(batch, cfg.rglru.conv_width - 1, w),
-                          "h": zeros(batch, w)})
-    return cache
+    return [{key: torch.zeros(shape, dtype=dt, device=dev)
+             for key, (shape, dt) in c.items()}
+            for c in cache_specs(cfg, batch, cache_len, dtype)]
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
+def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
+    """Token embeddings (scaled by √D where the config says so), plus
+    fp32 sinusoidal positions cast to their dtype for a config without
+    RoPE when ``positions`` are given."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
                          device=x.device)
+    if not cfg.use_rope and positions is not None:
+        x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -182,16 +248,80 @@ def ffn_block(cfg: ModelConfig, p, x, routing=None):
 
 def rope_for(cfg: ModelConfig, positions):
     """RoPE tables at ``positions`` for the attention layers, or None
-    when there are none."""
-    if not set(cfg.block_kinds) & set(ATTENTION_KINDS):
+    when there are none or the config has absolute positions."""
+    if not cfg.use_rope or not set(cfg.block_kinds) & set(ATTENTION_KINDS):
         return None
     return rope_tables(positions, cfg.rope_theta, cfg.resolved_head_dim)
 
 
-def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
+def encoder_block(cfg: ModelConfig, p, x, impl: ModelKernels = KERNELS):
+    """One encoder layer: unmasked self-attention over the frames (K2
+    with ``causal=False``), then the dense MLP.  x: (B,F,D)."""
+    h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps)
+    out, _ = attn.prefill_attention(p, h, None, cfg, impl=impl,
+                                    causal=False)
+    x = x + out
+    h2 = apply_norm(cfg.norm, x, p["norm2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp)
+
+
+def encode(cfg: ModelConfig, params, frames, impl: ModelKernels = KERNELS):
+    """The whisper encoder over precomputed frame embeddings (B,F,D):
+    frames and sinusoidal positions cast to the embedding's dtype, the
+    encoder layers, its final norm."""
+    dt = params["embed"].dtype
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(dt) + sinusoidal_pos(pos, cfg.d_model).to(dt)
+    for p in params["encoder"]["layers"]:
+        x = encoder_block(cfg, p, x, impl)
+    return apply_norm(cfg.norm, x, params["encoder"]["final_norm"],
+                      cfg.norm_eps)
+
+
+def assemble_input(cfg: ModelConfig, params, batch,
+                   impl: ModelKernels = KERNELS):
+    """(x (B,S',D), positions (B,S'), encoder output or None) of a batch
+    dict: a VLM's image embeddings, cast to the embedding's dtype, go
+    before the text (S' = n_img + S); an encoder-decoder's frames are
+    encoded."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    enc_out = None
+    if cfg.vlm is not None:
+        img = batch["image_embeds"].to(params["embed"].dtype)
+        S += img.shape[1]
+        x = torch.cat([img, embed_tokens(cfg, params, tokens)], dim=1)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    if cfg.vlm is None:
+        if cfg.encdec is not None:
+            enc_out = encode(cfg, params, batch["frames"], impl)
+        x = embed_tokens(cfg, params, tokens, positions)
+    return x, positions, enc_out
+
+
+def cross_block(cfg: ModelConfig, p, x, enc_out,
                 impl: ModelKernels = KERNELS):
+    """x + an ``xdec`` layer's cross-attention of its ``norm_x`` over the
+    encoder output.  Returns (x, xk, xv): the layer's cross cache."""
+    h = apply_norm(cfg.norm, x, p["norm_x"], cfg.norm_eps)
+    out, xk, xv = attn.cross_attention(p["xattn"], h, enc_out, cfg, impl)
+    return x + out, xk, xv
+
+
+def cross_decode_block(cfg: ModelConfig, p, x, cache,
+                       impl: ModelKernels = KERNELS):
+    """x + one decode step's cross-attention over the layer's cross
+    cache.  x: (B,1,D)."""
+    h = apply_norm(cfg.norm, x, p["norm_x"], cfg.norm_eps)
+    return x + attn.cross_decode_attention(p["xattn"], cache["xk"],
+                                           cache["xv"], h, cfg, impl)
+
+
+def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
+                impl: ModelKernels = KERNELS, enc_out=None):
     """A layer's first half over the full sequence: x + its mixer
-    (attention, SSD or RG-LRU) of its first norm.  x: (B,S,D).  Returns
+    (attention, SSD or RG-LRU) of its first norm, and for an ``xdec``
+    layer its cross-attention over ``enc_out``.  x: (B,S,D).  Returns
     (x, the layer's cache)."""
     h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps)
     if kind == "ssd":
@@ -201,7 +331,10 @@ def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
     else:
         out, cache = attn.prefill_attention(p, h, tables, cfg, kind,
                                             cache_len=cache_len, impl=impl)
-    return x + out, cache
+    x = x + out
+    if kind == "xdec":
+        x, cache["xk"], cache["xv"] = cross_block(cfg, p, x, enc_out, impl)
+    return x, cache
 
 
 def mix_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, tables,
@@ -217,14 +350,19 @@ def mix_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, tables,
     else:
         out, cache = attn.decode_attention(p, cache, h, pos, tables, cfg,
                                            kind, impl=impl)
-    return x + out, cache
+    x = x + out
+    if kind == "xdec":
+        x = cross_decode_block(cfg, p, x, cache, impl)
+    return x, cache
 
 
 def block_prefill(cfg: ModelConfig, kind: str, p, x, tables,
-                  cache_len: int, impl: ModelKernels = KERNELS):
+                  cache_len: int, impl: ModelKernels = KERNELS,
+                  enc_out=None):
     """One layer over the full sequence.  x: (B,S,D).  Returns (x, the
     layer's cache)."""
-    x, cache = mix_prefill(cfg, kind, p, x, tables, cache_len, impl)
+    x, cache = mix_prefill(cfg, kind, p, x, tables, cache_len, impl,
+                           enc_out)
     return (x if kind == "ssd" else ffn_block(cfg, p, x)), cache
 
 
@@ -242,17 +380,16 @@ def final_logits(cfg: ModelConfig, params, x):
     return unembed(cfg, params, x)[:, 0]
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache_len: int,
+def prefill(cfg: ModelConfig, params, batch, cache_len: int,
             impl: ModelKernels = KERNELS):
-    """tokens: (B, S) integer ids.  Returns (cache, last-token logits
-    (B, Vpad))."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    """batch: ``{"tokens": (B, S) integer ids, ["frames" |
+    "image_embeds"]}``.  Returns (cache, last-token logits (B, Vpad))."""
+    x, positions, enc_out = assemble_input(cfg, params, batch, impl)
     tables = rope_for(cfg, positions)
-    x = embed_tokens(cfg, params, tokens)
     cache = []
-    for kind, p in zip(cfg.block_kinds, params["layers"]):
-        x, c = block_prefill(cfg, kind, p, x, tables, cache_len, impl)
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        x, c = block_prefill(cfg, kind, p, x, tables, cache_len, impl,
+                             enc_out)
         cache.append(c)
     return cache, final_logits(cfg, params, x)
 
@@ -262,8 +399,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
     """tokens: (B,) integer ids; pos: (B,) int32 absolute positions.
     Returns (logits (B, Vpad), cache) — the list is updated in place."""
     tables = rope_for(cfg, pos[:, None])
-    x = embed_tokens(cfg, params, tokens[:, None])
-    for i, (kind, p) in enumerate(zip(cfg.block_kinds, params["layers"])):
+    x = embed_tokens(cfg, params, tokens[:, None], pos[:, None])
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         x, cache[i] = block_decode(cfg, kind, p, x, cache[i], pos, tables,
                                    impl)
     return final_logits(cfg, params, x), cache

@@ -65,7 +65,8 @@ class ContinuousBatcher:
     def _prefill(self, tokens: np.ndarray):
         """(cache, logits (1, Vpad)) of one prompt (S,)."""
         tok = torch.as_tensor(tokens[None, :], device=self.device)
-        return M.prefill(self.cfg, self.params, tok, self.cache_len)
+        return M.prefill(self.cfg, self.params, {"tokens": tok},
+                         self.cache_len)
 
     @torch.inference_mode()
     def _decode(self, tokens: np.ndarray, pos: np.ndarray):

@@ -57,7 +57,8 @@ class Variant:
         feed ModiPick."""
         t0 = time.perf_counter()
         tok = torch.as_tensor(tokens, device=self.device)
-        cache, logits = M.prefill(self.cfg, self.params, tok, self.cache_len)
+        cache, logits = M.prefill(self.cfg, self.params, {"tokens": tok},
+                                  self.cache_len)
         B, S = tokens.shape
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         nxt = torch.argmax(logits, dim=-1)

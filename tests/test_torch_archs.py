@@ -85,8 +85,8 @@ def test_prefill_and_greedy_decode_match_reference(arch):
                                                dtype=np.int32)
     jcache, jlogits = JM.prefill(jcfg, jparams,
                                  {"tokens": jnp.asarray(tokens)}, cache_len)
-    cache, logits = M.prefill(cfg, params, torch.from_numpy(tokens),
-                              cache_len)
+    cache, logits = M.prefill(cfg, params,
+                              {"tokens": torch.from_numpy(tokens)}, cache_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     check_caches(cfg, cache, jcache)
 
@@ -119,10 +119,10 @@ def test_decode_matches_a_longer_prefill(arch):
     B, S, cache_len = 2, 37, 80
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + 1), dtype=np.int32))
-    cache, _ = M.prefill(cfg, params, toks[:, :S], cache_len)
+    cache, _ = M.prefill(cfg, params, {"tokens": toks[:, :S]}, cache_len)
     pos = torch.full((B,), S, dtype=torch.int32)
     step, _ = M.decode_step(cfg, params, cache, toks[:, S], pos)
-    _, full = M.prefill(cfg, params, toks, cache_len)
+    _, full = M.prefill(cfg, params, {"tokens": toks}, cache_len)
     torch.testing.assert_close(step, full, **TOL)
 
 
@@ -153,13 +153,14 @@ def test_short_prompt_under_a_local_ring():
     want, _ = JM.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, S]),
                              jpos)
 
-    cache, _ = M.prefill(cfg, params, torch.from_numpy(toks[:, :S]), 96)
+    cache, _ = M.prefill(cfg, params,
+                         {"tokens": torch.from_numpy(toks[:, :S])}, 96)
     assert cache[0]["k"].shape[1] == 64
     assert not bool(cache[0]["k"][:, S:64 - S].any())  # the reference's NaN
     got, _ = M.decode_step(cfg, params, cache, torch.from_numpy(toks[:, S]),
                            torch.full((1,), S, dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    _, full = M.prefill(cfg, params, torch.from_numpy(toks), 96)
+    _, full = M.prefill(cfg, params, {"tokens": torch.from_numpy(toks)}, 96)
     torch.testing.assert_close(got, full, **TOL)
 
 

@@ -848,3 +848,137 @@ def test_batcher_on_the_card_matches_the_cpu(gen):
     assert after["decode_attention"] - before["decode_attention"] == \
         cfg.n_layers * eng.n_steps
     assert runs[0] == runs[1]
+
+
+def _int8_cache(gen, B, C, KV, hd):
+    """An int8 cache as the model holds it, (B,C,KV,hd) int8 and (B,C,KV)
+    float32 scales, quantized from normal values, and its (B,KV,C,...)
+    views as the model hands them to the kernel."""
+    k8, ks = attention.quantize_kv(_randn(gen, B, C, KV, hd,
+                                          dtype=torch.float32))
+    v8, vs = attention.quantize_kv(_randn(gen, B, C, KV, hd,
+                                          dtype=torch.float32))
+    return (k8.permute(0, 2, 1, 3), v8.permute(0, 2, 1, 3),
+            ks.transpose(1, 2), vs.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 6])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("C,window", [(144, 0), (100, 0), (1500, 0),
+                                      (300, 40)])
+def test_decode_int8_kernel_matches_plain(gen, dtype, G, hd, C, window):
+    """K3 over an int8 cache against its plain version: ragged lengths
+    (100 and 1500 slots are no multiple of the 16-slot tile), per-row
+    positions at the edges, a window that drops whole chunks."""
+    B, KV = 4, 2
+    q = _randn(gen, B, KV, G + 2, hd, dtype=dtype)[:, :, 1:G + 1]
+    k, v, ks, vs = _int8_cache(gen, B, C, KV, hd)
+    pos = torch.tensor([0, C // 3, C - 2, C - 1], dtype=torch.int32,
+                       device="cuda")
+    before = ops.decode_attention_int8.launches
+    for _ in range(2):  # the second launch finds the counters reset
+        out = ops.decode_attention_int8(q, k, v, ks, vs, pos, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out, ref.decode_attention_int8_ref(q, k, v, ks, vs, pos,
+                                               window=window), **TOL[dtype])
+    assert ops.decode_attention_int8.launches == before + 2
+
+
+def test_decode_int8_kernel_over_a_wrapped_ring(gen):
+    """A local layer's int8 ring through the model's call: one sequence
+    past the wrap, one before it, pos_eff = min(pos, C − 1)."""
+    cfg = replace(get_config("gemma3-4b").scaled(0.25), window=64,
+                  kv_cache_dtype="int8")
+    hd, KV, H, D = (cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_heads,
+                    cfg.d_model)
+    B, C = 2, cfg.window
+    p = {"wqkv": _randn(gen, D, (H + 2 * KV) * hd, dtype=torch.bfloat16)
+         / 30, "wo": _randn(gen, H * hd, D, dtype=torch.bfloat16) / 30}
+    x = _randn(gen, B, 1, D, dtype=torch.bfloat16)
+    k8, ks = attention.quantize_kv(_randn(gen, B, C, KV, hd,
+                                          dtype=torch.float32))
+    v8, vs = attention.quantize_kv(_randn(gen, B, C, KV, hd,
+                                          dtype=torch.float32))
+    pos = torch.tensor([100, 30], dtype=torch.int32, device="cuda")
+    tables = rope_tables(pos[:, None], cfg.rope_theta, hd)
+    before = ops.decode_attention_int8.launches
+    outs = []
+    for impl in (ops.KERNELS, ops.PLAIN):
+        cache = {"k": k8.clone(), "v": v8.clone(), "k_scale": ks.clone(),
+                 "v_scale": vs.clone()}
+        outs.append(attention.decode_attention(p, cache, x, pos, tables,
+                                               cfg, "local", impl=impl))
+    torch.cuda.synchronize()
+    assert ops.decode_attention_int8.launches == before + 1
+    torch.testing.assert_close(outs[0][0], outs[1][0], **TOL[torch.bfloat16])
+    for key in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(outs[0][1][key], outs[1][1][key]), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
+    (4, 6, 6, 64, 1500, 64),     # whisper's cross-attention prefill
+    (1, 6, 6, 1500, 1500, 64),   # whisper's encoder
+    (2, 8, 2, 77, 300, 128), (1, 4, 1, 300, 40, 256), (2, 4, 4, 1, 33, 32)])
+def test_flash_kernel_without_the_causal_mask(gen, dtype, B, H, KV, Sq, Sk,
+                                              hd):
+    q = _randn(gen, B, Sq, H, hd, dtype=dtype).transpose(1, 2)
+    k = _randn(gen, B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+    v = _randn(gen, B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ref.flash_attention_ref(q, k, v, causal=False), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch,int8", [("whisper-tiny", False),
+                                       ("internvl2-2b", False),
+                                       ("qwen2-1.5b", True),
+                                       ("whisper-tiny", True)])
+def test_reduced_models_kernel_path_matches_plain_path(gen, arch, int8):
+    """A reduced model in float32 on the card: prefill and three greedy
+    decode steps on the kernel path against the plain path, logits to
+    1e-4; every attention layer launches its kernels (the encoder's and
+    the cross-attention's K2, the cross decode's K3)."""
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(arch).reduced()
+    if int8:
+        cfg = replace(cfg, kv_cache_dtype="int8")
+    params = M.init_params(cfg, gen, torch.float32)
+    B, S = 2, 24
+    n_img = cfg.vlm.n_image_tokens if cfg.vlm else 0
+    batch = api.make_train_batch(cfg, ShapeConfig("p", S + n_img, B,
+                                                  "prefill"), gen)
+    batch = {k: (v * 50 if v.is_floating_point() else v)
+             for k, v in batch.items()}  # embeddings of unit scale
+    runs, launched = [], []
+    for impl in (ops.KERNELS, ops.PLAIN):
+        before = ops.launch_counts()
+        cache, logits = M.prefill(cfg, params, batch, 48, impl=impl)
+        out = [logits]
+        for i in range(3):
+            pos = torch.full((B,), S + n_img + i, dtype=torch.int32,
+                             device="cuda")
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          torch.argmax(out[-1], -1), pos,
+                                          impl=impl)
+            out.append(logits)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        runs.append(out)
+        launched.append({k: after[k] - before[k] for k in after})
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    n = cfg.n_layers
+    want = dict.fromkeys(launched[0], 0)
+    # the encoder's layers, then the decoder's self (and cross) attention
+    want["flash_attention"] = ((cfg.encdec.n_encoder_layers + 2 * n)
+                               if cfg.encdec else n)
+    want["decode_attention_int8" if int8 else "decode_attention"] += 3 * n
+    if cfg.encdec:
+        want["decode_attention"] += 3 * n  # the cross decode
+    assert launched == [want, dict.fromkeys(want, 0)]

@@ -49,7 +49,8 @@ def test_port_package_is_not_empty():
             "premodel/classifier.py", "premodel/conditional.py",
             "fleet/__init__.py", "fleet/spec.py", "fleet/device.py",
             "fleet/frontend.py", "fleet/engine.py", "models/moe.py",
-            "serving/batcher.py"} <= names
+            "serving/batcher.py", "models/api.py",
+            "configs/whisper_tiny.py", "configs/internvl2_2b.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
         "rglru_scan.cu", "policy_select.cu"}

@@ -317,6 +317,10 @@ def test_cpu_path_launches_nothing():
     ops.flash_attention(q, k, v)
     ops.decode_attention(q.reshape(1, 2, 16, 32)[:, :, :2].contiguous(),
                          k, v, torch.zeros(1, dtype=torch.int32))
+    ops.decode_attention_int8(
+        q.reshape(1, 2, 16, 32)[:, :, :2].contiguous(),
+        k.to(torch.int8), v.to(torch.int8), k[..., 0], v[..., 0],
+        torch.zeros(1, dtype=torch.int32))
     ops.ssd_scan(torch.zeros(1, 2, 5, 16), torch.zeros(1, 2, 5),
                  torch.zeros(2), torch.zeros(1, 1, 5, 8),
                  torch.zeros(1, 1, 5, 8))
@@ -331,6 +335,7 @@ def test_cpu_path_launches_nothing():
                        torch.zeros(4, dtype=torch.int32), rows, rows, rows)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
+                                   "decode_attention_int8": 0,
                                    "ssd_scan": 0, "rglru_scan": 0,
                                    "modipick_probs": 0, "fused_select": 0,
                                    "charged_select": 0, "stacked_select": 0}

@@ -71,8 +71,8 @@ def test_prefill_and_greedy_decode_match_reference(reduced_pair):
     jparams = jax.tree.map(jnp.asarray, params_np)
     jcache, jlogits = JM.prefill(jcfg, jparams,
                                  {"tokens": jnp.asarray(tokens)}, cache_len)
-    cache, logits = M.prefill(cfg, params, torch.from_numpy(tokens),
-                              cache_len)
+    cache, logits = M.prefill(cfg, params,
+                              {"tokens": torch.from_numpy(tokens)}, cache_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     for i in range(cfg.n_layers):
         for kv in ("k", "v"):
@@ -163,11 +163,15 @@ def test_generator_must_live_on_the_parameters_device():
         M.init_params(cfg, card_gen, device="cpu")
 
 
-def test_unsupported_configs_raise():
+@pytest.mark.parametrize("bad", [
+    dict(family="moe"), dict(pattern=("ssd",)), dict(pattern=("rglru",)),
+    dict(norm="batch"), dict(mlp="relu")],
+    ids=["moe-without-MoEConfig", "ssd-without-SSMConfig",
+         "rglru-without-RGLRUConfig", "unknown-norm", "unknown-mlp"])
+def test_unsupported_configs_raise(bad):
+    """check_supported rejects a malformed config (int8 caches, encoders,
+    VLMs and absolute positions are supported)."""
     from dataclasses import replace
-    cfg = get_config("qwen2-1.5b").reduced()
-    for bad in (dict(kv_cache_dtype="int8"), dict(family="moe"),
-                dict(family="encdec")):
-        with pytest.raises(NotImplementedError):
-            M.init_params(replace(cfg, **bad), torch.Generator(),
-                          device="cpu")
+    cfg = replace(get_config("qwen2-1.5b").reduced(), **bad)
+    with pytest.raises(NotImplementedError):
+        M.init_params(cfg, torch.Generator(), device="cpu")

@@ -192,8 +192,8 @@ def test_reduced_recurrentgemma_prefill_and_decode_match_reference():
     jparams = jax.tree.map(jnp.asarray, params_np)
     jcache, jlogits = JM.prefill(jcfg, jparams,
                                  {"tokens": jnp.asarray(tokens)}, cache_len)
-    cache, logits = M.prefill(cfg, params, torch.from_numpy(tokens),
-                              cache_len)
+    cache, logits = M.prefill(cfg, params,
+                              {"tokens": torch.from_numpy(tokens)}, cache_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     check_caches(cfg, cache, jcache)
 

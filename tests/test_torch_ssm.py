@@ -255,8 +255,8 @@ def test_reduced_mamba2_prefill_and_decode_match_reference(groups):
                                                dtype=np.int32)
     jcache, jlogits = JM.prefill(jcfg, jparams,
                                  {"tokens": jnp.asarray(tokens)}, cache_len)
-    cache, logits = M.prefill(cfg, params, torch.from_numpy(tokens),
-                              cache_len)
+    cache, logits = M.prefill(cfg, params,
+                              {"tokens": torch.from_numpy(tokens)}, cache_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     check_caches(cfg, cache, jcache)
 
