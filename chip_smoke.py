@@ -18,16 +18,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    moonshot's (G = 1) and gemma3's (G = 2 at hd 256 in float32, an
    1100-token prompt, per-slot positions in a wrapped ring), K2
    without the causal mask and K3 over 1500 frames at whisper-tiny's
-   encoder and cross-attention shapes, and K3 over an int8 cache
-   (``decode_attention_int8``) at the int8 serve phase's shape and
-   beside bf16 K3 over a 32768-slot cache;
+   encoder and cross-attention shapes, and K3-int8
+   (``decode_attention_int8``) with the new token's quantize-and-write
+   at the int8 serve phase's shape, at the edges of its plan's chunks,
+   on a wrapped ring and over 32768 slots (the written cache held
+   exactly, the output to TOL), and beside bf16 K3 over a 32768-slot
+   cache, where it must be the faster;
    K4's occupancy (two blocks an SM at the serve shape) and its time
    over S; K5's segment plan; the selection kernels (K1 bit for bit at
    gamma 1, the fused selection's picks, all five of the charged pass's
    outputs) on synthetic pools with rows that have no base, degenerate
    rows, SLA-aware admission that sheds, replica speeds and a replica
-   that is down, timed there as ``[extra]`` lines; the charged block's
-   shared memory as the kernel reports it against its Python mirror;
+   that is down, and at the engine's pool, at 33, 64 and 128 models
+   (the models wrap the warp's lanes) and with dead models, timed there
+   as ``[extra]`` lines beside the charged pass's chain bound; the
+   charged block's shared memory as the kernel reports it against its
+   Python mirror;
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -37,7 +43,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    logged); and qwen2-1.5b again with an int8 KV cache (``[serve
    qwen2-1.5b int8kv]``: 24 requests; one request's decode logits held
    against the same weights with a bf16 cache to the reference's 5e-2
-   of max |logit|); the launch counters are zeroed just before and
+   of max |logit|; a ``[count]`` line: the device kernels of a request
+   against the bf16 cache's, and the kernels of the plain
+   quantize-and-write the fused write took off the path); the launch
+   counters are zeroed just before and
    read just after, and must show that every layer of every request ran
    its kernels (prefill attention per attention layer, decode attention
    per attention layer and decode step, the SSD scan per SSD layer, the
@@ -306,52 +315,52 @@ def check(name, got, want, tol) -> float:
 
 
 # The bf16 kernels ptxas must report on without a spill: library →
-# (kernel, instantiations): K2 at five head sizes, K3 at five over a bf16
-# and five over an int8 cache, K4 at four.
-BF16_KERNELS = {"flash_attention": ("flash_bf16_kernel", 5),
-                "decode_attention": ("decode_kernel", 10),
-                "ssd_scan": ("ssd_bf16_kernel", 4)}
+# ((kernel, instantiations), ...): K2 at five head sizes, K3 at five over
+# a bf16 cache and K3-int8 at five over an int8 cache, K4 at four.
+BF16_KERNELS = {"flash_attention": (("flash_bf16_kernel", 5),),
+                "decode_attention": (("decode_kernel", 5),
+                                     ("decode_int8_kernel", 5)),
+                "ssd_scan": (("ssd_bf16_kernel", 4),)}
 
 
 def bf16_ptxas(logs) -> None:
-    """Log each bf16 K2/K3/K4 instantiation's registers, static shared
-    memory and spills as ptxas reports them; fail on any spill or a
-    missing report."""
-    for lib, (kern, want) in BF16_KERNELS.items():
-        entry, seen = None, 0
-        for line in logs.get(lib, "").splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                name = m.group(1)
-                ok = kern in name and (kern == "ssd_bf16_kernel"
-                                       or "bfloat16" in name)
-                entry = name if ok else None
-                spill = None
-                continue
-            if entry is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            if m:
-                spill = (int(m.group(1)), int(m.group(2)))
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if not m:
-                continue
-            smem = re.search(r"(\d+) bytes smem", line)
-            tmpl = ",".join(re.findall(r"Li(\d+)E", entry))
-            if "aLi" in entry:  # a signed char (int8) template argument
-                tmpl = "int8 cache," + tmpl
-            log(f"[ptxas bf16] {kern} <{tmpl}>: registers={m.group(1)} "
-                f"static_smem={smem.group(1) if smem else 0} bytes "
-                f"spill_stores={spill[0]} spill_loads={spill[1]}")
-            if spill != (0, 0):
-                raise AssertionError(f"{kern} <{tmpl}> spills: {spill}")
-            seen += 1
-            entry = None
-        if seen != want:
-            raise AssertionError(f"ptxas reported on {seen} bf16 {kern} "
-                                 f"instantiations, not {want}")
+    """Log each bf16 K2/K3/K3-int8/K4 instantiation's registers, static
+    shared memory and spills as ptxas reports them; fail on any spill or
+    a missing report."""
+    for lib, kernels in BF16_KERNELS.items():
+        for kern, want in kernels:
+            entry, seen = None, 0
+            for line in logs.get(lib, "").splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    name = m.group(1)
+                    ok = re.search(rf"\d{kern}I", name) and (
+                        kern == "ssd_bf16_kernel" or "bfloat16" in name)
+                    entry = name if ok else None
+                    spill = None
+                    continue
+                if entry is None:
+                    continue
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+                if m:
+                    spill = (int(m.group(1)), int(m.group(2)))
+                    continue
+                m = re.search(r"Used (\d+) registers", line)
+                if not m:
+                    continue
+                smem = re.search(r"(\d+) bytes smem", line)
+                tmpl = ",".join(re.findall(r"Li(\d+)E", entry))
+                log(f"[ptxas bf16] {kern} <{tmpl}>: registers={m.group(1)} "
+                    f"static_smem={smem.group(1) if smem else 0} bytes "
+                    f"spill_stores={spill[0]} spill_loads={spill[1]}")
+                if spill != (0, 0):
+                    raise AssertionError(f"{kern} <{tmpl}> spills: {spill}")
+                seen += 1
+                entry = None
+            if seen != want:
+                raise AssertionError(f"ptxas reported on {seen} bf16 {kern} "
+                                     f"instantiations, not {want}")
 
 
 def phase_kernels(ops, ref, policy_select, gen):
@@ -833,83 +842,144 @@ def encdec_shapes(ops, ref, randn) -> None:
           time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc)))
 
 
-def int8_bound(q, pos, KV, hd) -> tuple:
+def int8_bound(q, pos, KV, hd, write=False) -> tuple:
     """K3-int8: the live slots' int8 k and v rows and their two fp32
-    scales read once, q read and the output written once, pos read."""
+    scales read once, q read and the output written once, pos read; with
+    the write, also the new token's k and v read, their int8 rows and
+    scales written and the slots read, and the quantizer's ~4 operations
+    an element."""
+    B, G = q.shape[0], q.shape[2]
     live = int((pos.to(torch.int64) + 1).sum()) * KV
-    G = q.shape[2]
-    return bound(live * (2 * hd + 2 * 4) + 2 * q.element_size() * q.numel()
-                 + 4 * pos.numel(), 4 * G * hd * live, q.dtype)
+    nbytes = live * (2 * hd + 2 * 4) + 2 * q.element_size() * q.numel() \
+        + 4 * pos.numel()
+    ops = 4 * G * hd * live
+    if write:
+        nbytes += B * KV * (2 * hd * q.element_size() + 2 * hd + 2 * 4) + 4 * B
+        ops += 8 * B * KV * hd
+    return bound(nbytes, ops, q.dtype)
+
+
+def int8_cache(randn, B, C, KV, hd, dtype):
+    """An int8 cache as the model holds it, quantized from normal
+    values: its (B,KV,C,hd) int8 views and (B,KV,C) scale views."""
+    from repro_torch.models.attention import quantize_kv
+    k8, ks = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
+    v8, vs = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
+    return (k8.permute(0, 2, 1, 3), v8.permute(0, 2, 1, 3),
+            ks.transpose(1, 2), vs.transpose(1, 2))
+
+
+def fused_write(label, ops, ref, randn, q, C, KV, pos, slot, window=0):
+    """K3-int8 with the new token's quantize-and-write against its plain
+    version, each on its own copy of one int8 cache: the cache held
+    exactly, the output to TOL.  Returns (max abs err, a call of the
+    kernel for timing, a call of the plain version, pos on the card)."""
+    B, _, _, hd = q.shape
+    cache = int8_cache(randn, B, C, KV, hd, q.dtype)
+    kn = randn(B, KV, hd, dtype=q.dtype) * 3
+    vn = randn(B, KV, hd, dtype=q.dtype)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    slot = torch.tensor(slot, dtype=torch.int32, device="cuda")
+    mine, plain = ([t.clone() for t in cache] for _ in range(2))
+    new = dict(k_new=kn, v_new=vn, slot=slot, window=window)
+    out = ops.decode_attention_int8(q, *mine, pos, **new)
+    want = ref.decode_attention_int8_ref(q, *plain, pos, **new)
+    for what, g, w in zip(("k", "v", "k_scale", "v_scale"), mine, plain):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: the kernel's written {what} "
+                                 "differs from the plain version's")
+    if torch.equal(mine[2], cache[2]):
+        raise AssertionError(f"{label}: nothing was written")
+    err = check(label, out, want, TOL[q.dtype])
+    return (err, lambda: ops.decode_attention_int8(q, *mine, pos, **new),
+            lambda: ref.decode_attention_int8_ref(q, *plain, pos, **new),
+            pos)
 
 
 def int8_decode(ops, ref, randn, gen) -> dict:
-    """K3 over an int8 cache (``decode_attention_int8``) against its
-    plain version: at the int8 serve phase's shape (qwen2-1.5b's B 4,
-    KV 2, G 6, 144 slots, pos 128–143, hd 128, bf16 q), which gives its
-    row of the kernels line, with dequantize + SDPA (two calls) timed as
-    an ``[extra]`` line for reference; and beside bf16 K3 over a long
-    cache (B 8, KV 2, G 6, 32768 slots, hd 128, pos near the end), where
-    both are bound by the cache's bytes."""
+    """K3-int8 (``decode_attention_int8``) against its plain version.
+    At the int8 serve phase's shape (qwen2-1.5b's B 4, KV 2, G 6, 144
+    slots, pos 128–143, hd 128, bf16 q) with the new token's write, as
+    the model calls it: its row of the kernels line, the written cache
+    held exactly; dequantize + SDPA (two calls) timed beside it.  The
+    write also at the edges of the int8 plan's chunks, on a wrapped ring
+    and over 32768 slots ([extra] lines), and K3-int8 beside bf16 K3
+    over a long cache (B 8, KV 2, G 6, 32768 slots, hd 128, pos near the
+    end), where both are bound by the cache's bytes."""
     import torch.nn.functional as F
-    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    from repro_torch.kernels.decode_attention import split_plan_int8
+    from repro_torch.models.attention import dequantize_kv
     dtype = torch.bfloat16
-
-    def cache(B, C, KV, hd):
-        k8, ks = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
-        v8, vs = quantize_kv(randn(B, C, KV, hd, dtype=dtype))
-        return (k8.permute(0, 2, 1, 3), v8.permute(0, 2, 1, 3),
-                ks.transpose(1, 2), vs.transpose(1, 2))
 
     B, KV, G, C, hd = BATCH, 2, 6, SEQ + 16, 128
     q = randn(B, 1, KV * (G + 2), hd, dtype=dtype)[:, :, :KV * G]
     q = q.reshape(B, KV, G, hd)
-    k, v, ks, vs = cache(B, C, KV, hd)
     pos = torch.randint(SEQ, C, (B,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    for window in (0, 40):
-        err = check(f"decode_attention_int8 window={window}",
-                    ops.decode_attention_int8(q, k, v, ks, vs, pos,
-                                              window=window),
-                    ref.decode_attention_int8_ref(q, k, v, ks, vs, pos,
-                                                  window=window),
-                    TOL[dtype])
-        log(f"K3-int8 decode_attention_int8 B={B} KV={KV} G={G} C={C} "
-            f"hd={hd} pos={pos.tolist()} window={window} bf16 q, int8 "
-            f"cache: max_abs_err={err:.3g} tol={TOL[dtype]}")
-        if window == 0:
-            row_err = err
-    b = int8_bound(q, pos, KV, hd)
+                        dtype=torch.int32).tolist()
+    for window in (40, 0):
+        label = (f"K3-int8 decode_attention_int8 with the write B={B} "
+                 f"KV={KV} G={G} C={C} hd={hd} pos=slot={pos} "
+                 f"window={window} bf16 q, int8 cache")
+        err, kernel, plain, pos_t = fused_write(label, ops, ref, randn, q,
+                                                C, KV, pos, pos, window)
+        log(f"{label}: written cache equal, max_abs_err={err:.3g} "
+            f"tol={TOL[dtype]}")
+    b = int8_bound(q, pos_t, KV, hd, write=True)
+    k, v, ks, vs = int8_cache(randn, B, C, KV, hd, dtype)
     qs = q.reshape(B, KV * G, 1, hd)
     mask = (torch.arange(C, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
+            <= pos_t[:, None])[:, None, None, :]
     pair = lambda: F.scaled_dot_product_attention(
         qs, dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype),
         attn_mask=mask, enable_gqa=True)
     row = dict(name="decode_attention_int8", route="cuda",
                source="src/repro_torch/csrc/decode_attention.cu",
-               # the reference's int8 decode step (dequantize, then
-               # einsums); it reaches no pallas_call
+               # the reference's int8 decode step (quantize, write,
+               # dequantize, einsums); it reaches no pallas_call
                replaces="src/repro/models/attention.py:325",
-               max_abs_err=row_err,
-               ms=time_ms(lambda: ops.decode_attention_int8(q, k, v, ks, vs,
-                                                            pos),
-                          label="K3-int8 qwen2 kernel"),
-               plain_ms=time_ms(lambda: ref.decode_attention_int8_ref(
-                   q, k, v, ks, vs, pos)),
-               bound_ms=b[0], bound_by=b[1], library_ms=None)
+               max_abs_err=err,
+               ms=time_ms(kernel, label="K3-int8 qwen2 kernel"),
+               plain_ms=time_ms(plain), bound_ms=b[0], bound_by=b[1],
+               library_ms=None)
+    ms_nowrite = time_ms(lambda: ops.decode_attention_int8(q, k, v, ks, vs,
+                                                           pos_t))
     log(f"[extra] decode_attention_int8 B={B} KV={KV} G={G} C={C} hd={hd}: "
         f"dequantize + SDPA (two calls, for reference only) "
-        f"ms={time_ms(pair):.5g}")
+        f"ms={time_ms(pair):.5g}; the kernel without the write "
+        f"ms={ms_nowrite:.5g}")
+
+    # the write at the plan's chunk edges and on a wrapped ring
+    chunk, n_split = split_plan_int8(B, KV, C)
+    edges = [chunk - 1, chunk, 2 * chunk - 1, 2 * chunk]
+    ring = [C + 5, 3 * C - 1, 2 * C + chunk, 5 * C + chunk - 1]
+    for what, p_, slot in (
+            (f"slots at the edges of chunks of {chunk}", edges, edges),
+            ("a wrapped ring, slot = pos % C, pos_eff = C - 1",
+             [C - 1] * B, [p % C for p in ring])):
+        label = f"decode_attention_int8 write at {what} B={B} C={C}"
+        err, kernel, plain, pos_t = fused_write(label, ops, ref, randn, q,
+                                                C, KV, p_, slot)
+        extra(f"{label} (written cache equal, max_abs_err {err:.3g})",
+              time_ms(kernel), time_ms(plain),
+              int8_bound(q, pos_t, KV, hd, write=True))
 
     B, C = 8, 32768
     q = randn(B, KV, G, hd, dtype=dtype)
-    k, v, ks, vs = cache(B, C, KV, hd)
+    pos = [C - 1 - 37 * i for i in range(B)]
+    chunk, n_split = split_plan_int8(B, KV, C)
+    label = (f"decode_attention_int8 write B={B} KV={KV} G={G} C={C} "
+             f"hd={hd} ({n_split} chunks of {chunk})")
+    err8w, kernel, plain, pos_t = fused_write(label, ops, ref, randn, q, C,
+                                              KV, pos, pos)
+    ms8w = time_ms(kernel)
+    extra(f"{label} (written cache equal, max_abs_err {err8w:.3g})", ms8w,
+          time_ms(plain, iters=5), int8_bound(q, pos_t, KV, hd, write=True))
+    k, v, ks, vs = int8_cache(randn, B, C, KV, hd, dtype)
     kb, vb = (dequantize_kv(k, ks, dtype).permute(0, 2, 1, 3).contiguous()
               .permute(0, 2, 1, 3),
               dequantize_kv(v, vs, dtype).permute(0, 2, 1, 3).contiguous()
               .permute(0, 2, 1, 3))
-    pos = torch.tensor([C - 1 - 37 * i for i in range(B)], dtype=torch.int32,
-                       device="cuda")
+    pos = pos_t
     shape = (f"B={B} KV={KV} G={G} C={C} hd={hd} "
              f"pos={C - 1 - 37 * (B - 1)}..{C - 1}")
     err8 = check(f"decode_attention_int8 {shape}",
@@ -939,7 +1009,12 @@ def int8_decode(ops, ref, randn, gen) -> dict:
           time_ms(lambda: F.scaled_dot_product_attention(
               qs, kc, vc, enable_gqa=True), iters=10))
     log(f"[extra] K3-int8 against bf16 K3 at {C} slots: {ms8:.5g} ms "
-        f"against {ms16:.5g} ms ({ms16 / ms8:.3f}x)")
+        f"({ms8w:.5g} with the write) against {ms16:.5g} ms "
+        f"({ms16 / ms8:.3f}x)")
+    if not ms8 < ms16:
+        raise AssertionError(f"K3-int8 takes {ms8} ms at {C} slots, bf16 "
+                             f"K3 {ms16}: the int8 cache's half of the "
+                             "bytes is not read faster")
     return row
 
 
@@ -956,13 +1031,52 @@ def fused_bound(B, n) -> tuple:
     return bound(4 * (4 * n + 3 * B) + 4 * B, 20 * B * n, torch.float32)
 
 
-def charged_bound(args) -> tuple:
-    """The charged pass: pool, mask, ledger and rows read once, five
-    outputs written; per request a wait per (model, replica), ~20 fp32
-    operations a model and the replica argmin."""
+def charged_bound(args, kw, got) -> tuple:
+    """The charged pass: pool, candidate lists, ledger and rows read
+    once, five outputs written; the operations this run's data needs:
+    ~20 fp32 operations a (request, model) for stages 1-3, and for each
+    admitted request a rescan of the rows of the models its replica
+    serves (one compare a candidate)."""
+    from repro_torch.kernels import policy_select
     n, R, B = args[0].shape[0], args[6].shape[0], args[8].shape[0]
-    nbytes = 4 * (5 * n + 2 * R + 4 * B) + n * R + 14 * B
-    return bound(nbytes, B * (n * R + 20 * n + R), torch.float32)
+    lists = kw.get("cand_lists")  # or those the wrapper builds
+    lists = (policy_select.candidate_lists(args[5]) if lists is None
+             else lists).cpu().numpy()
+    nnz = (len(lists) - n - R - 2) // 2
+    off, roff = lists[:n + 1], lists[n + 1 + nnz:n + R + 2 + nnz]
+    mods = lists[n + R + 2 + nnz:]
+    row = np.diff(off)
+    rescan = np.array([row[mods[roff[r]:roff[r + 1]]].sum()
+                       for r in range(R)])
+    rep, admitted = got[3].cpu().numpy(), got[1].cpu().numpy()
+    nbytes = 4 * (5 * n + 2 * R + 4 * B + len(lists)) + 14 * B
+    return bound(nbytes, 20 * B * n + rescan[rep[admitted]].sum(),
+                 torch.float32)
+
+
+# The charged pass's chain: the steps of one request that depend on the
+# one before it, with latencies assumed for Hopper (not measured here):
+# a shared-memory load, a shuffle level, a dependent fp32 add.
+SMEM_CYCLES, SHFL_CYCLES, FADD_CYCLES = 30, 25, 4
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
+
+
+def charged_chain(B, n) -> tuple:
+    """(cycles a request, ms for B requests at the card's highest SM
+    clock) of the dependent steps no charged request can avoid: one
+    ledger read-modify-write in shared memory, one pool-order sum of n
+    dependent adds after a shuffle, and two five-level warp reductions
+    (the base's argmin, and the vote and draw ballots taken as one)."""
+    cycles = (SMEM_CYCLES + FADD_CYCLES + SHFL_CYCLES + n * FADD_CYCLES
+              + 2 * 5 * SHFL_CYCLES)
+    return cycles, B * cycles / (sm_clock_mhz() * 1e3)
 
 
 def select_pool(policy_select, n, seed):
@@ -1082,10 +1196,12 @@ def selection_kernels(ops, ref, policy_select, gen) -> None:
     for case in CHARGED_CASES:
         args, kw = charged_inputs(policy_select, gen, case, 1024)
         n_, R = args[0].shape[0], args[6].shape[0]
-        need = policy_select.charged_smem(n_, R, "cuda")[0]
-        if need != policy_select.charged_smem_bytes(n_, R):
-            raise AssertionError(f"charged_smem_bytes({n_}, {R}) does not "
-                                 f"mirror the kernel's {need} bytes")
+        nnz = int(args[5].sum())
+        need = policy_select.charged_smem(n_, R, "cuda", nnz)[0]
+        if need != policy_select.charged_smem_bytes(n_, R, nnz):
+            raise AssertionError(f"charged_smem_bytes({n_}, {R}, {nnz}) "
+                                 f"does not mirror the kernel's {need} "
+                                 "bytes")
         got = ops.charged_select(*args, **kw)
         want = ref.charged_select_ref(*args, **kw)
         for what, g, w in zip(("picks", "admitted", "has_base", "replica",
@@ -1104,19 +1220,87 @@ def selection_kernels(ops, ref, policy_select, gen) -> None:
             "memory, as charged_smem_bytes mirrors it)")
     for B_ in (1024, 4096, 8192):
         args, kw = charged_inputs(policy_select, gen, "sla", B_)
+        kw["cand_lists"] = policy_select.candidate_lists(args[5])
         ms = time_ms(lambda: ops.charged_select(*args, **kw), iters=10)
-        b = charged_bound(args)
+        b = charged_bound(args, kw, ops.charged_select(*args, **kw))
         log(f"[extra] charged_select B={B_} n=3 R=6: ms={ms:.5g} "
             f"= {ms / B_ * 1e3:.4g} us per request; bound_ms={b[0]:.4g} "
-            f"({b[1]})")
+            f"({b[1]}); chain bound {charged_chain(B_, 3)[1]:.4g} ms")
     limit = policy_select.charged_smem(1, 1, "cuda")[1]
     log(f"[extra] charged_select block shared memory limit: {limit} bytes")
+    charged_shapes(ops, ref, policy_select, gen)
+
+
+# B3 at the engine's pool and where the models wrap the warp's lanes:
+# (n, R, replicas a model, B, dead models).  The engine's pool is Table
+# 2's 11 models over 4 replicas each; 33 models give a lane two, 64 two
+# full slots, 128 four; the last case kills every replica of three
+# models, replica 0's among them.  A pick is charged its whole mu, so
+# that the waits cross the budgets and every case sheds some requests.
+CHARGED_SHAPES = {"engine": (11, 44, 4, 200, ()),
+                  "n33": (33, 66, 4, 600, ()),
+                  "n64": (64, 128, 4, 600, ()),
+                  "n128": (128, 128, 3, 600, ()),
+                  "dead models": (11, 44, 4, 200, (0, 5, 10))}
+
+
+def charged_shapes(ops, ref, policy_select, gen) -> None:
+    """B3 on the shapes of CHARGED_SHAPES, SLA-aware with the service
+    time: all five outputs equal to the plain version's, then timed
+    beside the chain bound ([extra] lines)."""
+    for name, (n, R, per, B, dead) in CHARGED_SHAPES.items():
+        rng, pool = select_pool(policy_select, n, 7 + n)
+        cand = torch.zeros(n, R, dtype=torch.bool)
+        for m in range(n):
+            cand[m, [(per * m + i) % R for i in range(per)]] = True
+        rep_wait = rng.uniform(0.0, 30.0, R)
+        for m in dead:
+            rep_wait[cand[m].numpy()] = np.inf
+        budgets = rng.uniform(20.0, 160.0, B)
+
+        def f32(x):
+            return torch.tensor(np.asarray(x, np.float32), device="cuda")
+
+        args = (pool.mu, pool.sigma, pool.acc, pool.rank, pool.mu,
+                cand.cuda(), f32(np.ones(R)), f32(rep_wait), f32(budgets),
+                f32(budgets - THRESHOLD_MS),
+                torch.rand(B, generator=gen, device="cuda"), f32(budgets))
+        kw = dict(slack=2.0, include_mu=True, fastest=pool.fastest,
+                  cand_lists=policy_select.candidate_lists(args[5]))
+        got = ops.charged_select(*args, **kw)
+        t0 = time.perf_counter()
+        want = ref.charged_select_ref(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for what, g, w in zip(("picks", "admitted", "has_base", "replica",
+                               "w_chosen"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"charged_select {name}: {what} "
+                                     "differs from the plain version's")
+        if dead and not torch.isin(got[0].long(), torch.tensor(
+                dead, device="cuda")).any():
+            raise AssertionError("charged_select dead models: no pick of a "
+                                 "dead model, the case tests nothing")
+        if not 0 < int(got[1].sum()) < B:
+            raise AssertionError(f"charged_select {name}: the case must shed "
+                                 "some requests and admit others")
+        ms = time_ms(lambda: ops.charged_select(*args, **kw), iters=20)
+        cycles, chain_ms = charged_chain(B, n)
+        extra(f"charged_select {name} B={B} n={n} R={R} (all five outputs "
+              f"equal; {int(got[1].sum())} admitted; {ms / B * 1e3:.4g} us "
+              f"a request; chain bound {chain_ms:.4g} ms = {cycles} cycles "
+              "a request; plain_ms host-timed, once)", ms, plain_ms,
+              charged_bound(args, kw, got))
+
+
+TRACED = {}  # (variant, KV cache dtype) → (request ms, device kernels)
 
 
 def trace_request(v, tokens) -> None:
     """One warm request (prefill + N_DECODE steps) under torch.profiler:
     the device's busy and idle share of the wall time, the number of
-    kernels launched, and where the host and device time go."""
+    kernels launched (kept in TRACED), and where the host and device
+    time go."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     v.run(tokens, n_decode=N_DECODE)
@@ -1128,6 +1312,7 @@ def trace_request(v, tokens) -> None:
     log(f"[trace] {v.name}: request {ms:.3f} ms under the profiler, "
         f"{len(kernels)} device kernels, device busy {busy:.3f} ms "
         f"(idle share {1 - busy / ms:.3f})")
+    TRACED[v.name, v.cfg.kv_cache_dtype] = (ms, len(kernels))
     avg = prof.key_averages()
     for key, label in (("self_device_time_total", "device"),
                        ("self_cpu_time_total", "host")):
@@ -1437,12 +1622,67 @@ def serve_family(arch, gen, tokens, kv_cache_dtype="bf16"):
             f"{pre:.3f} ms, prefill + {N_DECODE} decode {both:.3f} ms "
             f"(B={BATCH}, S={SEQ}, median of 7)")
         trace_request(v, tokens)
+        if int8:
+            count_int8_request(label, v)
     log(f"{label} peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     for v in pool:
         v.params = None  # free the card for the next phase
     release()
     return ex, counts
+
+
+def old_int8_write_kernels(v) -> int:
+    """Device kernels, a layer and decode step, of the plain-torch
+    quantize-and-write that the int8 cache ran before the write moved
+    into K3-int8's call: the slot and row indices, ``quantize_kv`` of
+    the new token's k and v, and four indexed writes, as
+    ``models/attention.py`` made them, on ``v``'s shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = v.cfg
+    KV, hd, C = cfg.n_kv_heads, cfg.resolved_head_dim, v.cache_len
+    cache = {"k": torch.zeros(BATCH, C, KV, hd, dtype=torch.int8,
+                              device="cuda"),
+             "k_scale": torch.ones(BATCH, C, KV, device="cuda")}
+    cache["v"], cache["v_scale"] = cache["k"].clone(), cache["k_scale"].clone()
+    new = torch.randn(BATCH, 1, KV, hd, device="cuda").to(torch.bfloat16)
+    pos = torch.full((BATCH,), SEQ, dtype=torch.int32, device="cuda")
+
+    def write():
+        rows = torch.arange(BATCH, device="cuda")
+        slot = pos.to(torch.int64)
+        for key in ("k", "v"):
+            xf = new[:, 0].to(torch.float32)
+            scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-12
+            qv = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+            cache[key][rows, slot], cache[f"{key}_scale"][rows, slot] = \
+                qv.to(torch.int8), scale
+
+    write()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        write()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def count_int8_request(label, v) -> None:
+    """The count line: the device kernels of one int8-cache request
+    against the same variant's bf16-cache request, and the kernels the
+    plain quantize-and-write launched, which the fused write took off
+    the path."""
+    ms8, k8 = TRACED[v.name, "int8"]
+    ms16, k16 = TRACED.get((v.name, "bf16"), (float("nan"), -1))
+    per = old_int8_write_kernels(v)
+    n_attn = sum(k in ("attn", "local") for k in v.cfg.block_kinds)
+    log(f"[count] {label} {v.name}: {k8} device kernels a request "
+        f"({ms8:.3f} ms under the profiler) against {k16} with a bf16 "
+        f"cache ({ms16:.3f} ms); K3-int8 launches a request "
+        f"{n_attn * N_DECODE} (one a layer and step); the plain "
+        f"quantize-and-write launched {per} kernels a layer and step, "
+        f"{per * n_attn * N_DECODE} a request, no longer on the path")
 
 
 def int8_against_bf16(label, v, M, tokens) -> None:
@@ -1968,7 +2208,7 @@ def main_selection(ex, ops, ref, policy_select) -> tuple:
                                  "plain version's on the main path's "
                                  "operands")
     n, R = c[0].shape[0], c[6].shape[0]
-    b = charged_bound(c)
+    b = charged_bound(c, ckw, got)
     ms = time_ms(lambda: ops.charged_select(*c, **ckw), iters=20,
                  label="charged_select kernel")
     rows["charged_select"] = dict(
@@ -1980,7 +2220,8 @@ def main_selection(ex, ops, ref, policy_select) -> tuple:
         bound_ms=b[0], bound_by=b[1], library_ms=None)
     log(f"[select] charged_select on the main path's operands B={Bc} n={n} "
         f"R={R}: all five outputs equal to the plain version's; "
-        f"{ms / Bc * 1e3:.4g} us per request")
+        f"{ms / Bc * 1e3:.4g} us per request; chain bound "
+        f"{charged_chain(Bc, n)[1]:.4g} ms")
     return total, rows
 
 
@@ -2222,17 +2463,19 @@ def engine_kernel_times(ops, ref, rec) -> float:
     """The charged pass on the first burst the engine handed it (B =
     200, n = 11, R = 44): its time and µs per request, the plain
     version's, and the bound.  Returns the kernel's ms."""
-    args, kw, _ = rec.calls[0]
+    args, kw, outs = rec.calls[0]
     B, n, R = args[8].shape[0], args[0].shape[0], args[6].shape[0]
     ms = time_ms(lambda: ops.charged_select(*args, **kw), iters=50)
     t0 = time.perf_counter()
     ref.charged_select_ref(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    b = charged_bound(args)
+    b = charged_bound(args, kw, outs)
+    cycles, chain_ms = charged_chain(B, n)
     log(f"[engine] charged_select B={B} n={n} R={R}: ms={ms:.5g} = "
         f"{ms / B * 1e3:.4g} us per request; plain_ms={plain_ms:.5g} "
-        f"(host-timed, once); bound_ms={b[0]:.4g} ({b[1]})")
+        f"(host-timed, once); bound_ms={b[0]:.4g} ({b[1]}); chain bound "
+        f"{chain_ms:.4g} ms ({cycles} cycles a request)")
     return ms
 
 

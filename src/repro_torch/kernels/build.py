@@ -75,6 +75,23 @@ def build(names: Iterable[str] = SOURCES, *, force: bool = False) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise RuntimeError if, under ``torch.is_grad_enabled()``, any
+    floating tensor of ``tensors`` requires grad.  Every wrapper calls
+    this on its CUDA path: its kernel fills a fresh output through
+    ``ctypes`` and has no backward, so the gradient would be lost
+    without a word.  The CPU path (the differentiable plain version)
+    does not call it."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.is_floating_point() and t.requires_grad
+           for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call "
+                           "it under torch.no_grad() or on inputs that do "
+                           "not require grad")
+
+
 def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of library ``lib``, built on first
     use, with its argument types declared (pointers and the stream as

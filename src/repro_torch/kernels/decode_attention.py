@@ -20,13 +20,16 @@ and every launch leaves them at zero).  The
 kernel reads rows with 16-byte copies, so on the card every row of q, k
 and v must start on 16 bytes.
 
-:func:`decode_attention_int8` is the same kernel over an int8 cache
-(the reference's ``kv_cache_dtype="int8"``): k and v as (B,KV,S,hd)
-int8 views and their scales as (B,KV,S) fp32 views of the model's
-(B,C,KV,hd) and (B,C,KV) cache.  The kernel copies the int8 rows (hd
-bytes) and one scale a slot into shared memory, dequantizes them there
-as the reference does (float(x) · scale rounded to q's dtype) and runs
-the same softmax and P·V; it reads half the bytes of the bf16 cache.
+:func:`decode_attention_int8` attends over an int8 cache (the
+reference's ``kv_cache_dtype="int8"``) with a kernel of its own: k and v
+as (B,KV,S,hd) int8 views and their scales as (B,KV,S) fp32 views of
+the model's (B,C,KV,hd) and (B,C,KV) cache.  Given the new token's
+``k_new``, ``v_new`` and ``slot``, the same launch first quantizes them
+as the reference does and writes the int8 rows and scales into the
+cache, so a decode step makes one call for the cache and the attention.
+The kernel walks 32-slot tiles with several in flight, dequantizes them
+in registers as the reference does (float(x) · scale rounded to q's
+dtype), and has its own split plan (:func:`split_plan_int8`).
 
 On a CPU tensor each wrapper runs its plain version
 (``ref.decode_attention_ref``, ``ref.decode_attention_int8_ref``); on a
@@ -47,12 +50,15 @@ from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_I, _I] + [_P] * 8 + [_I] * 6
              + [_L] * 9 + [_I, ctypes.c_float, _P])
-_ARGTYPES_INT8 = ([_I, _I] + [_P] * 10 + [_I] * 6
-                  + [_L] * 15 + [_I, ctypes.c_float, _P])
+_ARGTYPES_INT8 = ([_I, _I] + [_P] * 13 + [_I] * 6
+                  + [_L] * 19 + [_I, ctypes.c_float, _P])
 
 TILE = 16        # positions a block loads at a time (kT in the kernel)
 MAX_SPLIT = 64   # bounds the scratch and the merge's reads
 H100_SMS = 132
+TILE_INT8 = 32        # slots the int8 kernel loads at a time (kT8)
+MAX_SPLIT_INT8 = 128  # kMaxSplit8
+WAVE_TILES = 32       # tiles past which an int8 block's chunk is cut
 
 
 def split_plan(B: int, KV: int, C: int, sms: int = H100_SMS) -> Tuple[int, int]:
@@ -64,6 +70,21 @@ def split_plan(B: int, KV: int, C: int, sms: int = H100_SMS) -> Tuple[int, int]:
     want = -(-sms // (B * KV))
     per = max(1, tiles // want, -(-tiles // MAX_SPLIT))  # tiles a chunk
     return per * TILE, -(-tiles // per)
+
+
+def split_plan_int8(B: int, KV: int, C: int,
+                    sms: int = H100_SMS) -> Tuple[int, int]:
+    """(chunk, n_split) of the int8 kernel for a cache of C slots: chunks
+    of whole TILE_INT8 tiles, the fewest that make B·KV·n_split blocks
+    cover ``sms`` SMs, but none longer than WAVE_TILES tiles (a long
+    cache then takes more than one wave of blocks, so that each block
+    keeps several tiles in flight without a long serial walk), and at
+    most MAX_SPLIT_INT8 chunks."""
+    tiles = -(-C // TILE_INT8)
+    want = -(-sms // (B * KV))
+    per = max(1, min(tiles // want, WAVE_TILES),
+              -(-tiles // MAX_SPLIT_INT8))
+    return per * TILE_INT8, -(-tiles // per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,14 +148,16 @@ def _check(q, k, v, pos, window: int, cache_dtype=None) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(symbol, argtypes, q, k, v, pos, window, scales=()):
+def _launch(symbol, argtypes, q, k, v, pos, window, plan=split_plan,
+            before_pos=(), after_pos=(), more_strides=()):
     """Launch ``symbol`` on the card: the split plan, the output, the
-    scratch, then the pointers and strides of q, k, v (and the scales)."""
+    scratch, then the pointers q, k, v, ``before_pos``, pos,
+    ``after_pos``, and the strides of q, k, v and ``more_strides``."""
     check_aligned("decode_attention", q, k, v)
     fn = build.function("decode_attention", symbol, argtypes)
     B, KV, G, hd = q.shape
     S = k.shape[2]
-    chunk, n_split = split_plan(B, KV, S, _sm_count(q.device.index))
+    chunk, n_split = plan(B, KV, S, _sm_count(q.device.index))
     out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part_o = part_ml = counters = None
@@ -143,14 +166,11 @@ def _launch(symbol, argtypes, q, k, v, pos, window, scales=()):
         cnt, part = _scratch(q.device, stream, B * KV, n_part * (hd + 2))
         counters, part_o = cnt.data_ptr(), part.data_ptr()
         part_ml = part_o + 4 * n_part * hd  # bytes past the partial acc
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    ptrs += [t.data_ptr() for t in scales]
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
-    for t in scales:
-        strides += t.stride()
-    err = fn(DTYPES[q.dtype], hd, *ptrs, pos.data_ptr(), out.data_ptr(),
+    err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             *before_pos, pos.data_ptr(), *after_pos, out.data_ptr(),
              part_o, part_ml, counters, B, KV, G, S, chunk, n_split,
-             *strides, window, hd ** -0.5, stream)
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *more_strides, window, hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed (error {err})")
     return out
@@ -167,6 +187,7 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
         return ref.decode_attention_ref(q, k, v, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention has no path for {q.device}")
+    build.refuse_grad("decode_attention", q, k, v)
     out = _launch("decode_attention_fwd", _ARGTYPES, q, k, v, pos, window)
     decode_attention.launches += 1
     return out
@@ -176,10 +197,17 @@ decode_attention.launches = 0
 
 
 def decode_attention_int8(q, k, v, k_scale, v_scale, pos, *,
-                          window: int = 0):
+                          window: int = 0, k_new=None, v_new=None,
+                          slot=None):
     """:func:`decode_attention` over an int8 cache.  q: (B,KV,G,hd)
     float32 or bfloat16; k, v: (B,KV,S,hd) int8; k_scale, v_scale:
     (B,KV,S) float32; pos: (B,) int32.
+
+    With the new token's ``k_new``, ``v_new`` (B,KV,hd) in q's dtype and
+    its ``slot`` (B,) int32 in [0, S) (``pos``, or ``pos % S`` on a local
+    ring), they are first quantized as the reference's ``_quantize_kv``
+    does and written into k, v, k_scale and v_scale at ``slot`` (in
+    place), and the attention reads them there.
 
     Returns (B,KV,G,hd) in q.dtype."""
     _check(q, k, v, pos, window, cache_dtype=torch.int8)
@@ -190,13 +218,40 @@ def decode_attention_int8(q, k, v, k_scale, v_scale, pos, *,
                             f"{t.dtype}")
         if t.device != q.device:
             raise ValueError("the scales must lie on q's device")
+    new = (k_new, v_new, slot)
+    if any(t is not None for t in new):
+        if any(t is None for t in new):
+            raise ValueError("decode_attention_int8 takes k_new, v_new and "
+                             "slot together")
+        want = (q.shape[0], q.shape[1], q.shape[3])
+        for t in (k_new, v_new):
+            if tuple(t.shape) != want or t.dtype != q.dtype \
+                    or t.stride(2) != 1:
+                raise TypeError(f"k_new and v_new must be {want} {q.dtype} "
+                                f"with hd contiguous; got {tuple(t.shape)} "
+                                f"{t.dtype}")
+        if tuple(slot.shape) != (q.shape[0],) or slot.dtype != torch.int32 \
+                or not slot.is_contiguous():
+            raise TypeError(f"slot must be ({q.shape[0]},) int32; got "
+                            f"{tuple(slot.shape)} {slot.dtype}")
+        if not (k_new.device == v_new.device == slot.device == q.device):
+            raise ValueError("k_new, v_new and slot must lie on q's device")
     if q.device.type == "cpu":
         return ref.decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos,
-                                             window=window)
+                                             window=window, k_new=k_new,
+                                             v_new=v_new, slot=slot)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8 has no path for {q.device}")
-    out = _launch("decode_attention_int8_fwd", _ARGTYPES_INT8, q, k, v, pos,
-                  window, (k_scale, v_scale))
+    build.refuse_grad("decode_attention_int8", q, k_new, v_new)
+    writes = k_new is not None
+    out = _launch(
+        "decode_attention_int8_fwd", _ARGTYPES_INT8, q, k, v, pos, window,
+        plan=split_plan_int8,
+        before_pos=(k_scale.data_ptr(), v_scale.data_ptr()),
+        after_pos=tuple(t.data_ptr() if writes else None for t in new),
+        more_strides=(*k_scale.stride(), *v_scale.stride(),
+                      *(k_new.stride()[:2] if writes else (0, 0)),
+                      *(v_new.stride()[:2] if writes else (0, 0))))
     decode_attention_int8.launches += 1
     return out
 

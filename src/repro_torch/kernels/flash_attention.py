@@ -85,6 +85,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no path for {q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     if q.dtype == torch.bfloat16:
         check_aligned("flash_attention", q, k, v)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)

@@ -11,7 +11,7 @@ each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
 | ------------------ | ------------------------------- | -------------------------------------------- |
 | ``flash_attention``  | ``csrc/flash_attention.cu``   | ``flash_attention.py`` ``_flash_kernel``         |
 | ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
-| ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode (``models/attention.py``: dequantize, then einsums) |
+| ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode step (``models/attention.py``: quantize and write the new token, dequantize, einsums) |
 | ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
 | ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |

@@ -15,9 +15,12 @@ Four kernel wrappers, one set of per-row device code under them:
   where no base exists.  ``select_fused`` is its host entry point.
 - ``charged_select`` (the port of ``charged_select``/``_charged_step``,
   a ``lax.scan`` over the batch): the charged sequential-greedy pass.
-  One warp walks the batch in order with the per-replica wait ledger in
-  shared memory; each request is admitted and selected against waits
-  that include the charges of the requests before it.
+  One warp walks the batch in order, the models in its lanes and the
+  per-replica wait ledger in shared memory; each request is admitted
+  and selected against waits that include the charges of the requests
+  before it.  It reads the candidate topology as compact lists
+  (:func:`candidate_lists`), which ``select_charged`` builds on the
+  host.
   ``select_charged`` is its host entry point, which the Router's device
   pass calls.
 - ``stacked_select`` (B4, the port of the jitted ``_classed_select`` and
@@ -59,12 +62,16 @@ MAX_POOL = 128           # models the K1, fused and stacked kernels take
 # for its limit (``charged_smem``).
 MAX_SMEM = 232_448
 CHARGED_CHUNK = 256      # requests the charged block stages at once
+# Models a lane of the charged warp holds in registers (kLaneSlots): a
+# wider pool keeps the lanes' 13 per-model arrays in shared memory.
+CHARGED_LANE_SLOTS = 4
+CHARGED_LANE_ARRAYS = 13
 BLOCK_B = 256            # the batch bucket's step (``_bucket``)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROBS_ARGS = [_P] * 7 + [_I, _I, _F, _P]
 _FUSED_ARGS = [_P] * 8 + [_I, _I, _F, _P]
-_CHARGED_ARGS = [_P] * 14 + [_I, _I, _I, _F, _F, _I, _I, _P]
+_CHARGED_ARGS = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _P]
 _STACKED_ARGS = [_P] * 11 + [_I, _I, _I, _F, _I, _P]
 
 
@@ -118,6 +125,7 @@ def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
     if elig.device.type == "cpu":
         return ref.policy_probs_ref(mu, sigma, acc, t_u, t_l, elig,
                                     gamma=gamma, eps=EPS)
+    build.refuse_grad("modipick_probs", mu, sigma, acc, t_u, t_l, elig)
     out = torch.empty((B, n), dtype=torch.float32, device=elig.device)
     if B:
         _launch("modipick_probs_fwd", _PROBS_ARGS, elig.device,
@@ -151,6 +159,7 @@ def fused_select(mu, sigma, acc, rank, t_u, t_l, r01, *,
     if mu.device.type == "cpu":
         return ref.fused_select_ref(mu, sigma, acc, rank, t_u, t_l, r01,
                                     gamma=gamma, eps=EPS, pad_rank=PAD_RANK)
+    build.refuse_grad("fused_select", mu, sigma, acc, rank, t_u, t_l, r01)
     out = torch.empty(B, dtype=torch.int32, device=mu.device)
     if B:
         _launch("fused_select_fwd", _FUSED_ARGS, mu.device,
@@ -166,45 +175,85 @@ fused_select.launches = 0
 _fused_select = fused_select
 
 
-def charged_smem_bytes(n: int, R: int) -> int:
-    """Shared memory of the charged kernel's block at n models and R
-    replicas (mirrors ``charged_smem`` in the kernel): the pool, the
-    waits, the ledger, ``CHARGED_CHUNK`` staged request rows and the
-    (R × n) mask."""
-    return 4 * (7 * n + 2 * R + 4 * CHARGED_CHUNK) + n * R
+def charged_smem_bytes(n: int, R: int, nnz: int = None) -> int:
+    """Shared memory of the charged kernel's block at n models over R
+    replicas with nnz (model, replica) candidate pairs (every pair when
+    None), mirroring ``charged_smem`` in the kernel: the ledger and the
+    speeds, ``CHARGED_CHUNK`` staged request rows and outputs, both
+    candidate lists and the candidates' charges, the utilities, and the
+    lanes' state past 128 models."""
+    nnz = n * R if nnz is None else nnz
+    pad = 32 * -(-n // 32)
+    lanes = CHARGED_LANE_ARRAYS * pad if n > 32 * CHARGED_LANE_SLOTS else 0
+    words = lanes + 3 * R + 1 + 3 * nnz + pad + 7 * CHARGED_CHUNK
+    return 4 * words + 2 * CHARGED_CHUNK
 
 
-def charged_smem(n: int, R: int, device) -> tuple:
-    """(bytes the charged block needs at n models and R replicas, bytes
-    a block may have) on ``device``: from the kernel's library and the
-    card on a CUDA device, from ``charged_smem_bytes`` and ``MAX_SMEM``
-    on the CPU."""
+def charged_smem(n: int, R: int, device, nnz: int = None) -> tuple:
+    """(bytes the charged block needs at n models, R replicas and nnz
+    candidate pairs, bytes a block may have) on ``device``: from the
+    kernel's library and the card on a CUDA device, from
+    ``charged_smem_bytes`` and ``MAX_SMEM`` on the CPU."""
     dev = torch.device(device)
+    nnz = n * R if nnz is None else nnz
     if dev.type != "cuda":
-        return charged_smem_bytes(n, R), MAX_SMEM
+        return charged_smem_bytes(n, R, nnz), MAX_SMEM
     fn = build.function("policy_select", "charged_select_smem",
-                        [_I, _I, _I, _P, _P])
+                        [_I, _I, _I, _I, _P, _P])
     smem, limit = ctypes.c_longlong(), ctypes.c_int()
     err = fn(dev.index if dev.index is not None
-             else torch.cuda.current_device(), n, R, ctypes.byref(smem),
+             else torch.cuda.current_device(), n, R, nnz, ctypes.byref(smem),
              ctypes.byref(limit))
     if err != 0:
         raise RuntimeError(f"charged_select_smem failed (error {err})")
     return smem.value, limit.value
 
 
+def candidate_lists(cand_mask) -> torch.Tensor:
+    """The charged kernel's candidate lists of an (n, R) bool mask, on
+    its device: one int32 tensor holding each model's row offsets (n +
+    1), its replicas in ascending order (nnz), each replica's row
+    offsets (R + 1) and its models in ascending order (nnz)."""
+    n, R = cand_mask.shape
+    zero = torch.zeros(1, dtype=torch.int64, device=cand_mask.device)
+    parts = []
+    for mask in (cand_mask, cand_mask.t()):
+        parts.append(torch.cat((zero, torch.cumsum(mask.sum(1), 0))))
+        parts.append(mask.nonzero()[:, 1])
+    return torch.cat(parts).to(torch.int32)
+
+
+class ChargedOut(tuple):
+    """The charged pass's five (B,) outputs, ``(picks, admitted,
+    has_base, replica, w_chosen)``, and ``buffers``: the (3, B) int32
+    (picks, replica, w_chosen's bits) and (2, B) uint8 (admitted,
+    has_base) tensors they are views of, so that a host caller copies
+    two tensors rather than five."""
+
+    def __new__(cls, ints, flags):
+        out = super().__new__(cls, (ints[0], flags[0].view(torch.bool),
+                                    flags[1].view(torch.bool), ints[1],
+                                    ints[2].view(torch.float32)))
+        out.buffers = (ints, flags)
+        return out
+
+
 def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
                    rep_wait, t_u, t_l, r01, lim, *, gamma: float = 1.0,
                    slack: float = 0.0, include_mu: bool = False,
-                   fastest: int = 0):
+                   fastest: int = 0, cand_lists=None):
     """The charged sequential-greedy pass over a batch, in order.
 
     Pool: mu/sigma/acc/rank/mu_charge (n,) float32, cand_mask (n, R)
     bool (replica r serves model m); ledger: speed/rep_wait (R,)
     float32 (``rep_wait`` is read, never written); per request:
     t_u/t_l/r01/lim (B,) float32, ``lim`` = +inf admits, −inf sheds.
-    Returns ``(picks int32, admitted bool, has_base bool, replica int32,
-    w_chosen float32)``, each (B,) — see ``ref.charged_select_ref``."""
+    ``cand_lists``: :func:`candidate_lists` of ``cand_mask`` on its
+    device, which the kernel reads (built from the mask here when None;
+    the plain version reads the mask).
+    Returns a :class:`ChargedOut`, ``(picks int32, admitted bool,
+    has_base bool, replica int32, w_chosen float32)``, each (B,) — see
+    ``ref.charged_select_ref``."""
     B = t_u.shape[0] if t_u.dim() == 1 else -1
     n = mu.shape[0] if mu.dim() == 1 else -1
     R = speed.shape[0] if speed.dim() == 1 else -1
@@ -214,39 +263,58 @@ def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
         ("cand_mask", cand_mask, (n, R)), ("speed", speed, (R,)),
         ("rep_wait", rep_wait, (R,)), ("t_u", t_u, (B,)),
         ("t_l", t_l, (B,)), ("r01", r01, (B,)), ("lim", lim, (B,))))
-    _check_f32("charged_select", (mu, sigma, acc, rank, mu_charge, speed,
-                                  rep_wait, t_u, t_l, r01, lim), mu.device)
+    f32 = (mu, sigma, acc, rank, mu_charge, speed, rep_wait, t_u, t_l, r01,
+           lim)
+    _check_f32("charged_select", f32, mu.device)
     if cand_mask.dtype != torch.bool or cand_mask.device != mu.device \
             or not cand_mask.is_contiguous():
         raise TypeError("charged_select: cand_mask must be a contiguous "
                         "bool tensor on the pool's device")
     if n < 1 or R < 1:
         raise ValueError(f"charged_select: {n} models over {R} replicas")
-    need, limit = charged_smem(n, R, mu.device)
+    if cand_lists is not None:
+        nnz = (cand_lists.numel() - n - R - 2) // 2
+        if cand_lists.dtype != torch.int32 or cand_lists.dim() != 1 \
+                or cand_lists.device != mu.device \
+                or not cand_lists.is_contiguous() or nnz < 0 \
+                or cand_lists.numel() != n + R + 2 + 2 * nnz:
+            raise TypeError("charged_select: cand_lists must be the "
+                            "contiguous int32 candidate_lists of cand_mask "
+                            "on the pool's device")
+    elif mu.device.type == "cuda":
+        cand_lists = candidate_lists(cand_mask)
+        nnz = (cand_lists.numel() - n - R - 2) // 2
+    else:
+        nnz = int(cand_mask.sum())
+    need, limit = charged_smem(n, R, mu.device, nnz)
     if need > limit:
         raise ValueError(f"charged_select: {n} models over {R} replicas "
-                         f"need {need} bytes of shared memory; a block has "
-                         f"{limit}")
+                         f"({nnz} candidate pairs) need {need} bytes of "
+                         f"shared memory; a block has {limit}")
     kw = dict(gamma=gamma, slack=slack, include_mu=include_mu,
               fastest=fastest)
     if mu.device.type == "cpu":
-        return ref.charged_select_ref(mu, sigma, acc, rank, mu_charge,
-                                      cand_mask, speed, rep_wait, t_u, t_l,
-                                      r01, lim, eps=EPS, pad_rank=PAD_RANK,
-                                      **kw)
+        out = ref.charged_select_ref(mu, sigma, acc, rank, mu_charge,
+                                     cand_mask, speed, rep_wait, t_u, t_l,
+                                     r01, lim, eps=EPS, pad_rank=PAD_RANK,
+                                     **kw)
+        return ChargedOut(torch.stack((out[0], out[3],
+                                       out[4].view(torch.int32))),
+                          torch.stack((out[1], out[2])).view(torch.uint8))
+    build.refuse_grad("charged_select", *f32)
     ints = torch.empty((3, B), dtype=torch.int32, device=mu.device)
     flags = torch.empty((2, B), dtype=torch.uint8, device=mu.device)
     if B:
         _launch("charged_select_fwd", _CHARGED_ARGS, mu.device,
                 mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
-                rank.data_ptr(), mu_charge.data_ptr(), cand_mask.data_ptr(),
+                rank.data_ptr(), mu_charge.data_ptr(), cand_lists.data_ptr(),
                 speed.data_ptr(), rep_wait.data_ptr(), t_u.data_ptr(),
                 t_l.data_ptr(), r01.data_ptr(), lim.data_ptr(),
-                ints.data_ptr(), flags.data_ptr(), B, n, R, float(gamma),
-                float(slack), int(bool(include_mu)), int(fastest))
+                ints.data_ptr(), flags.data_ptr(), B, n, R, nnz,
+                float(gamma), float(slack), int(bool(include_mu)),
+                int(fastest))
         charged_select.launches += 1
-    return (ints[0], flags[0].view(torch.bool), flags[1].view(torch.bool),
-            ints[1], ints[2].view(torch.float32))
+    return ChargedOut(ints, flags)
 
 
 charged_select.launches = 0
@@ -290,6 +358,7 @@ def stacked_select(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
     if mu.device.type == "cpu":
         return ref.stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l,
                                       r01, eps=EPS, pad_rank=PAD_RANK, **kw)
+    build.refuse_grad("stacked_select", *f32)
     picks = torch.empty(B, dtype=torch.int32, device=mu.device)
     has = torch.empty(B, dtype=torch.uint8, device=mu.device)
     if B:
@@ -414,19 +483,25 @@ def select_charged(pool: DevicePool, t_u, t_l, state, *,
     for m, c in enumerate(state.cand):
         cand[m, c] = True
     lim = np.full(B, np.inf) if adm_limit is None else adm_limit
-    rows = _upload((t_u, t_l, lim), dev)
-    ledger = _upload((np.asarray(state.speed), state.rep_wait), dev)
-    mu_charge = torch.tensor(np.asarray(state.mu, np.float32)[:n],
-                             device=dev)
+    # one upload of the float operands; the candidate lists built on the
+    # host and uploaded once
+    f = torch.from_numpy(np.concatenate(
+        [np.asarray(x, np.float32) for x in (t_u, t_l, lim, state.speed,
+                                             state.rep_wait,
+                                             np.asarray(state.mu)[:n])])
+        ).to(dev)
+    cand_t = torch.from_numpy(cand)
+    lists = candidate_lists(cand_t).to(dev)
     r01 = uniforms(seed, _bucket(B, block_b), dev)[:B]
     out = charged_select(pool.mu, pool.sigma, pool.acc, pool.rank,
-                         mu_charge, torch.from_numpy(cand).to(dev),
-                         ledger[0], ledger[1], rows[0], rows[1], r01,
-                         rows[2], gamma=gamma, slack=adm_slack,
-                         include_mu=adm_include_mu, fastest=pool.fastest)
-    picks, admitted, has_base, rep, w_chosen = (t.cpu().numpy()
-                                                for t in out)
-    return picks, admitted, has_base, rep, w_chosen.astype(np.float64)
+                         f[3 * B + 2 * R:], cand_t.to(dev),
+                         f[3 * B:3 * B + R], f[3 * B + R:3 * B + 2 * R],
+                         f[:B], f[B:2 * B], r01, f[2 * B:3 * B], gamma=gamma,
+                         slack=adm_slack, include_mu=adm_include_mu,
+                         fastest=pool.fastest, cand_lists=lists)
+    ints, flags = (t.cpu().numpy() for t in out.buffers)
+    return (ints[0], flags[0].view(bool), flags[1].view(bool), ints[1],
+            ints[2].view(np.float32).astype(np.float64))
 
 
 def select_classed(stacked, cls, t_u, t_l, *, shifts=None,

@@ -47,14 +47,45 @@ def decode_attention_ref(q, k, v, pos, *, window=0):
     return torch.einsum("bngk,bnkd->bngd", p, v.float()).to(q.dtype)
 
 
-def decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos, *, window=0):
+def quantize_kv(x):
+    """x (..., hd) → (int8 values, fp32 scale over the trailing dim), the
+    reference's ``_quantize_kv``: x / scale divided in fp32 and rounded
+    half to even, so the int8 bits are the reference's."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    # by a tensor, not a Python number: PyTorch's CUDA division by a
+    # scalar multiplies by its reciprocal, which can round the last bit
+    # the other way
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """The reference's ``_dequantize_kv``: float(q) · scale, rounded to
+    ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos, *, window=0,
+                              k_new=None, v_new=None, slot=None):
     """``decode_attention_ref`` over an int8 cache: q: (B,KV,G,hd); k, v:
     (B,KV,S,hd) int8; k_scale, v_scale: (B,KV,S) fp32.  Each element is
     dequantized as the reference's ``_dequantize_kv(…, q.dtype)`` does,
-    float(x) · scale rounded to q's dtype, before the products."""
-    def deq(x, scale):
-        return (x.to(torch.float32) * scale[..., None]).to(q.dtype)
-    return decode_attention_ref(q, deq(k, k_scale), deq(v, v_scale), pos,
+    float(x) · scale rounded to q's dtype, before the products.
+
+    With the new token's ``k_new``, ``v_new`` (B,KV,hd) and ``slot``
+    (B,), they are first quantized (:func:`quantize_kv`) and written
+    into k, v and their scales at ``slot`` in place (views write through
+    to the cache they view), as the reference's decode step quantizes
+    and writes before it attends."""
+    if k_new is not None:
+        rows = torch.arange(q.shape[0], device=q.device)
+        at = slot.to(torch.int64)
+        for c, sc, new in ((k, k_scale, k_new), (v, v_scale, v_new)):
+            c[rows, :, at], sc[rows, :, at] = quantize_kv(new)
+    return decode_attention_ref(q, dequantize_kv(k, k_scale, q.dtype),
+                                dequantize_kv(v, v_scale, q.dtype), pos,
                                 window=window)
 
 
@@ -207,7 +238,7 @@ def stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
 def charged_select_ref(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
                        rep_wait, t_u, t_l, r01, lim, *, gamma=1.0,
                        slack=0.0, include_mu=False, fastest=0, eps=1e-9,
-                       pad_rank=1e9):
+                       pad_rank=1e9, cand_lists=None):
     """The charged sequential-greedy pass (the reference's
     ``_charged_step`` under ``lax.scan``), one request at a time in
     batch order.  Pool: mu/sigma/acc/rank/mu_charge (n,); cand_mask (n,
@@ -222,6 +253,10 @@ def charged_select_ref(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
     exists); the pick's ``mu_charge / speed`` is charged, if admitted,
     to its least-loaded capable replica (first index on a tie).  The
     caller's ``rep_wait`` is not written.
+
+    ``cand_lists`` is the kernel's compact form of ``cand_mask``
+    (``policy_select.candidate_lists``), taken so that the two share a
+    signature; this version reads the mask and ignores it.
 
     Returns ``(picks int32, admitted bool, has_base bool, replica int32,
     w_chosen float32)``, each (B,): ``w_chosen`` is the pick's wait, or

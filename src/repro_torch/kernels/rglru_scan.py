@@ -71,6 +71,7 @@ def rglru_scan(a, b):
         return ref.rglru_scan_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan has no path for {a.device}")
+    build.refuse_grad("rglru_scan", a, b)
     fn = build.function("rglru_scan", "rglru_scan_fwd", _ARGTYPES)
     B, S, W = a.shape
     seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))

@@ -129,6 +129,7 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 256):
         return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no path for {x.device}")
+    build.refuse_grad("ssd_scan", x, dt, A, B_, C_)
     Bb, H, S, hd = x.shape
     G, N = B_.shape[1], B_.shape[3]
     if x.dtype == torch.bfloat16:

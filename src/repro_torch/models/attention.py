@@ -25,10 +25,9 @@ slot p % C, a ring once p ≥ C.
 ``kv_cache_dtype="int8"`` stores k and v as int8 with an fp32 scale per
 (batch, slot, KV head), ``{"k", "v", "k_scale", "v_scale"}``, as the
 reference does.  Prefill attention still runs on the unquantized k/v;
-each decode step quantizes the new token's k/v (plain torch: a few
-small launches) and attends with the int8 decode kernel, which
-dequantizes one tile at a time in shared memory, so no bf16 copy of
-the cache is made.
+each decode step makes one call of the int8 decode kernel, which
+quantizes the new token's k/v, writes them into the cache and attends,
+dequantizing as it reads, so no bf16 copy of the cache is made.
 """
 from __future__ import annotations
 
@@ -39,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import KERNELS, ModelKernels
+from repro_torch.kernels.ref import dequantize_kv, quantize_kv  # noqa: F401
 from repro_torch.models.layers import rope
 
 
@@ -56,22 +56,6 @@ def _project_qkv(params, x, tables, cfg: ModelConfig):
         qk = rope(qk, tables)
     v = qkv[..., (H + KV) * hd:].view(B, S, KV, hd)
     return qk[:, :, :H], qk[:, :, H:], v
-
-
-def quantize_kv(x):
-    """x (..., hd) → (int8 values, fp32 scale over the trailing dim), the
-    reference's ``_quantize_kv``: x / scale divided in fp32 and rounded
-    half to even, so the int8 bits are the reference's."""
-    xf = x.to(torch.float32)
-    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale
-
-
-def dequantize_kv(q, scale, dtype):
-    """The reference's ``_dequantize_kv``: float(q) · scale, rounded to
-    ``dtype``."""
-    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 def prefill_cache(cfg: ModelConfig, kind: str, k, v, cache_len: int):
@@ -150,21 +134,20 @@ def decode_attention(params, cache, x, pos, tables, cfg: ModelConfig,
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(params, x, tables, cfg)
     C = cache["k"].shape[1]
-    rows = torch.arange(B, device=x.device)
-    slot = pos.to(torch.int64)
+    slot = pos
     if kind == "local":
         slot = torch.remainder(slot, C)
         pos = torch.clamp(pos, max=C - 1)
     qg = q.reshape(B, KV, cfg.n_heads // KV, hd)
     k, v = cache["k"].permute(0, 2, 1, 3), cache["v"].permute(0, 2, 1, 3)
     if cfg.kv_cache_dtype == "int8":
-        for key, new in (("k", k_new), ("v", v_new)):
-            cache[key][rows, slot], cache[f"{key}_scale"][rows, slot] = \
-                quantize_kv(new[:, 0])
         out = impl.decode_attention_int8(
             qg, k, v, cache["k_scale"].transpose(1, 2),
-            cache["v_scale"].transpose(1, 2), pos)
+            cache["v_scale"].transpose(1, 2), pos, k_new=k_new[:, 0],
+            v_new=v_new[:, 0], slot=slot)
     else:
+        rows = torch.arange(B, device=x.device)
+        slot = slot.to(torch.int64)
         cache["k"][rows, slot] = k_new[:, 0]
         cache["v"][rows, slot] = v_new[:, 0]
         out = impl.decode_attention(qg, k, v, pos)

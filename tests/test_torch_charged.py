@@ -355,6 +355,34 @@ def test_charged_chunk_mirrors_the_kernel_source():
         policy_select.charged_smem_bytes(3, 6), policy_select.MAX_SMEM)
 
 
+@pytest.mark.parametrize("n,R,seed", [(1, 2, 0), (5, 8, 1), (11, 44, 2),
+                                      (40, 9, 3)])
+def test_candidate_lists_equal_the_mask(n, R, seed):
+    """The charged kernel's candidate lists (``candidate_lists``, which
+    ``select_charged`` builds on the host and ``charged_select`` on the
+    pool's device) spell the mask both ways: each model's replicas
+    ascending, each replica's models ascending.  Model 0 has no replica
+    and the last replica serves no model."""
+    rng = np.random.default_rng(seed)
+    mask = torch.zeros(n, R, dtype=torch.bool)
+    for m in range(1, n):
+        mask[m, rng.integers(0, R - 1, rng.integers(1, 4))] = True
+    lists = policy_select.candidate_lists(mask)
+    assert lists.dtype == torch.int32
+    host = lists.numpy()
+    nnz = int(mask.sum())
+    assert len(host) == n + 1 + nnz + R + 1 + nnz
+    off, cols = host[:n + 1], host[n + 1:n + 1 + nnz]
+    roff, mods = host[n + 1 + nnz:n + R + 2 + nnz], host[n + R + 2 + nnz:]
+    for m in range(n):
+        assert list(cols[off[m]:off[m + 1]]) == \
+            torch.nonzero(mask[m]).flatten().tolist()
+    for r in range(R):
+        assert list(mods[roff[r]:roff[r + 1]]) == \
+            torch.nonzero(mask[:, r]).flatten().tolist()
+    assert off[1] == off[0] == 0 and roff[R] == roff[R - 1] == nnz
+
+
 def test_empty_batches_launch_nothing():
     args = _charged_args(B=0)
     picks, admitted, has_base, rep, w = ops.charged_select(*args)

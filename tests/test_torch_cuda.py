@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops, policy_select, ref
-from repro_torch.kernels.decode_attention import split_plan
+from repro_torch.kernels.decode_attention import split_plan, split_plan_int8
 from repro_torch.models import attention
 from repro_torch.models.layers import rope_tables
 
@@ -293,9 +293,9 @@ def test_select_fused_launches_once(gen):
 
 # case → (n, R, speeds vary, a replica down, slack, include_mu or None
 # for AdmitAll, the charge a pick as a share of mu).  Every SLA-aware
-# case sheds some of its requests: "wide" spreads 600 requests over 300
-# replicas, so only a charge of the whole mu makes its waits cross the
-# budgets.
+# case sheds some of its requests: "wide" and the n33–n160 cases spread
+# 600 requests over many replicas, so only a charge of the whole mu makes
+# their waits cross the budgets.
 CHARGED = {"admit_all": (5, 8, False, False, 0.0, None, 0.02),
            "sla": (5, 8, False, False, 0.0, False, 0.02),
            "sla_mu": (5, 8, False, False, 4.0, True, 0.02),
@@ -303,7 +303,12 @@ CHARGED = {"admit_all": (5, 8, False, False, 0.0, None, 0.02),
            "down": (5, 7, False, True, 0.0, True, 0.02),
            "n1": (1, 2, False, False, 0.0, True, 0.02),
            "n8": (8, 16, True, False, 0.0, None, 0.02),
-           "wide": (128, 300, True, True, 1.0, True, 1.0)}
+           "wide": (128, 300, True, True, 1.0, True, 1.0),
+           # a lane holds two models (33), two full slots (64), and past
+           # 128 the lanes' state lives in shared memory (160)
+           "n33": (33, 40, True, False, 1.0, True, 1.0),
+           "n64": (64, 100, True, True, 1.0, True, 1.0),
+           "n160": (160, 300, True, True, 1.0, True, 1.0)}
 
 
 def charged_inputs(gen, name, B):
@@ -353,13 +358,16 @@ def test_charged_kernel_matches_plain(gen, name):
         assert not got[1].all()
 
 
-@pytest.mark.parametrize("n,R", [(1, 1), (3, 6), (128, 300), (128, 1500)])
-def test_charged_smem_mirrors_the_kernel(gen, n, R):
+@pytest.mark.parametrize("n,R,nnz", [(1, 1, 1), (3, 6, 6), (11, 44, 44),
+                                     (128, 300, 384), (160, 300, 480),
+                                     (128, 1500, 192_000)])
+def test_charged_smem_mirrors_the_kernel(gen, n, R, nnz):
     """The Python mirror of the charged block's shared memory (the
-    bound a CPU call is held to) equals the kernel's own; the card's
-    limit is the H100's that the mirror's callers assume."""
-    need, limit = policy_select.charged_smem(n, R, "cuda")
-    assert need == policy_select.charged_smem_bytes(n, R)
+    bound a CPU call is held to) equals the kernel's own at n models, R
+    replicas and nnz candidate pairs; the card's limit is the H100's
+    that the mirror's callers assume."""
+    need, limit = policy_select.charged_smem(n, R, "cuda", nnz)
+    assert need == policy_select.charged_smem_bytes(n, R, nnz)
     assert limit == torch.cuda.get_device_properties(0) \
         .shared_memory_per_block_optin
     if "H100" in torch.cuda.get_device_name(0):
@@ -915,6 +923,129 @@ def test_decode_int8_kernel_over_a_wrapped_ring(gen):
     torch.testing.assert_close(outs[0][0], outs[1][0], **TOL[torch.bfloat16])
     for key in ("k", "v", "k_scale", "v_scale"):
         assert torch.equal(outs[0][1][key], outs[1][1][key]), key
+
+
+def _fused_write(gen, dtype, q, C, KV, hd, pos, slot, window=0):
+    """K3-int8 with the new token's write against its plain version, each
+    on its own copy of one int8 cache: the written cache equal bit for
+    bit, the output within TOL.  Returns the kernel's output."""
+    B = q.shape[0]
+    k, v, ks, vs = _int8_cache(gen, B, C, KV, hd)
+    # the new token's k and v as the model hands them: strided views
+    kn = (_randn(gen, B, KV + 1, hd, dtype=torch.float32) * 3)[:, 1:]
+    vn = _randn(gen, B, 2 * KV, hd, dtype=torch.float32)[:, ::2]
+    kn, vn = kn.to(dtype), vn.to(dtype)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    slot = torch.tensor(slot, dtype=torch.int32, device="cuda")
+    got_cache = [t.clone() for t in (k, v, ks, vs)]
+    want_cache = [t.clone() for t in (k, v, ks, vs)]
+    before = ops.decode_attention_int8.launches
+    out = ops.decode_attention_int8(q, *got_cache, pos, window=window,
+                                    k_new=kn, v_new=vn, slot=slot)
+    torch.cuda.synchronize()
+    assert ops.decode_attention_int8.launches == before + 1
+    want = ref.decode_attention_int8_ref(q, *want_cache, pos, window=window,
+                                         k_new=kn, v_new=vn, slot=slot)
+    for what, g, w in zip(("k", "v", "k_scale", "v_scale"), got_cache,
+                          want_cache):
+        assert torch.equal(g, w), what
+    rows = torch.arange(B, device="cuda")
+    assert not torch.equal(got_cache[0][rows, :, slot.long()],
+                           k[rows, :, slot.long()])  # the slot was written
+    torch.testing.assert_close(out, want, **TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 6])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("C,window", [(144, 0), (100, 0), (1500, 0),
+                                      (300, 40)])
+def test_decode_int8_fused_write_matches_plain(gen, dtype, G, hd, C, window):
+    """K3-int8 writing the new token at slot = pos (per-row positions at
+    the edges, a ragged length, a window that drops whole chunks)."""
+    B, KV = 4, 2
+    q = _randn(gen, B, KV, G + 2, hd, dtype=dtype)[:, :, 1:G + 1]
+    pos = [0, C // 3, C - 2, C - 1]
+    _fused_write(gen, dtype, q, C, KV, hd, pos, pos, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_int8_fused_write_at_chunk_edges(gen, dtype):
+    """The written slot at the last and the first slot of a chunk of the
+    int8 plan, and on a wrapped ring (slot = pos % C, pos_eff = C − 1)."""
+    B, KV, G, C, hd = 4, 2, 6, 144, 128
+    chunk, n_split = split_plan_int8(B, KV, C)
+    assert n_split > 1
+    q = _randn(gen, B, KV, G, hd, dtype=dtype)
+    edges = [chunk - 1, chunk, 2 * chunk - 1, 2 * chunk]
+    _fused_write(gen, dtype, q, C, KV, hd, edges, edges)
+    ring = [C + 5, 3 * C - 1, 2 * C + chunk, 5 * C + chunk - 1]
+    _fused_write(gen, dtype, q, C, KV, hd, [C - 1] * B, [p % C for p in ring])
+
+
+def test_decode_int8_fused_write_at_32768_slots(gen):
+    """A long cache: the plan takes more than one wave of blocks."""
+    B, KV, G, C, hd = 2, 2, 6, 32768, 128
+    chunk, n_split = split_plan_int8(B, KV, C)
+    assert B * KV * n_split > 132
+    q = _randn(gen, B, KV, G, hd, dtype=torch.bfloat16)
+    _fused_write(gen, torch.bfloat16, q, C, KV, hd, [C - 1, C - 700],
+                 [C - 1, C - 700])
+
+
+def _grad_case(name):
+    """(wrapper, args, kwargs) for one CUDA wrapper at a small shape, its
+    floating inputs requiring grad."""
+    f = dict(device="cuda")
+    r = lambda *shape: torch.rand(*shape, **f).requires_grad_()
+    i32 = lambda *x: torch.tensor(x, dtype=torch.int32, device="cuda")
+    pool = lambda n: [r(n) for _ in range(4)]
+    if name == "flash_attention":
+        return ops.flash_attention, (r(1, 2, 8, 32), r(1, 2, 8, 32),
+                                     r(1, 2, 8, 32)), {}
+    if name == "decode_attention":
+        return ops.decode_attention, (r(1, 2, 2, 32), r(1, 2, 8, 32),
+                                      r(1, 2, 8, 32), i32(5)), {}
+    if name == "decode_attention_int8":
+        k8 = torch.zeros(1, 2, 8, 32, dtype=torch.int8, device="cuda")
+        sc = torch.ones(1, 2, 8, device="cuda")
+        return ops.decode_attention_int8, (r(1, 2, 2, 32), k8, k8.clone(),
+                                           sc, sc.clone(), i32(5)), \
+            dict(k_new=r(1, 2, 32), v_new=r(1, 2, 32), slot=i32(5))
+    if name == "ssd_scan":
+        return ops.ssd_scan, (r(1, 2, 8, 16), r(1, 2, 8), -r(2),
+                              r(1, 1, 8, 16), r(1, 1, 8, 16)), {}
+    if name == "rglru_scan":
+        return ops.rglru_scan, (r(1, 8, 16), r(1, 8, 16)), {}
+    if name == "modipick_probs":
+        return ops.modipick_probs, (*pool(3)[:3], r(4), r(4),
+                                    torch.ones(4, 3, **f)), {}
+    if name == "fused_select":
+        return ops.fused_select, (*pool(3), r(4), r(4), r(4)), {}
+    if name == "charged_select":
+        return ops.charged_select, (*pool(3), r(3),
+                                    torch.ones(3, 2, dtype=torch.bool, **f),
+                                    r(2) + 0.5, r(2), r(4), r(4), r(4),
+                                    r(4)), {}
+    return ops.stacked_select, (r(2, 3), r(2, 3), r(3), r(3),
+                                i32(0, 1, 0, 1), r(4), r(4), r(4)), {}
+
+
+@pytest.mark.parametrize("name", [w.__name__ for w in ops.WRAPPERS])
+def test_wrappers_refuse_inputs_that_require_grad(gen, name):
+    """A CUDA kernel has no backward: under grad mode an input that
+    requires grad raises (naming the wrapper) before anything launches;
+    under torch.no_grad() the same call runs."""
+    fn, args, kw = _grad_case(name)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match=name):
+        fn(*args, **kw)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before[name] + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -233,3 +233,150 @@ def test_int8_decode_close_to_full_forward():
                              torch.full((B,), S, dtype=torch.int32))
     torch.testing.assert_close(exact, want, **TOL)
     assert float((dec - exact).abs().max()) > 0  # the cache was quantized
+
+
+# ----------------------------------------------------------------------
+# The decode step's write, fused into K3-int8's call: the plain path
+# (``ref.decode_attention_int8_ref`` with the new token) against the
+# reference's decode step on the same new token.
+# ----------------------------------------------------------------------
+def _one_hot_layer(seed, B):
+    """One attention layer of reduced gemma3 (int8 cache, no RoPE, no
+    bias) on both sides, and per-row inputs x = e_i: each side's
+    projection of x is then row i of its weights, exactly, so both
+    quantize the same new token."""
+    jcfg = dataclasses.replace(_int8("gemma3-4b", True), use_rope=False)
+    cfg = dataclasses.replace(_int8("gemma3-4b"), use_rope=False)
+    H, KV, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, \
+        cfg.d_model
+    rng = np.random.default_rng(seed)
+    w = {k: (rng.standard_normal((D, n * hd)) * s).astype(np.float32)
+         for k, n, s in (("wq", H, 0.5), ("wk", KV, 2.0), ("wv", KV, 1.0))}
+    w["wo"] = (rng.standard_normal((H * hd, D)) * 0.1).astype(np.float32)
+    x = np.zeros((B, 1, D), np.float32)
+    x[np.arange(B), 0, rng.choice(D, B, replace=False)] = 1.0
+    params = {"wqkv": torch.from_numpy(np.concatenate(
+        [w["wq"], w["wk"], w["wv"]], axis=1)),
+        "wo": torch.from_numpy(w["wo"])}
+    return cfg, jcfg, params, {k: jnp.asarray(v) for k, v in w.items()}, x
+
+
+@pytest.mark.parametrize("kind,C,pos", [
+    ("attn", 64, [0, 17, 40, 63]),        # rows at different positions
+    ("local", 64, [5, 30, 63, 20]),       # a ring before it wraps
+    ("local", 64, [64, 100, 127, 200]),   # after the wrap
+    ("local", 64, [3, 64, 90, 63])])      # both in one batch
+def test_fused_plain_write_equals_reference(kind, C, pos):
+    """The int8 bits and scales written at the new token's slot equal
+    the reference's decode step's exactly, every other slot untouched,
+    and the layer's output matches its ``decode_attention`` to 1e-4."""
+    B = len(pos)
+    cfg, jcfg, params, jparams, x = _one_hot_layer(7, B)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(8)
+    cache = {"k": rng.integers(-127, 128, (B, C, KV, hd), dtype=np.int8),
+             "v": rng.integers(-127, 128, (B, C, KV, hd), dtype=np.int8),
+             "k_scale": rng.uniform(1e-3, 0.05, (B, C, KV)).astype(np.float32),
+             "v_scale": rng.uniform(1e-3, 0.05, (B, C, KV)).astype(np.float32)}
+    p = np.array(pos, np.int32)
+    want, jcache = JA.decode_attention(
+        jparams, {k: jnp.asarray(v) for k, v in cache.items()},
+        jnp.asarray(x), jnp.asarray(p), jcfg, kind)
+    got_cache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got, out_cache = A.decode_attention(
+        params, got_cache, torch.from_numpy(x), torch.from_numpy(p), None,
+        cfg, kind)
+    assert out_cache is got_cache
+    for key in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(got_cache[key].numpy(),
+                                      np.asarray(jcache[key]), err_msg=key)
+    slot = p % C if kind == "local" else p
+    written = np.zeros((B, C), bool)
+    written[np.arange(B), slot] = True
+    assert (got_cache["k_scale"].numpy()[~written] ==
+            cache["k_scale"][~written]).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fused_plain_write_into_views():
+    """``ref.decode_attention_int8_ref`` writes through the permuted and
+    transposed views the model hands it, and only at each row's slot."""
+    B, C, KV, G, hd = 3, 20, 2, 2, 16
+    g = torch.Generator().manual_seed(0)
+    base = {k: torch.randint(-127, 128, (B, C, KV, hd), generator=g,
+                             dtype=torch.int8) for k in ("k", "v")}
+    sc = {k: torch.rand(B, C, KV, generator=g) for k in ("ks", "vs")}
+    keep = {k: t.clone() for k, t in {**base, **sc}.items()}
+    q = torch.randn(B, KV, G, hd, generator=g)
+    kn, vn = torch.randn(B, KV, hd, generator=g), torch.randn(B, KV, hd,
+                                                              generator=g)
+    slot = torch.tensor([0, 7, 19], dtype=torch.int32)
+    ref.decode_attention_int8_ref(
+        q, base["k"].permute(0, 2, 1, 3), base["v"].permute(0, 2, 1, 3),
+        sc["ks"].transpose(1, 2), sc["vs"].transpose(1, 2),
+        torch.tensor([5, 7, 19], dtype=torch.int32), k_new=kn, v_new=vn,
+        slot=slot)
+    rows = torch.arange(B)
+    qk, sk = A.quantize_kv(kn)
+    assert torch.equal(base["k"][rows, slot.long()], qk)
+    assert torch.equal(sc["ks"][rows, slot.long()], sk)
+    mask = torch.ones(B, C, dtype=torch.bool)
+    mask[rows, slot.long()] = False
+    assert torch.equal(base["v"][mask], keep["v"][mask])
+    assert torch.equal(sc["vs"][mask], keep["vs"][mask])
+
+
+# ----------------------------------------------------------------------
+# The continuous batcher over an int8 cache (per-slot positions through
+# the fused write).
+# ----------------------------------------------------------------------
+def _int8_batcher(max_slots, requests):
+    from repro_torch.serving.batcher import ContinuousBatcher, GenRequest
+    cfg = _int8("qwen2-1.5b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    eng = ContinuousBatcher(cfg, params, max_slots=max_slots, cache_len=48,
+                            device="cpu")
+    reqs = [GenRequest(rid=i, prompt=p, max_new=n)
+            for i, (p, n) in requests]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    return eng, reqs
+
+
+def test_int8_batcher_equals_each_request_run_alone():
+    """The port's batcher over reduced qwen2 with an int8 cache: 5
+    requests on 2 slots (slots reused mid-run, rows at different
+    positions in every batched step) give each request the tokens it
+    gets run alone on one slot."""
+    rng = np.random.default_rng(3)
+    requests = [(i, (rng.integers(0, 500, n, dtype=np.int32), m))
+                for i, (n, m) in enumerate(((5, 6), (17, 4), (9, 8),
+                                            (30, 3), (2, 7)))]
+    eng, reqs = _int8_batcher(2, requests)
+    assert eng.n_steps > 0 and all(r.done for r in reqs)
+    for (i, job), r in zip(requests, reqs):
+        _, (alone,) = _int8_batcher(1, [(i, job)])
+        assert r.generated == alone.generated, i
+        assert len(r.generated) == job[1]
+
+
+def test_reference_batcher_cannot_decode_an_int8_cache():
+    """The reference's ``init_cache`` allocates every leaf in the
+    activation dtype and drops the int8 spec's own dtype
+    (``src/repro/models/model.py`` ``init_cache``), so its batcher's
+    first decode step refuses to scatter the int8 prefill cache into a
+    float32 pool (ROADMAP §C).  The port's batcher runs the same request
+    (the test above)."""
+    from repro.serving.batcher import ContinuousBatcher as JaxBatcher
+    from repro.serving.batcher import GenRequest as JaxRequest
+    jcfg = _int8("qwen2-1.5b", True)
+    params = jax.tree.map(jnp.asarray, _perturbed_params(jcfg, seed=3))
+    eng = JaxBatcher(jcfg, params, max_slots=2, cache_len=32)
+    eng.submit(JaxRequest(rid=0, prompt=np.arange(5, dtype=np.int32),
+                          max_new=3))
+    with pytest.raises(TypeError, match="same dtypes"):
+        for _ in range(10):
+            if not eng.step():
+                break

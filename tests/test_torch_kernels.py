@@ -16,7 +16,10 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import MAX_SPLIT, TILE, split_plan
+from repro_torch.kernels.decode_attention import (MAX_SPLIT, MAX_SPLIT_INT8,
+                                                  TILE, TILE_INT8,
+                                                  WAVE_TILES, split_plan,
+                                                  split_plan_int8)
 from repro_torch.kernels.flash_attention import check_aligned
 from repro_torch.kernels.policy_select import (DevicePool, _fused_select,
                                                masks_device)
@@ -408,3 +411,68 @@ def test_check_aligned(case, ok):
     else:
         with pytest.raises(ValueError, match="k on 16 bytes"):
             check_aligned("kernel", good, t, good)
+
+
+def _grad_inputs(name):
+    """(wrapper, args, kwargs) at a small shape on the CPU, with the
+    floating inputs the plain version differentiates requiring grad."""
+    r = lambda *shape: torch.rand(*shape).requires_grad_()
+    i32 = lambda *x: torch.tensor(x, dtype=torch.int32)
+    if name == "flash_attention":
+        return ops.flash_attention, (r(1, 2, 8, 32), r(1, 2, 8, 32),
+                                     r(1, 2, 8, 32)), {}
+    if name == "decode_attention":
+        return ops.decode_attention, (r(1, 2, 2, 32), r(1, 2, 8, 32),
+                                      r(1, 2, 8, 32), i32(5)), {}
+    if name == "decode_attention_int8":
+        k8 = torch.ones(1, 2, 8, 32, dtype=torch.int8)
+        return ops.decode_attention_int8, (
+            r(1, 2, 2, 32), k8, k8.clone(), torch.ones(1, 2, 8),
+            torch.ones(1, 2, 8), i32(5)), dict(k_new=torch.rand(1, 2, 32),
+                                               v_new=torch.rand(1, 2, 32),
+                                               slot=i32(5))
+    if name == "ssd_scan":
+        return ops.ssd_scan, (r(1, 2, 8, 16), r(1, 2, 8), -r(2),
+                              r(1, 1, 8, 16), r(1, 1, 8, 16)), {}
+    if name == "rglru_scan":
+        return ops.rglru_scan, (r(1, 8, 16), r(1, 8, 16)), {}
+    return ops.modipick_probs, (r(3), r(3), r(3), r(4) * 90, r(4) * 60,
+                                torch.ones(4, 3)), {}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "decode_attention_int8", "ssd_scan",
+                                  "rglru_scan", "modipick_probs"])
+def test_plain_path_keeps_its_grad_fn(name):
+    """On the CPU a wrapper runs its plain version, which stays
+    differentiable: the output has a grad_fn and a backward pass reaches
+    the first input (the CUDA path refuses such inputs instead)."""
+    fn, args, kw = _grad_inputs(name)
+    out = fn(*args, **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    out.float().sum().backward()
+    assert args[0].grad is not None
+
+
+@pytest.mark.parametrize("B,KV,C,sms", [
+    (4, 2, 144, 132),         # qwen2 at the int8 serve shape
+    (8, 2, 32768, 132),       # a long cache: more than one wave
+    (1, 1, 1, 132),
+    (64, 8, 144, 132),
+    (1, 1, 1_000_000, 132),   # MAX_SPLIT_INT8 chunks
+    (3, 2, 50, 16)])
+def test_int8_split_plan_covers_the_cache(B, KV, C, sms):
+    """Each slot lies in exactly one chunk of whole 32-slot tiles; a
+    block walks at most WAVE_TILES tiles unless MAX_SPLIT_INT8 forces
+    more; short caches split down to one tile a block."""
+    chunk, n_split = split_plan_int8(B, KV, C, sms)
+    tiles = -(-C // TILE_INT8)
+    assert chunk % TILE_INT8 == 0 and 1 <= n_split <= MAX_SPLIT_INT8
+    assert (n_split - 1) * chunk < C <= n_split * chunk
+    assert chunk // TILE_INT8 <= max(WAVE_TILES, -(-tiles // MAX_SPLIT_INT8))
+    if B * KV * tiles <= sms:
+        assert chunk == TILE_INT8
+    if (B, KV, C) == (8, 2, 32768):
+        assert B * KV * n_split > sms and chunk // TILE_INT8 == WAVE_TILES
+
