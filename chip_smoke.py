@@ -33,7 +33,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (the models wrap the warp's lanes) and with dead models, timed there
    as ``[extra]`` lines beside the charged pass's chain bound; the
    charged block's shared memory as the kernel reports it against its
-   Python mirror;
+   Python mirror; K1 and the fused selection past 128 models (129, 200
+   and 1000), the launch plans of K1 and of the fused and stacked
+   kernels as the kernel reports them against their Python mirrors, and
+   a pool one model wider than a block holds refused with a ValueError
+   (``[plan]`` lines);
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -81,7 +85,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the same route's on the CPU through the plain version, on the same
    uniforms; then each of the three kernels on the very operands its
    entry point handed it, held against its plain version there and
-   timed there for its row of the kernels line;
+   timed there (K1's and B3's rows of the kernels line; the fused
+   selection's time there is an ``[extra]`` line);
 6. the discrete-event engine (``repro_torch.sim``) at the reference
    engine benchmark's ``batched`` size: 100,000 requests in 200-wide
    simultaneous bursts over Table 2's 11 models, 4 replicas each, on
@@ -93,13 +98,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    its kernel exactly once per multi-request burst, to select on the
    current profiles, and (on ``cuda``) to have its first 20 launches
    equal to the plain version on the same operands; the charged
-   ``batched`` run must attain 0.5 (``[engine ...]`` lines);
+   ``batched`` run must attain 0.5 (``[engine ...]`` lines); the fused
+   selection's row of the kernels line is timed on the first
+   ``batched_snapshot`` burst (B 200, n 11), beside the card's launch
+   floor (``[floor]``: one empty kernel, ``torch.cuda._sleep(0)``);
 7. premodel and the multi-cell fleet through the stacked selection
    kernel (B4, ``stacked_select``): first the kernel against its plain
    version, exactly, on synthetic operands (classed rows with K = 1, 2
    and 8 classes and queue shifts, fleet cells of unequal widths padded
    with ``PAD_MU`` lanes, rows with no base and degenerate rows, B = 1,
-   97 and the main path's shapes), each timed as an ``[extra]`` line;
+   97 and the main path's shapes, each timed as an ``[extra]`` line;
+   and pools of 129, 200 and 1000 models, not timed);
    then, each with the counters zeroed just before and read just after,
    the registered ``premodel_mix`` as 20 simultaneous bursts of 200 over
    a zero-jitter uplink, and ``fleet_steady`` and ``fleet_diurnal``,
@@ -1173,8 +1182,10 @@ def selection_kernels(ops, ref, policy_select, gen) -> None:
           time_ms(lambda: ops.modipick_probs(*args)),
           time_ms(lambda: ref.policy_probs_ref(*args)), probs_bound(B, n))
 
-    # fused_select: picks equal to the plain version's
-    for n_ in (2, 3, 8, 128):
+    # fused_select: picks equal to the plain version's, in segments of
+    # 2, 4, 8 and 32 lanes (four models a lane at 128), and past 128
+    # models with the lanes' state in shared memory
+    for n_ in (2, 3, 8, 128, 129, 200, 1000):
         for B_ in (8192, 1000):
             rng_, pool_ = select_pool(policy_select, n_, n_ + B_)
             sel = fused_inputs(pool_, rng_, gen, B_)
@@ -1191,6 +1202,7 @@ def selection_kernels(ops, ref, policy_select, gen) -> None:
               time_ms(lambda: ops.fused_select(*sel)),
               time_ms(lambda: ref.fused_select_ref(*sel), iters=10),
               fused_bound(B_, 3))
+    wide_pools(ops, ref, policy_select, gen)
 
     # charged_select: all five outputs equal to the plain version's
     for case in CHARGED_CASES:
@@ -1229,6 +1241,72 @@ def selection_kernels(ops, ref, policy_select, gen) -> None:
     limit = policy_select.charged_smem(1, 1, "cuda")[1]
     log(f"[extra] charged_select block shared memory limit: {limit} bytes")
     charged_shapes(ops, ref, policy_select, gen)
+
+
+def wide_pools(ops, ref, policy_select, gen) -> None:
+    """Pools wider than 128 models: K1 at n = 129, 200 and 1000 bit for
+    bit, the launch plans of K1 and of the fused and stacked kernels as
+    the kernel's library reports them equal to their Python mirrors, and
+    one model past the largest pool a block holds refused with a
+    ValueError, launching nothing.  (B2 and B4 at these widths:
+    ``selection_kernels``, ``stacked_kernels``.)"""
+    for n in (129, 200, 1000):
+        rng, pool = select_pool(policy_select, n, n)
+        t_u = torch.tensor(rng.uniform(0, 90, 4096), dtype=torch.float32,
+                           device="cuda")
+        t_l = t_u - THRESHOLD_MS
+        elig = (torch.rand(4096, n, generator=gen, device="cuda")
+                > 0.5).float()
+        args = (pool.mu, pool.sigma, pool.acc, t_u, t_l, elig)
+        if not torch.equal(ops.modipick_probs(*args),
+                           ref.policy_probs_ref(*args)):
+            raise AssertionError(f"modipick_probs differs from its plain "
+                                 f"version at n={n}")
+        rows = policy_select.selection_plan("probs", 4096, n, "cuda")["rows"]
+        log(f"K1 modipick_probs B=4096 n={n}: equal to its plain version "
+            f"({rows} rows a block)")
+    limit = None
+    for kernel, mirror in (("probs", policy_select.probs_plan),
+                           ("select", policy_select.select_plan)):
+        for B in (1, 7, 200, 2550, 8192, 100_000):
+            for n in (1, 2, 5, 11, 33, 128, 129, 200, 1000, 4096):
+                got = policy_select.selection_plan(kernel, B, n, "cuda")
+                limit = got.pop("limit")
+                if got != mirror(B, n, limit):
+                    raise AssertionError(
+                        f"{kernel} plan at B={B} n={n}: the kernel's {got} "
+                        f"is not its mirror's {mirror(B, n, limit)}")
+        log(f"[plan] {kernel}: the kernel's launch plan equals its Python "
+            f"mirror at 60 shapes; at most "
+            f"{policy_select.max_pool(kernel, limit)} models under the "
+            f"card's {limit} bytes a block")
+    before = ops.launch_counts()
+    for kernel in ("select", "probs"):
+        n = policy_select.max_pool(kernel, limit) + 1
+        one = torch.ones(n, device="cuda")
+        rows = torch.ones(3, device="cuda")
+        calls = {"select": (lambda: ops.fused_select(
+                     one, one, one, one, rows, rows, rows),
+                            lambda: ops.stacked_select(
+                     one[None], one[None], one, one,
+                     torch.zeros(3, dtype=torch.int32, device="cuda"),
+                     rows, rows, rows)),
+                 "probs": (lambda: ops.modipick_probs(
+                     one, one, one, rows, rows,
+                     torch.ones(3, n, device="cuda")),)}[kernel]
+        for call in calls:
+            try:
+                call()
+            except ValueError as e:
+                if f"{limit} bytes" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"a pool of {n} models was not "
+                                     f"refused ({kernel})")
+        log(f"[plan] {kernel}: a pool of {n} models refused with a "
+            "ValueError")
+    if ops.launch_counts() != before:
+        raise AssertionError("a refused pool launched a kernel")
 
 
 # B3 at the engine's pool and where the models wrap the warp's lanes:
@@ -2092,7 +2170,8 @@ def main_selection(ex, ops, ref, policy_select) -> tuple:
     kernel's operands recorded: each kernel is held against its plain
     version on them (K1 and the fused picks bit for bit, all five
     charged outputs equal) and timed on them.  Returns the summed launch
-    counts of the counted runs and the three kernels' rows."""
+    counts of the counted runs and the rows of K1 and B3 (B2's row is
+    taken on the engine's first burst: ``engine_fused_times``)."""
     from repro_torch.core import policy_vec
     rng = np.random.default_rng(1)
     names = set(ex.by_name)
@@ -2182,16 +2261,14 @@ def main_selection(ex, ops, ref, policy_select) -> tuple:
         raise AssertionError("fused_select differs from its plain version "
                              "on the main path's operands")
     Bf, n = f[4].shape[0], f[0].shape[0]
-    b = fused_bound(Bf, n)
-    rows["fused_select"] = dict(
-        name="fused_select", route="cuda", source=source,
-        replaces="src/repro/kernels/policy_select.py:217", max_abs_err=0.0,
-        ms=time_ms(lambda: ops.fused_select(*f, **fkw),
-                   label="fused_select kernel"),
-        plain_ms=time_ms(lambda: ref.fused_select_ref(*f, **fkw)),
-        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    extra(f"fused_select on select_batch's operands B={Bf} n={n}",
+          time_ms(lambda: ops.fused_select(*f, **fkw),
+                  label="fused_select select_batch"),
+          time_ms(lambda: ref.fused_select_ref(*f, **fkw)),
+          fused_bound(Bf, n))
     log(f"[select] fused_select on the main path's operands B={Bf} n={n}: "
-        "picks equal to its plain version's")
+        "picks equal to its plain version's (its row: the engine's "
+        "first batched_snapshot burst)")
 
     (c, ckw) = captured_call(policy_select, "charged_select",
                              lambda: charged_batch(
@@ -2399,7 +2476,8 @@ def engine_phase(ops, ref) -> dict:
     and on numpy, ``batched_snapshot`` (one fused selection a burst) on
     ``cuda``, and the burst ``faulty`` scenario through
     ``scenario.build(sc).run()`` on ``cuda``.  Returns the launches of
-    the counted runs."""
+    the counted runs and B2's row, timed on the first
+    ``batched_snapshot`` burst."""
     from repro_torch.core.policy import ModiPick
     from repro_torch.scenario import build
     from repro_torch.sim import TraceArrivals
@@ -2425,6 +2503,8 @@ def engine_phase(ops, ref) -> dict:
         if backend == "cuda":
             replay(label, kernel, rec, ref)
             total[kernel] += st["launches"]
+        if (label, backend) == ("batched_snapshot", "cuda"):
+            fused_row = engine_fused_times(ops, ref, rec)
         if (label, backend) == ("batched", "cuda"):
             ms = engine_kernel_times(ops, ref, rec)
             busy = st["launches"] * ms / 1e3
@@ -2456,7 +2536,38 @@ def engine_phase(ops, ref) -> dict:
         raise AssertionError("the faulty burst scenario launched no kernel")
     total["charged_select"] += st["launches"]
     log(f"[engine] phase {time.perf_counter() - t_phase:.1f}s")
-    return total
+    return total, fused_row
+
+
+def launch_floor(tag) -> float:
+    """The card's launch floor: one empty kernel
+    (``torch.cuda._sleep(0)``) a call through ``time_ms``, device ms a
+    call; logged as a ``[floor]`` line."""
+    ms = time_ms(lambda: torch.cuda._sleep(0), label=f"launch floor {tag}")
+    log(f"[floor] {tag}: torch.cuda._sleep(0) {ms:.5g} ms a call (device "
+        "time, the queue filled ahead)")
+    return ms
+
+
+def engine_fused_times(ops, ref, rec) -> dict:
+    """B2's row: the fused selection on the first burst the engine's
+    ``batched_snapshot`` run handed it (B = 200, n = 11), with µs a
+    request and the launch floor beside it."""
+    args, kw, _ = rec.calls[0]
+    B, n = args[4].shape[0], args[0].shape[0]
+    ms = time_ms(lambda: ops.fused_select(*args, **kw),
+                 label="fused_select engine burst")
+    plain_ms = time_ms(lambda: ref.fused_select_ref(*args, **kw))
+    b = fused_bound(B, n)
+    floor = launch_floor("engine")
+    log(f"[engine] fused_select B={B} n={n}: ms={ms:.5g} = "
+        f"{ms / B * 1e3:.4g} us per request; plain_ms={plain_ms:.5g}; "
+        f"bound_ms={b[0]:.4g} ({b[1]}); {ms / floor:.3g}x the launch floor")
+    return dict(name="fused_select", route="cuda",
+                source="src/repro_torch/csrc/policy_select.cu",
+                replaces="src/repro/kernels/policy_select.py:217",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=None)
 
 
 def engine_kernel_times(ops, ref, rec) -> float:
@@ -2493,6 +2604,11 @@ STACKED_CASES = {"classed K=1": ("classed", 1, 11, 200, True),
                  "classed K=2 B=200": ("classed", 2, 11, 200, True),
                  "fleet C=6 npad=5 B=2550": ("fleet", 6, 5, 2550, False),
                  "fleet C=4 npad=11 B=1200": ("fleet", 4, 11, 1200, False)}
+# Pools wider than 128 models, checked and not timed: the lanes' state
+# in shared memory, in the classed form and in a fleet of padded cells.
+WIDE_STACKED = {"classed n=129": ("classed", 3, 129, 500, True),
+                "classed n=200 no shifts": ("classed", 2, 200, 300, False),
+                "fleet n=1000": ("fleet", 3, 1000, 100, False)}
 PREMODEL_BURSTS, PREMODEL_EVERY_MS = 20, 2000.0
 
 
@@ -2548,9 +2664,10 @@ def stacked_bound(args, kw) -> tuple:
 
 def stacked_kernels(ops, ref, policy_select, gen) -> None:
     """B4 against its plain version on synthetic operands (picks and
-    has_base equal at gamma 1), each case timed as an ``[extra]``
-    line."""
-    for i, (case, spec) in enumerate(STACKED_CASES.items()):
+    has_base equal at gamma 1), each case of ``STACKED_CASES`` timed as
+    an ``[extra]`` line, those of ``WIDE_STACKED`` not."""
+    cases = {**STACKED_CASES, **WIDE_STACKED}
+    for i, (case, spec) in enumerate(cases.items()):
         args, kw = stacked_inputs(policy_select, gen, *spec, seed=i)
         got = ops.stacked_select(*args, **kw)
         want = ref.stacked_select_ref(*args, **kw)
@@ -2565,6 +2682,8 @@ def stacked_kernels(ops, ref, policy_select, gen) -> None:
         log(f"B4 stacked_select {case}: picks and has_base equal to the "
             f"plain version's ({int((~got[1]).sum())} of {B} rows with no "
             "base)")
+        if case in WIDE_STACKED:
+            continue
         extra(f"stacked_select {case}",
               time_ms(lambda: ops.stacked_select(*args, **kw)),
               time_ms(lambda: ref.stacked_select_ref(*args, **kw), iters=10),
@@ -2671,8 +2790,10 @@ def stacked_phase(ops, ref, policy_select, gen) -> tuple:
                    label="stacked_select kernel"),
         plain_ms=time_ms(lambda: ref.stacked_select_ref(*a, **kw)),
         bound_ms=b[0], bound_by=b[1], library_ms=None)
+    floor = launch_floor("stacked")
     log(f"[stacked] row timed on the first premodel burst's operands: "
-        f"B={a[4].shape[0]} classes={a[0].shape[0]} n={a[0].shape[1]}")
+        f"B={a[4].shape[0]} classes={a[0].shape[0]} n={a[0].shape[1]}: "
+        f"{row['ms'] / floor:.3g}x the launch floor")
     log_timing()
     log(f"[stacked] phase {time.perf_counter() - t_phase:.1f}s")
     return launches, row
@@ -2788,7 +2909,8 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
 
     # 6. the discrete-event engine's bursts through the selection kernels
-    for name, c in engine_phase(ops, ref).items():
+    counts, rows["fused_select"] = engine_phase(ops, ref)
+    for name, c in counts.items():
         launches[name] += c
     for name, row in rows.items():
         row["launches"] = launches[name]

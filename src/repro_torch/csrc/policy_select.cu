@@ -1,58 +1,66 @@
 // ModiPick selection for Hopper (sm_90a): stages 1-3 and the
-// inverse-CDF draw as one set of per-row device functions, and four
-// kernels on them.
+// inverse-CDF draw, as four kernels.
 //
 // Replaces, from src/repro/kernels/policy_select.py:
 // - `_probs_kernel` (the Pallas TPU kernel behind `modipick_probs`):
 //   stage 3, the Eq. 3-4 utilities of a given (B, n) eligibility
 //   matrix, normalised per row -> `probs_kernel`;
 // - `_fused_select` (jitted jnp around that kernel): stages 1-2, the
-//   stage-3 probabilities and the draw -> `fused_kernel`;
+//   stage-3 probabilities and the draw -> `select_kernel<true, ...>`;
 // - `charged_select` / `_charged_step` (a `lax.scan` over the batch whose
 //   carry is the per-replica wait ledger) -> `charged_kernel`;
 // - `_classed_select` (premodel: each request's mu/sigma row gathered by
 //   its input class, plus per-model queue shifts) and `fleet_select_body`
-//   (vmapped over the fleet's cells), both jitted jnp -> `stacked_kernel`.
+//   (vmapped over the fleet's cells), both jitted jnp ->
+//   `select_kernel<false, ...>`.
 // The TPU kernel rode the pool on the 128-lane axis and the batch on
 // sublanes, one (bb, 128) tile a grid step, because a TPU core does
 // vector work on whole tiles.
 //
 // What bounds them on this card: neither bytes nor operations.  At the
-// server's shape (B 8192, n 3) a pass moves ~0.3 MB and does some 20
-// flops a (request, model) pair: 0.1 us at 3.35 TB/s.  What a call pays
-// is its launches and its host dispatch, so the design is to make the
-// whole selection ONE launch that reads the pool and the budget rows and
-// writes the picks, with every intermediate in registers:
-// - one thread takes one request row; the pool (mu, sigma, the accuracy
-//   weights clamp(acc, eps)^gamma, rank; n <= 128) is staged in shared
-//   memory once a block and read there by every row (a broadcast);
-// - the (B, n) eligibility and probability matrices of the pipeline are
-//   never written; the utilities are recomputed pass by pass (mass,
-//   normalised total, draw) rather than stored;
-// - `probs_kernel` keeps K1's interface (a given eligibility matrix in,
-//   the probability matrix out): the block stages its (rows x n) tile in
-//   shared memory with coalesced loads, each thread overwrites its own
-//   row there with its probabilities, and the block stores the tile
-//   coalesced again.  The row pitch is odd (n | 1), so a warp's threads
-//   reading their rows' element j hit 32 different banks.
+// engine's burst (B 200, n 11) a fused call moves ~3 kB and does some 20
+// flops a (request, model) pair: 0.001 us at 3.35 TB/s.  What a call pays is
+// its launch and, inside it, how long one request's work stays
+// serialised: a pool-order sum of n dependent adds (twice where the draw
+// is normalised), Eq. 3-4's divisions, and the loads that feed them.  So
+// each selection is ONE launch that reads the pool and the budget rows
+// and writes the picks, and inside it a request's models are spread over
+// the lanes of a warp:
+// - `select_kernel` (B2 and B4, one template): a request takes a segment
+//   of L lanes, L the next power of two >= n up to 32; 32 / L requests
+//   share a warp, and lane l of a segment holds models l + L t.  Each
+//   lane loads its models once; stage 1 is a segment min-reduction over
+//   (rank, index); stage 2 and Eq. 3-4 run once a model, one division
+//   each; the pool-order sums stay sequential, for the bits, so the
+//   utilities go to the warp's shared memory and every lane of the
+//   segment runs the one chain on them, four loads at a time; a
+//   degenerate row counts its eligible models with popcounts of the
+//   segment's ballot; the draw is the first set bit of a ballot.  Four
+//   warps a block, so that a 200-request burst at n 11 spreads over 25
+//   SMs.  Where a batch fills the card on its own (B 100,000), latency
+//   no longer bounds a call but the instructions issued do, and each
+//   lane's share of a request's collectives is overhead: such a request
+//   takes fewer lanes, each with up to four models (`select_plan`).
+//   The lanes hold their models in registers up to four a lane; past
+//   that their state lives in the warp's shared memory (`Slots<0>`).
+// - `probs_kernel` (K1) keeps its interface (a given eligibility matrix
+//   in, the probability matrix out) and its per-row walk: the block
+//   stages its (rows x n) tile in shared memory with coalesced loads,
+//   each thread overwrites its own row there with its probabilities, and
+//   the block stores the tile coalesced again.  The row pitch is odd (n |
+//   1), so a warp's threads reading their rows' element j hit 32
+//   different banks.  64 rows a block, fewer where the tile would not fit.
 // - The charged pass is sequential along the batch (request i sees the
 //   charges of 0..i-1), so it is a chain of B requests that ONE warp
 //   walks, and what bounds it is the chain's length in cycles.  The
 //   models live in the warp's lanes with their state in registers, and
 //   every stage runs across the lanes (see `charged_kernel`): a request
-//   costs a vote, a 64-bit warp argmin, one pool-order sum over n, a
+//   costs a vote, a 32-bit warp min-reduction, one pool-order sum over n, a
 //   few shuffles and one ledger read-modify-write, after which only the
 //   models the charged replica serves rescan their own replicas (a
 //   compact candidate list, not an (R x n) mask).  The budget rows are
 //   staged in shared memory kChunk requests at a time, and the outputs
 //   leave kChunk at a time, coalesced.
-// - The stacked selection gives each request a pool row of its own (its
-//   class's row, or its cell's), so no one pool is staged: each thread
-//   reads its row from device memory, where the K (or C) rows of at
-//   most a few kB stay in L1 and L2 for the whole launch.  acc and rank
-//   are shared by every row (a row stride of 0: classed) or have a row
-//   each (stride n: the fleet, whose padded lanes carry PAD_MU and
-//   PAD_RANK and are never eligible).
 //
 // The float operations are those of the plain versions
 // (kernels/ref.py), one for one and in the same order: `__fadd_rn`,
@@ -65,13 +73,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr float kEps = 1e-9f;   // EPS in kernels/policy_select.py
-constexpr int kRows = 64;       // rows (threads) a block: probs, fused
+constexpr int kRows = 64;       // rows (threads) a block at most: probs
 constexpr int kWarp = 32;
 constexpr int kChunk = 256;     // requests staged at once: charged
 constexpr unsigned kAll = 0xffffffffu;
+constexpr long long kDefaultSmem = 48 * 1024;  // without an opt-in
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
@@ -86,89 +97,15 @@ __device__ __forceinline__ float acc_weight(float acc, float gamma) {
   return gamma == 1.f ? a : powf(a, gamma);
 }
 
-// The pool as the kernels read it: `Pool`, operands in shared memory;
-// `Shifted` adds the charged pass's per-model waits to mu (the shifted-mu
-// view).
+// The pool as K1 reads it, in shared memory.
 struct Pool {
-  const float *mu, *sig, *w, *rank;
-  __device__ __forceinline__ float m(int j) const { return mu[j]; }
+  const float *mu, *sig, *w;
 };
-struct Shifted {
-  const float *mu, *sig, *w, *rank, *wq;
-  __device__ __forceinline__ float m(int j) const {
-    return __fadd_rn(mu[j], wq[j]);
-  }
-};
-
-// The accuracy weights of a pool row in device memory, computed as read.
-struct AccWeights {
-  const float* acc;
-  float gamma;
-  __device__ __forceinline__ float operator[](int j) const {
-    return acc_weight(acc[j], gamma);
-  }
-};
-
-// `Stacked`: one request's own pool row, read from device memory, with
-// the optional per-model shifts added to mu (none: `shift` is null).
-struct Stacked {
-  const float *mu, *sig;
-  AccWeights w;
-  const float *rank, *shift;
-  __device__ __forceinline__ float m(int j) const {
-    return shift ? __fadd_rn(mu[j], shift[j]) : mu[j];
-  }
-};
-
-// One request's stages 1-2.
-struct Window {
-  float tu, lo, hi;
-  int base;       // the stage-1 base; 0 where there is none, as argmin gives
-  bool has_base;
-};
-
-// Stage 1: Eq. 2 eligibility (mu + sigma < t_u and mu - sigma < t_l);
-// the base is the eligible model of least rank, the first index winning
-// a tie.  Stage 2: the window |t_l - mu_base| + sigma_base around t_l.
-template <class P>
-__device__ __forceinline__ Window stages12(const P& p, int n, float tu,
-                                           float tl) {
-  Window r;
-  r.tu = tu;
-  r.base = 0;
-  r.has_base = false;
-  float best = inf();
-  for (int j = 0; j < n; ++j) {
-    const float mu = p.m(j), sig = p.sig[j];
-    if (__fadd_rn(mu, sig) < tu && __fsub_rn(mu, sig) < tl) {
-      r.has_base = true;
-      if (p.rank[j] < best) {
-        best = p.rank[j];
-        r.base = j;
-      }
-    }
-  }
-  const float half =
-      __fadd_rn(fabsf(__fsub_rn(tl, p.m(r.base))), p.sig[r.base]);
-  r.lo = __fsub_rn(tl, half);
-  r.hi = __fadd_rn(tl, half);
-  return r;
-}
-
-// Stage-2 membership of model j, the base forced in.
-template <class P>
-__device__ __forceinline__ bool eligible(const P& p, const Window& r, int j) {
-  const float mu = p.m(j);
-  return r.has_base &&
-         (j == r.base || (r.lo <= mu && mu <= r.hi &&
-                          __fadd_rn(mu, p.sig[j]) < r.tu));
-}
 
 // Eq. 3-4: w_j (t_u - (mu_j + sigma_j)) / max(|t_l - mu_j|, eps).
-template <class P>
-__device__ __forceinline__ float utility(const P& p, int j, float tu,
+__device__ __forceinline__ float utility(const Pool& p, int j, float tu,
                                          float tl) {
-  const float mu = p.m(j);
+  const float mu = p.mu[j];
   const float num = __fsub_rn(tu, __fadd_rn(mu, p.sig[j]));
   const float den = clamp_min(fabsf(__fsub_rn(tl, mu)), kEps);
   return __fdiv_rn(__fmul_rn(p.w[j], num), den);
@@ -182,8 +119,8 @@ struct Mass {
   bool good;
 };
 
-template <class P, class E>
-__device__ __forceinline__ Mass mass(const P& p, const E& elig, int n,
+template <class E>
+__device__ __forceinline__ Mass mass(const Pool& p, const E& elig, int n,
                                      float tu, float tl) {
   Mass s;
   s.total = 0.f;
@@ -199,8 +136,8 @@ __device__ __forceinline__ Mass mass(const P& p, const E& elig, int n,
 
 // Model j's normalised stage-3 probability; a degenerate row is uniform
 // over its eligible models.
-template <class P, class E>
-__device__ __forceinline__ float prob(const P& p, const E& elig,
+template <class E>
+__device__ __forceinline__ float prob(const Pool& p, const E& elig,
                                       const Mass& s, int j, float tu,
                                       float tl) {
   const bool e = elig(j);
@@ -208,52 +145,29 @@ __device__ __forceinline__ float prob(const P& p, const E& elig,
   return __fdiv_rn(e ? 1.f : 0.f, clamp_min(s.cnt, 1.f));
 }
 
-// The inverse-CDF draw: the first index whose pool-order running sum of
-// weight(j) exceeds r01 * total (total: that sum's last value), else the
-// base.
-template <class F>
-__device__ __forceinline__ int draw(const F& weight, int n, float total,
-                                    float r01, int base) {
-  const float thresh = __fmul_rn(r01, total);
-  if (!(total > thresh)) return base;
-  float c = 0.f;
-  for (int j = 0; j < n; ++j) {
-    c = __fadd_rn(c, weight(j));
-    if (c > thresh) return j;
-  }
-  return base;
-}
-
-// Stage the pool's n models into shared memory (mu, sig, w, rank).
-__device__ __forceinline__ Pool stage_pool(float* s, const float* mu,
-                                           const float* sig, const float* acc,
-                                           const float* rank, int n,
-                                           float gamma) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    s[j] = mu[j];
-    s[n + j] = sig[j];
-    s[2 * n + j] = acc_weight(acc[j], gamma);
-    if (rank) s[3 * n + j] = rank[j];
-  }
-  return Pool{s, s + n, s + 2 * n, s + 3 * n};
-}
-
 // K1: the (B, n) probability matrix of a given eligibility matrix.
-// grid = ceil(B / kRows), block = kRows; dynamic shared memory: the
-// pool (3 n floats) and the block's (kRows x (n | 1)) tile.
+// grid = ceil(B / rows), block = rows (<= kRows) threads, a row each;
+// dynamic shared memory: the pool (3 n floats) and the block's (rows x
+// (n | 1)) tile.
 __global__ void __launch_bounds__(kRows)
 probs_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
              const float* __restrict__ acc, const float* __restrict__ tu,
              const float* __restrict__ tl, const float* __restrict__ elig,
              float* __restrict__ out, int B, int n, float gamma) {
   extern __shared__ float smem[];
-  const Pool p = stage_pool(smem, mu, sig, acc, nullptr, n, gamma);
+  const int nrows = blockDim.x;
+  for (int j = threadIdx.x; j < n; j += nrows) {
+    smem[j] = mu[j];
+    smem[n + j] = sig[j];
+    smem[2 * n + j] = acc_weight(acc[j], gamma);
+  }
+  const Pool p{smem, smem + n, smem + 2 * n};
   float* tile = smem + 3 * n;
   const int ld = n | 1;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int rows = (int)min((long long)kRows, (long long)B - row0);
+  const long long row0 = (long long)blockIdx.x * nrows;
+  const int rows = (int)min((long long)nrows, (long long)B - row0);
   const float* src = elig + row0 * n;
-  for (int i = threadIdx.x; i < rows * n; i += kRows)
+  for (int i = threadIdx.x; i < rows * n; i += nrows)
     tile[(i / n) * ld + i % n] = src[i];
   __syncthreads();
   if ((int)threadIdx.x < rows) {
@@ -267,36 +181,29 @@ probs_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
   }
   __syncthreads();
   float* dst = out + row0 * n;
-  for (int i = threadIdx.x; i < rows * n; i += kRows)
+  for (int i = threadIdx.x; i < rows * n; i += nrows)
     dst[i] = tile[(i / n) * ld + i % n];
 }
 
-// B2: stages 1-2, K1's probabilities and the draw -> (B,) picks, -1
-// where no base exists.  grid = ceil(B / kRows), block = kRows; dynamic
-// shared memory: the pool (4 n floats).
-__global__ void __launch_bounds__(kRows)
-fused_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
-             const float* __restrict__ acc, const float* __restrict__ rank,
-             const float* __restrict__ tu, const float* __restrict__ tl,
-             const float* __restrict__ r01, int* __restrict__ out, int B,
-             int n, float gamma) {
-  extern __shared__ float smem[];
-  const Pool p = stage_pool(smem, mu, sig, acc, rank, n, gamma);
-  __syncthreads();
-  const long long b = (long long)blockIdx.x * kRows + threadIdx.x;
-  if (b >= B) return;
-  const float t_u = tu[b], t_l = tl[b];
-  const Window r = stages12(p, n, t_u, t_l);
-  if (!r.has_base) {
-    out[b] = -1;
-    return;
-  }
-  const auto e = [&](int j) { return eligible(p, r, j); };
-  const Mass s = mass(p, e, n, t_u, t_l);
-  const auto pj = [&](int j) { return prob(p, e, s, j, t_u, t_l); };
-  float total = 0.f;
-  for (int j = 0; j < n; ++j) total = __fadd_rn(total, pj(j));
-  out[b] = draw(pj, n, total, r01[b], r.base);
+// K1's shared memory at n models and `rows` rows a block.
+long long probs_smem(int n, long long rows) {
+  return (long long)sizeof(float) * (3LL * n + rows * (n | 1));
+}
+
+// K1's launch at B rows of n models under a block limit of `limit`
+// bytes: rows a block (as many as fit, at most kRows; 0 where one row
+// does not fit), blocks, shared memory.
+struct ProbsPlan {
+  long long rows, blocks, smem;
+};
+ProbsPlan probs_plan(int B, int n, long long limit) {
+  ProbsPlan p;
+  p.rows = std::max(0LL, std::min((long long)kRows,
+                                   (limit - probs_smem(n, 0)) /
+                                       ((long long)sizeof(float) * (n | 1))));
+  p.smem = probs_smem(n, p.rows);
+  p.blocks = p.rows > 0 ? (B + p.rows - 1) / p.rows : 0;
+  return p;
 }
 
 // B3: the charged sequential-greedy pass, ONE warp over the whole batch
@@ -697,57 +604,6 @@ __global__ void __launch_bounds__(kWarp) charged_kernel(ChargedArgs a) {
 }
 #undef LANE_AT
 
-// B4: stages 1-3 and the draw with a pool row per request -> (B,) picks
-// and has_base flags.  Request b reads pool row row[b] of mu and sig (P,
-// n) and of acc and rank (row stride acc_stride: 0 or n); shift (n,) or
-// null.  The weights are the charged pass's unnormalised ones (uniform
-// over the eligible models on a degenerate row).  Where no base exists
-// the pick is, with `fallback`, the first index of least (shifted) mu in
-// the row, else -1.  grid = ceil(B / kRows), block = kRows; no shared
-// memory.
-__global__ void __launch_bounds__(kRows)
-stacked_kernel(const float* __restrict__ mu, const float* __restrict__ sig,
-               const float* __restrict__ acc, const float* __restrict__ rank,
-               const int* __restrict__ row, const float* __restrict__ shift,
-               const float* __restrict__ tu, const float* __restrict__ tl,
-               const float* __restrict__ r01, int* __restrict__ out,
-               uint8_t* __restrict__ has, int B, int n, int acc_stride,
-               float gamma, int fallback) {
-  const long long b = (long long)blockIdx.x * kRows + threadIdx.x;
-  if (b >= B) return;
-  const long long r = row[b];
-  const Stacked p{mu + r * n, sig + r * n,
-                  AccWeights{acc + r * acc_stride, gamma},
-                  rank + r * acc_stride, shift};
-  const float t_u = tu[b], t_l = tl[b];
-  const Window win = stages12(p, n, t_u, t_l);
-  has[b] = win.has_base;
-  if (!win.has_base) {
-    int pick = -1;
-    if (fallback) {
-      pick = 0;
-      float best = p.m(0);
-      for (int j = 1; j < n; ++j) {
-        const float v = p.m(j);
-        if (v < best) {
-          best = v;
-          pick = j;
-        }
-      }
-    }
-    out[b] = pick;
-    return;
-  }
-  const auto e = [&](int j) { return eligible(p, win, j); };
-  const Mass s = mass(p, e, n, t_u, t_l);
-  const auto wj = [&](int j) {
-    const bool ej = e(j);
-    if (s.good) return ej ? utility(p, j, t_u, t_l) : 0.f;
-    return ej ? 1.f : 0.f;
-  };
-  out[b] = draw(wj, n, s.good ? s.total : s.cnt, r01[b], win.base);
-}
-
 // The charged block's shared memory at n models over R replicas with nnz
 // (model, replica) candidate pairs (``charged_smem_bytes`` in
 // kernels/policy_select.py mirrors it for CPU calls;
@@ -772,12 +628,377 @@ int launch_charged(const ChargedArgs& a, long long smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// B2 and B4: stages 1-3 and the draw, a segment of L lanes a request
+// (see the note at the head).  kFused (B2): one pool for every request,
+// the draw on stage 3's normalised probabilities, -1 where a request has
+// no base.  Otherwise (B4): request b's own pool row row[b] of mu and
+// sig (P, n), of acc and rank at row stride acc_stride (0 or n), mu
+// shifted by `shift` (n,) where it is not null, the draw on the
+// unnormalised weights (uniform over the eligible models on a
+// degenerate row), and where no base exists, with `fallback`, the first
+// index of least (shifted) mu in the row, else -1; has[b] the base flag.
+struct SelectArgs {
+  const float *mu, *sig, *acc, *rank;
+  const int* row;
+  const float *shift, *tu, *tl, *r01;
+  int* out;
+  uint8_t* has;
+  int B, n, acc_stride;
+  float gamma;
+  int fallback;
+};
+
+constexpr int kSelWarps = 4;    // warps a block: fused, stacked
+constexpr int kSelSlots = 4;    // slots a lane holds in registers
+constexpr int kSelArrays = 6;   // a warp's arrays past that: `Slots<0>`
+                                // and the utilities
+// Warps that fill the card: about 16 on each of an H100's 132 SMs.  A
+// batch that gives a launch this many warps with fewer lanes a request
+// takes fewer (see `select_plan`).
+constexpr long long kFillWarps = 2048;
+
+// Collectives over a request's segment of L lanes (a lane alone needs
+// none).  Every one runs under the whole warp's mask: under a mask of
+// one segment, `redux.sync` serialised the warp's segments on the H100,
+// so a segment below 32 lanes takes its minimum by xor-shuffles.
+template <int L>
+__device__ __forceinline__ unsigned seg_min(unsigned x) {
+  if constexpr (L == kWarp) {
+    return __reduce_min_sync(kAll, x);
+  } else {
+#pragma unroll
+    for (int o = L / 2; o > 0; o /= 2) x = min(x, __shfl_xor_sync(kAll, x, o));
+    return x;
+  }
+}
+template <int L>
+__device__ __forceinline__ unsigned seg_ballot(unsigned segmask, bool p) {
+  if constexpr (L == 1) return p ? segmask : 0u;
+  else return __ballot_sync(kAll, p) & segmask;
+}
+template <int L>
+__device__ __forceinline__ float seg_shfl(float v, int src) {
+  if constexpr (L == 1) return v;
+  else return __shfl_sync(kAll, v, src, L);
+}
+
+// One lane's models (slot t: model sl + L t) and their state.  NT > 0:
+// in registers (loops over t unroll, so every index is static); NT == 0:
+// in the warp's shared memory at [a][t][lane], any n.
+template <int NT>
+struct Slots {
+  static constexpr int kSlots = NT;
+  float m_[NT], s_[NT], a_[NT], c_[NT];
+  int e_[NT];
+  __device__ Slots(float*, int, int) {}
+  __device__ float& m(int t) { return m_[t]; }  // mu (+ shift)
+  __device__ float& s(int t) { return s_[t]; }  // sigma
+  __device__ float& a(int t) { return a_[t]; }  // acc as read
+  __device__ float& c(int t) { return c_[t]; }  // running sum at the model
+  __device__ int& e(int t) { return e_[t]; }    // stage-2 eligible
+};
+template <>
+struct Slots<0> {
+  static constexpr int kSlots = 1 << 30;
+  float* p;
+  int stride, lane;
+  __device__ Slots(float* s, int T, int l) : p(s), stride(kWarp * T), lane(l) {}
+  __device__ float& f(int a, int t) { return p[a * stride + t * kWarp + lane]; }
+  __device__ float& m(int t) { return f(0, t); }
+  __device__ float& s(int t) { return f(1, t); }
+  __device__ float& a(int t) { return f(2, t); }
+  __device__ float& c(int t) { return f(3, t); }
+  __device__ int& e(int t) {
+    return reinterpret_cast<int*>(p)[4 * stride + t * kWarp + lane];
+  }
+};
+
+// The pool-order running sum of the segment's values v[0, n) in shared
+// memory, run by every lane of the segment, four loads at a time:
+// returns the total, and sets each slot's c to the sum up to and
+// including its model.
+template <int L, class S>
+__device__ __forceinline__ float running_sum(const float* v, int n, int T,
+                                             int sl, S& st) {
+  float c = 0.f;
+#pragma unroll
+  for (int t = 0; t < S::kSlots && t < T; ++t) {
+    const int l0 = L * t, l1 = min(n, L * (t + 1)), mine = l0 + sl;
+    float ct = 0.f;
+    if constexpr (L >= 4) {
+      float4 next = *reinterpret_cast<const float4*>(v + l0);
+      for (int l = l0; l < l1; l += 4) {
+        const float4 u4 = next;
+        if (l + 4 < l1) next = *reinterpret_cast<const float4*>(v + l + 4);
+        const float ul[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          c = l + q < l1 ? __fadd_rn(c, ul[q]) : c;
+          ct = l + q == mine ? c : ct;
+        }
+      }
+    } else {
+      for (int l = l0; l < l1; ++l) {
+        c = __fadd_rn(c, v[l]);
+        ct = l == mine ? c : ct;
+      }
+    }
+    st.c(t) = ct;
+  }
+  return c;
+}
+
+// grid x block as `select_plan` gives; every lane runs every step (a
+// lane past B works on the last request and stores nothing), so that
+// the warp's collectives see all 32 lanes.
+template <bool kFused, int L, int NT>
+__global__ void __launch_bounds__(kWarp * kSelWarps)
+select_kernel(SelectArgs a) {
+  using S = Slots<NT>;
+  extern __shared__ float smem[];
+  constexpr int kPer = kWarp / L;  // requests a warp
+  constexpr unsigned kSegBits = L == kWarp ? kAll : (1u << (L % kWarp)) - 1u;
+  const int n = a.n;
+  const int T = (n + L - 1) / L;  // slots a lane
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int seg = lane / L, sl = lane % L;
+  const unsigned segmask = kSegBits << (seg * L);
+  const long long b =
+      ((long long)blockIdx.x * (blockDim.x / kWarp) + warp) * kPer + seg;
+  const bool live = b < a.B;
+  const long long bb = live ? b : a.B - 1;
+  // The request's row first, before any load that depends on it.
+  const float t_u = a.tu[bb], t_l = a.tl[bb], r01 = a.r01[bb];
+  const long long r = kFused ? 0 : a.row[bb];
+  const float* mu = a.mu + r * n;
+  const float* sig = a.sig + r * n;
+  const float* acc = a.acc + r * a.acc_stride;
+  const float* rank = a.rank + r * a.acc_stride;
+  float* wbase = smem + (long long)warp * (NT == 0 ? kSelArrays : 1) *
+                            kWarp * T;
+  float* v = wbase + seg * L * T;  // the segment's utilities, pool order
+  S st(wbase + kWarp * T, T, lane);
+
+  // Stage 1: Eq. 2 per model; the base is the eligible model of least
+  // (rank, index), a segment min-reduction over the rank's order key and
+  // then over the index.
+  unsigned kbest = 0xffffffffu;
+  int jbest = 0;
+  float mb = 0.f, sb = 0.f;
+#pragma unroll
+  for (int t = 0; t < S::kSlots && t < T; ++t) {
+    const int j = sl + L * t;
+    float m = 0.f, s = 0.f, ac = 0.f, rk = 0.f;
+    if (j < n) {
+      m = mu[j];
+      s = sig[j];
+      ac = acc[j];
+      rk = rank[j];
+      if (!kFused && a.shift) m = __fadd_rn(m, a.shift[j]);
+    }
+    st.m(t) = m;
+    st.s(t) = s;
+    st.a(t) = ac;
+    const unsigned k = order_key(rk);
+    if (j < n && __fadd_rn(m, s) < t_u && __fsub_rn(m, s) < t_l &&
+        k < kbest) {
+      kbest = k;
+      jbest = j;
+      mb = m;
+      sb = s;
+    }
+  }
+  const unsigned kmin = seg_min<L>(kbest);
+  const bool has_base = kmin != 0xffffffffu;
+  const unsigned jmin =
+      seg_min<L>(has_base && kbest == kmin ? (unsigned)jbest : 0xffffffffu);
+  const int base = has_base ? (int)jmin : 0;
+  mb = seg_shfl<L>(mb, base % L);
+  sb = seg_shfl<L>(sb, base % L);
+
+  // Stage 2 (the window around t_l, the base forced in) and the Eq. 3-4
+  // utilities, once a model; a lane without an eligible model divides 0
+  // by 1.  The eligible count of the segment, by popcounts.
+  const float half = __fadd_rn(fabsf(__fsub_rn(t_l, mb)), sb);
+  const float lo = __fsub_rn(t_l, half), hi = __fadd_rn(t_l, half);
+  int cnt = 0;
+#pragma unroll
+  for (int t = 0; t < S::kSlots && t < T; ++t) {
+    const int j = sl + L * t;
+    const float m = st.m(t), s = st.s(t);
+    const bool e = has_base && j < n &&
+                   (j == base || (lo <= m && m <= hi && __fadd_rn(m, s) < t_u));
+    const float num = e ? __fsub_rn(t_u, __fadd_rn(m, s)) : 0.f;
+    const float den = e ? clamp_min(fabsf(__fsub_rn(t_l, m)), kEps) : 1.f;
+    const float w = e ? acc_weight(st.a(t), a.gamma) : 0.f;
+    v[j] = __fdiv_rn(__fmul_rn(w, num), den);
+    st.e(t) = e;
+    cnt += __popc(seg_ballot<L>(segmask, e));
+  }
+  __syncwarp();
+  const float mass = running_sum<L>(v, n, T, sl, st);
+  const bool good = fabsf(mass) < inf() && mass > 0.f;
+  float total;
+  if constexpr (kFused) {
+    // Stage 3's probabilities over the utilities, then their running sum.
+    __syncwarp();
+    const float uniform = __fdiv_rn(1.f, clamp_min((float)cnt, 1.f));
+#pragma unroll
+    for (int t = 0; t < S::kSlots && t < T; ++t) {
+      const int j = sl + L * t;
+      const bool e = st.e(t);
+      v[j] = good ? (e ? __fdiv_rn(v[j], mass) : 0.f) : (e ? uniform : 0.f);
+    }
+    __syncwarp();
+    total = running_sum<L>(v, n, T, sl, st);
+  } else {
+    total = good ? mass : (float)cnt;
+  }
+
+  // The draw: the first model whose running sum exceeds r01 * total,
+  // else the base.  A degenerate B4 row weighs its eligible models 1
+  // each, so its running sum is the count of eligible models so far.
+  const float thresh = __fmul_rn(r01, total);
+  const bool draws = total > thresh;
+  const unsigned lanes_le = 0xffffffffu >> (kWarp - 1 - lane);
+  int pick = base, before = 0;
+  bool found = false;
+#pragma unroll
+  for (int t = 0; t < S::kSlots && t < T; ++t) {
+    const int j = sl + L * t;
+    bool over = st.c(t) > thresh;
+    if (!kFused) {
+      const unsigned eb = seg_ballot<L>(segmask, st.e(t));
+      over = good ? over
+                  : (float)(before + __popc(eb & lanes_le)) > thresh;
+      before += __popc(eb);
+    }
+    const unsigned d = seg_ballot<L>(segmask, draws && j < n && over);
+    if (!found && d) {
+      pick = L * t + __ffs(d) - 1 - seg * L;
+      found = true;
+    }
+  }
+
+  // No base: -1, or (B4 with `fallback`) the first index of least mu.
+  int miss = -1;
+  if (!kFused && a.fallback) {
+    unsigned km = 0xffffffffu;
+    int jm = 0;
+#pragma unroll
+    for (int t = 0; t < S::kSlots && t < T; ++t) {
+      const int j = sl + L * t;
+      const unsigned k = order_key(st.m(t));
+      if (j < n && k < km) {
+        km = k;
+        jm = j;
+      }
+    }
+    const unsigned kl = seg_min<L>(km);
+    miss = (int)seg_min<L>(km == kl ? (unsigned)jm : 0xffffffffu);
+  }
+  if (live && sl == 0) {
+    a.out[b] = has_base ? pick : miss;
+    if (!kFused) a.has[b] = has_base;
+  }
+}
+
+// The fused and stacked kernels' launch at B requests of n models under a
+// block limit of `limit` bytes: lanes a request and slots a lane,
+// requests a warp, warps a block (0 where one warp does not fit),
+// blocks, shared memory.  A request takes the next power of two >= n
+// lanes, at most 32, one model a lane up to 32; while the launch would
+// still have kFillWarps warps with half the lanes, and each lane would
+// still hold its models in registers, it takes half.
+struct SelectPlan {
+  long long lanes, slots, per_warp, warps, blocks, smem;
+};
+// A warp's shared memory at T slots a lane: the utilities (32 T
+// floats), and past kSelSlots slots the lanes' state too.
+long long select_warp_smem(long long T) {
+  return (long long)sizeof(float) * (T > kSelSlots ? kSelArrays : 1) *
+         kWarp * T;
+}
+SelectPlan select_plan(int B, int n, long long limit) {
+  const auto warps_at = [&](long long L) {
+    return (B + kWarp / L - 1) / (kWarp / L);
+  };
+  SelectPlan p;
+  p.lanes = 1;
+  while (p.lanes < n && p.lanes < kWarp) p.lanes *= 2;
+  while (p.lanes > 1 && (n + p.lanes / 2 - 1) / (p.lanes / 2) <= kSelSlots &&
+         warps_at(p.lanes / 2) >= kFillWarps)
+    p.lanes /= 2;
+  p.slots = (n + p.lanes - 1) / p.lanes;
+  p.per_warp = kWarp / p.lanes;
+  const long long warps = warps_at(p.lanes);
+  const long long wsm = select_warp_smem(p.slots);
+  p.warps = std::min({(long long)kSelWarps, warps, limit / wsm});
+  p.blocks = p.warps > 0 ? (warps + p.warps - 1) / p.warps : 0;
+  p.smem = p.warps * wsm;
+  return p;
+}
+
+// The opt-in shared memory a block of the current device may have.
+long long smem_optin() {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return limit;
+}
+
+template <class K>
+int launch(K kernel, long long blocks, long long threads, long long smem,
+           cudaStream_t stream, const SelectArgs& a) {
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kFused, int L>
+int launch_lanes(const SelectArgs& a, const SelectPlan& p, cudaStream_t s) {
+  const long long th = p.warps * kWarp;
+  if (p.slots == 1)
+    return launch(select_kernel<kFused, L, 1>, p.blocks, th, p.smem, s, a);
+  if (p.slots <= kSelSlots)
+    return launch(select_kernel<kFused, L, kSelSlots>, p.blocks, th, p.smem,
+                  s, a);
+  if constexpr (L == kWarp)
+    return launch(select_kernel<kFused, L, 0>, p.blocks, th, p.smem, s, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kFused>
+int launch_select(const SelectArgs& a, cudaStream_t s) {
+  // the opt-in limit is asked for only where the default might bind
+  const SelectPlan d = select_plan(a.B, a.n, kDefaultSmem);
+  const long long full = std::min((long long)kSelWarps,
+                                  (a.B + d.per_warp - 1) / d.per_warp);
+  const SelectPlan p =
+      d.warps < full ? select_plan(a.B, a.n, smem_optin()) : d;
+  if (p.warps < 1) return (int)cudaErrorInvalidValue;
+  switch (p.lanes) {
+    case 1: return launch_lanes<kFused, 1>(a, p, s);
+    case 2: return launch_lanes<kFused, 2>(a, p, s);
+    case 4: return launch_lanes<kFused, 4>(a, p, s);
+    case 8: return launch_lanes<kFused, 8>(a, p, s);
+    case 16: return launch_lanes<kFused, 16>(a, p, s);
+  }
+  return launch_lanes<kFused, kWarp>(a, p, s);
+}
+
 }  // namespace
 
 // All pointers are float32 device arrays unless named otherwise: mu,
 // sig, acc, rank (n,); t_u, t_l, r01, lim (B,); elig and out (B, n)
 // row-major.  Each returns cudaGetLastError() after its launch (0 when
-// B is 0 and nothing is launched).
+// B is 0 and nothing is launched; cudaErrorInvalidValue, launching
+// nothing, where the pool does not fit a block: the wrappers refuse such
+// a pool first).
 
 extern "C" int modipick_probs_fwd(const float* mu, const float* sig,
                                   const float* acc, const float* tu,
@@ -785,8 +1006,16 @@ extern "C" int modipick_probs_fwd(const float* mu, const float* sig,
                                   float* out, int B, int n, float gamma,
                                   void* stream) {
   if (B <= 0) return 0;
-  const int smem = (int)sizeof(float) * (3 * n + kRows * (n | 1));
-  probs_kernel<<<(B + kRows - 1) / kRows, kRows, smem,
+  const ProbsPlan p = probs_plan(
+      B, n, probs_smem(n, kRows) > kDefaultSmem ? smem_optin() : kDefaultSmem);
+  if (p.rows < 1) return (int)cudaErrorInvalidValue;
+  if (p.smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  probs_kernel<<<(unsigned)p.blocks, (unsigned)p.rows, p.smem,
                  static_cast<cudaStream_t>(stream)>>>(mu, sig, acc, tu, tl,
                                                       elig, out, B, n, gamma);
   return (int)cudaGetLastError();
@@ -799,12 +1028,9 @@ extern "C" int fused_select_fwd(const float* mu, const float* sig,
                                 const float* r01, int* out, int B, int n,
                                 float gamma, void* stream) {
   if (B <= 0) return 0;
-  fused_kernel<<<(B + kRows - 1) / kRows, kRows,
-                 (int)sizeof(float) * 4 * n,
-                 static_cast<cudaStream_t>(stream)>>>(mu, sig, acc, rank, tu,
-                                                      tl, r01, out, B, n,
-                                                      gamma);
-  return (int)cudaGetLastError();
+  const SelectArgs a{mu, sig, acc, rank, nullptr, nullptr, tu, tl, r01,
+                     out, nullptr, B, n, 0, gamma, 0};
+  return launch_select<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // mu_charge (n,); lists: int32 candidate lists with nnz (model, replica)
@@ -841,11 +1067,9 @@ extern "C" int stacked_select_fwd(const float* mu, const float* sig,
                                   int B, int n, int acc_stride, float gamma,
                                   int fallback, void* stream) {
   if (B <= 0) return 0;
-  stacked_kernel<<<(B + kRows - 1) / kRows, kRows, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      mu, sig, acc, rank, row, shift, tu, tl, r01, out, has, B, n,
-      acc_stride, gamma, fallback);
-  return (int)cudaGetLastError();
+  const SelectArgs a{mu, sig, acc, rank, row, shift, tu, tl, r01,
+                     out, has, B, n, acc_stride, gamma, fallback};
+  return launch_select<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 // The charged block's shared memory at (n, R, nnz) and the most a block
@@ -855,4 +1079,33 @@ extern "C" int charged_select_smem(int device, int n, int R, int nnz,
   *smem = charged_smem(n, R, nnz);
   return (int)cudaDeviceGetAttribute(
       limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// K1's launch at (B, n) on ``device``: rows a block, blocks, shared
+// memory, and the most a block of ``device`` may have
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin); ``probs_plan`` in
+// kernels/policy_select.py mirrors it.
+extern "C" int probs_plan_query(int device, int B, int n, long long* out) {
+  int limit = 0;
+  const int err = (int)cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const ProbsPlan p = probs_plan(B, n, limit);
+  const long long v[4] = {p.rows, p.blocks, p.smem, limit};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return err;
+}
+
+// The fused and stacked kernels' launch at (B, n) on ``device``: lanes
+// a request, slots a lane, requests a warp, warps a block, blocks,
+// shared memory, and the most a block may have; ``select_plan`` in kernels/policy_select.py
+// mirrors it.
+extern "C" int select_plan_query(int device, int B, int n, long long* out) {
+  int limit = 0;
+  const int err = (int)cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const SelectPlan p = select_plan(B, n, limit);
+  const long long v[7] = {p.lanes, p.slots, p.per_warp, p.warps,
+                          p.blocks, p.smem, limit};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return err;
 }

@@ -2,7 +2,7 @@
 device, as hand-written CUDA kernels on the card
 (``csrc/policy_select.cu``).
 
-Four kernel wrappers, one set of per-row device code under them:
+Four kernel wrappers:
 
 - ``modipick_probs`` (K1, the port of the Pallas ``_probs_kernel``):
   stage 3 alone — the Eq. 3–4 utilities of a given (B, n) eligibility
@@ -12,7 +12,9 @@ Four kernel wrappers, one set of per-row device code under them:
   1–2 (Eq. 2 eligibility, the accuracy-order base, the window), K1's
   probabilities and the inverse-CDF draw in ONE launch:
   ``(mu, sigma, acc, rank, t_u, t_l, r01)`` in, (B,) picks out, −1
-  where no base exists.  ``select_fused`` is its host entry point.
+  where no base exists.  Each request takes a segment of a warp's
+  lanes (:func:`select_plan`).  ``select_fused`` is its host entry
+  point.
 - ``charged_select`` (the port of ``charged_select``/``_charged_step``,
   a ``lax.scan`` over the batch): the charged sequential-greedy pass.
   One warp walks the batch in order, the models in its lanes and the
@@ -26,8 +28,14 @@ Four kernel wrappers, one set of per-row device code under them:
 - ``stacked_select`` (B4, the port of the jitted ``_classed_select`` and
   ``fleet_select_body``): stages 1–3 and the draw with a pool row per
   request — its input class's row (premodel, with the queue shifts) or
-  its cell's row (the fleet).  ``select_classed`` and
-  ``select_fleet_stacked`` are its host entry points.
+  its cell's row (the fleet).  The same kernel template as
+  ``fused_select``.  ``select_classed`` and ``select_fleet_stacked``
+  are its host entry points.
+
+No wrapper caps the pool on the CPU.  On the card a pool must fit a
+block's shared memory (:func:`max_pool`: 9664 models for the fused and
+stacked kernels, 14527 for K1 on an H100); a wider one raises a
+ValueError.
 
 Each wrapper runs its plain PyTorch version (``kernels/ref.py``) for
 tensors on the CPU and launches its kernel for tensors on the card (or
@@ -55,12 +63,24 @@ EPS = 1e-9
 # is never eligible, and a rank this large never wins stage 1.
 PAD_MU = 1e30
 PAD_RANK = 1e9
-MAX_POOL = 128           # models the K1, fused and stacked kernels take
-# Bytes of shared memory an H100 block can have: the limit a CPU call is
-# held to, so that it refuses what the card would.  On the card the
-# wrapper asks the kernel's library for the block's size and the card
-# for its limit (``charged_smem``).
+# Bytes of shared memory an H100 block can have: the limit a CPU call of
+# the charged pass is held to, so that it refuses what the card would,
+# and the limit of the launch plans' mirrors below.  On the card the
+# wrappers ask the kernel's library for the card's limit
+# (``charged_smem``, ``selection_plan``).
 MAX_SMEM = 232_448
+PROBS_ROWS = 64          # K1's rows (threads) a block at most (kRows)
+SELECT_WARPS = 4         # warps a block of the fused and stacked kernels
+# Models a lane of the fused and stacked kernels holds in registers
+# (kSelSlots); past that a warp keeps 6 arrays of 32·⌈n/32⌉ floats in
+# shared memory (kSelArrays: the lanes' 5 per-model arrays and the
+# utilities).
+SELECT_LANE_SLOTS = 4
+SELECT_LANE_ARRAYS = 6
+# Warps that fill the card (kFillWarps: about 16 on each of an H100's
+# 132 SMs): a batch that still gives a launch this many warps with half
+# the lanes a request takes half.
+SELECT_FILL_WARPS = 2048
 CHARGED_CHUNK = 256      # requests the charged block stages at once
 # Models a lane of the charged warp holds in registers (kLaneSlots): a
 # wider pool keeps the lanes' 13 per-model arrays in shared memory.
@@ -95,9 +115,107 @@ def _check_shapes(name, pairs) -> None:
 
 
 def _check_pool(name, n) -> None:
-    if not 1 <= n <= MAX_POOL:
-        raise ValueError(f"{name}: pool of {n} models not supported "
-                         f"(1..{MAX_POOL})")
+    if n < 1:
+        raise ValueError(f"{name}: a pool of {n} models")
+
+
+def probs_plan(B: int, n: int, limit: int = MAX_SMEM) -> dict:
+    """K1's launch at B rows of n models under a block limit of
+    ``limit`` bytes, mirroring ``probs_plan`` in the kernel: ``rows`` a
+    block (as many as fit, at most ``PROBS_ROWS``; 0 where one row does
+    not fit), ``blocks``, and ``smem``: the pool's 3 n floats and the
+    rows' tile at the odd pitch n | 1."""
+    pitch = n | 1
+    rows = max(0, min(PROBS_ROWS, (limit - 12 * n) // (4 * pitch)))
+    return dict(rows=rows, blocks=-(-B // rows) if rows else 0,
+                smem=4 * (3 * n + rows * pitch))
+
+
+def select_plan(B: int, n: int, limit: int = MAX_SMEM) -> dict:
+    """The fused and stacked kernels' launch at B requests of n models
+    under a block limit of ``limit`` bytes, mirroring ``select_plan`` in
+    the kernel: ``lanes`` a request (the next power of two >= n, at most
+    32; halved while the launch would still have ``SELECT_FILL_WARPS``
+    warps and a lane would hold at most ``SELECT_LANE_SLOTS`` models),
+    ``slots`` (models) a lane, ``requests_per_warp``, ``warps`` a block
+    (at most ``SELECT_WARPS``; 0 where one warp's shared memory does not
+    fit), ``blocks`` and ``smem``: a warp's utilities (32 · slots
+    floats), and past ``SELECT_LANE_SLOTS`` slots the lanes' state
+    too."""
+    def warps_at(lanes):
+        return -(-B // (32 // lanes))
+
+    lanes = 1
+    while lanes < min(n, 32):
+        lanes *= 2
+    while lanes > 1 and -(-n // (lanes // 2)) <= SELECT_LANE_SLOTS \
+            and warps_at(lanes // 2) >= SELECT_FILL_WARPS:
+        lanes //= 2
+    T = -(-n // lanes)
+    warp = 4 * 32 * T * (SELECT_LANE_ARRAYS if T > SELECT_LANE_SLOTS else 1)
+    need = warps_at(lanes)
+    warps = min(SELECT_WARPS, need, limit // warp)
+    return dict(lanes=lanes, slots=T, requests_per_warp=32 // lanes,
+                warps=warps, blocks=-(-need // warps) if warps else 0,
+                smem=warps * warp)
+
+
+def max_pool(kernel: str, limit: int = MAX_SMEM) -> int:
+    """The most models a block of ``kernel`` takes under a block limit
+    of ``limit`` bytes: "probs" (K1: the pool and one row of its tile)
+    or "select" (the fused and stacked kernels: one warp's six arrays)."""
+    if kernel == "select":
+        return 32 * (limit // (4 * 32 * SELECT_LANE_ARRAYS))
+    n = limit // 16
+    while not probs_plan(1, n, limit)["rows"]:
+        n -= 1
+    return n
+
+
+_PLAN_KEYS = {"probs": ("rows", "blocks", "smem"),
+              "select": ("lanes", "slots", "requests_per_warp", "warps",
+                         "blocks", "smem")}
+_REASON = {"probs": "the pool's 3 n floats and one row's n | 1",
+           "select": f"{SELECT_LANE_ARRAYS} arrays of 32·⌈n/32⌉ floats a "
+                     "warp"}
+_MAX_POOLS: Dict[tuple, tuple] = {}  # (device, kernel) → (models, limit)
+
+
+def selection_plan(kernel: str, B: int, n: int, device) -> dict:
+    """The launch plan of K1 (``kernel`` "probs") or of the fused and
+    stacked kernels ("select") at (B, n), with ``limit``, the shared
+    memory a block may have: from the kernel's library and the card on
+    a CUDA device, from the mirrors and ``MAX_SMEM`` on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        plan = (probs_plan if kernel == "probs" else select_plan)(B, n)
+        return dict(plan, limit=MAX_SMEM)
+    keys = _PLAN_KEYS[kernel] + ("limit",)
+    fn = build.function("policy_select", f"{kernel}_plan_query",
+                        [_I, _I, _I, _P])
+    out = (ctypes.c_longlong * len(keys))()
+    err = fn(dev.index if dev.index is not None
+             else torch.cuda.current_device(), B, n, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel}_plan_query failed (error {err})")
+    return dict(zip(keys, out))
+
+
+def _check_fits(name, kernel, n, device) -> None:
+    """Raise ValueError where a block of ``kernel`` on the card cannot
+    hold a pool of n models."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    got = _MAX_POOLS.get((idx, kernel))
+    if got is None:
+        limit = selection_plan(kernel, 1, 1, device)["limit"]
+        got = _MAX_POOLS[idx, kernel] = (max_pool(kernel, limit), limit)
+    most, limit = got
+    if n > most:
+        raise ValueError(f"{name}: a pool of {n} models does not fit a "
+                         f"block: at most {most} models, since a block "
+                         f"holds {_REASON[kernel]} in its {limit} bytes "
+                         "of shared memory")
 
 
 def _launch(lib_symbol, argtypes, device, *args) -> None:
@@ -126,6 +244,7 @@ def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
         return ref.policy_probs_ref(mu, sigma, acc, t_u, t_l, elig,
                                     gamma=gamma, eps=EPS)
     build.refuse_grad("modipick_probs", mu, sigma, acc, t_u, t_l, elig)
+    _check_fits("modipick_probs", "probs", n, elig.device)
     out = torch.empty((B, n), dtype=torch.float32, device=elig.device)
     if B:
         _launch("modipick_probs_fwd", _PROBS_ARGS, elig.device,
@@ -160,6 +279,7 @@ def fused_select(mu, sigma, acc, rank, t_u, t_l, r01, *,
         return ref.fused_select_ref(mu, sigma, acc, rank, t_u, t_l, r01,
                                     gamma=gamma, eps=EPS, pad_rank=PAD_RANK)
     build.refuse_grad("fused_select", mu, sigma, acc, rank, t_u, t_l, r01)
+    _check_fits("fused_select", "select", n, mu.device)
     out = torch.empty(B, dtype=torch.int32, device=mu.device)
     if B:
         _launch("fused_select_fwd", _FUSED_ARGS, mu.device,
@@ -359,6 +479,7 @@ def stacked_select(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
         return ref.stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l,
                                       r01, eps=EPS, pad_rank=PAD_RANK, **kw)
     build.refuse_grad("stacked_select", *f32)
+    _check_fits("stacked_select", "select", n, mu.device)
     picks = torch.empty(B, dtype=torch.int32, device=mu.device)
     has = torch.empty(B, dtype=torch.uint8, device=mu.device)
     if B:

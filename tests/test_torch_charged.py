@@ -327,7 +327,8 @@ def test_selection_wrappers_raise(case):
         args[6] = torch.ones(3)
         fused[3] = torch.ones(4)
     elif case == "pool":
-        fused = [torch.ones(200)] * 4 + fused[4:]
+        # a pool of no models (any width of one or more is taken)
+        fused = [torch.ones(0)] * 4 + fused[4:]
         args[5] = torch.ones(3, 2, dtype=torch.uint8)
     elif case == "cand":
         args[5] = torch.ones(2, 3, dtype=torch.bool)

@@ -224,7 +224,7 @@ def _select_pool(n, seed=None):
                                          int(np.argmin(mu)), device="cuda")
 
 
-@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("n", [2, 3, 8, 129, 200, 1000])
 def test_stage3_kernel_matches_plain_bit_for_bit(gen, n):
     rng, pool = _select_pool(n)
     t_u = torch.tensor(rng.uniform(0, 90, 8192), dtype=torch.float32,
@@ -257,19 +257,36 @@ def test_stage3_kernel_at_gamma_2_within_tolerance(gen, n):
                                **TOL[torch.float32])
 
 
-@pytest.mark.parametrize("n", [2, 3, 8, 128])
-@pytest.mark.parametrize("B", [8192, 1000, 1])
-def test_fused_kernel_matches_plain(gen, n, B):
-    """Picks equal, with rows that have no base and rows whose mass is
-    negative (uniform over the eligible models)."""
-    rng, pool = _select_pool(n, seed=n + B)
+# Pool widths at the edges of the fused and stacked kernels' segments
+# (1-32 lanes a request) and lane slots (two or more models a lane past
+# 32, shared memory past 128), and batches that are no multiple of the
+# requests a warp.
+EDGE_N = [1, 2, 3, 4, 5, 15, 16, 17, 31, 32, 33, 64, 127, 128, 129, 200,
+          1000]
+EDGE_B = [1, 7, 200, 8192]
+
+
+def _fused_inputs(gen, n, B, seed, rank=None):
+    """The fused kernel's operands: the first 2% of the rows with no
+    base, the next 3% with a negative mass (uniform over their eligible
+    models)."""
+    rng, pool = _select_pool(n, seed=seed)
     t_u = rng.uniform(-5, 90, B).astype(np.float32)
     t_u[: B // 50] = float(pool.mu.min()) - 50.0
     t_l = t_u - 25.0
     t_l[B // 50: B // 20] = t_u[B // 50: B // 20] + 40.0
     t_u, t_l = (torch.tensor(x, device="cuda") for x in (t_u, t_l))
     r01 = torch.rand(B, generator=gen, device="cuda")
-    sel = (pool.mu, pool.sigma, pool.acc, pool.rank, t_u, t_l, r01)
+    return (pool.mu, pool.sigma, pool.acc,
+            pool.rank if rank is None else rank(pool.rank), t_u, t_l, r01)
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+@pytest.mark.parametrize("B", EDGE_B)
+def test_fused_kernel_matches_plain(gen, n, B):
+    """Picks equal, with rows that have no base and rows whose mass is
+    negative, at every segment and slot edge; one launch a call."""
+    sel = _fused_inputs(gen, n, B, seed=n + B)
     before = ops.fused_select.launches
     got = ops.fused_select(*sel)
     torch.cuda.synchronize()
@@ -277,6 +294,34 @@ def test_fused_kernel_matches_plain(gen, n, B):
     assert torch.equal(got, ref.fused_select_ref(*sel))
     if B > 100:
         assert (got == -1).any() and (got >= 0).any()
+
+
+@pytest.mark.parametrize("ties", ["thirds", "all"])
+@pytest.mark.parametrize("n", [5, 40, 64, 200])
+def test_selection_kernels_break_rank_ties_by_index(gen, n, ties):
+    """Tied ranks: the base is the first eligible index of least rank,
+    as torch.argmin gives, in both kernels."""
+    tie = ((lambda r: torch.floor(r / 3)) if ties == "thirds"
+           else torch.zeros_like)
+    sel = _fused_inputs(gen, n, 1000, seed=n, rank=tie)
+    assert torch.equal(ops.fused_select(*sel), ref.fused_select_ref(*sel))
+    args, kw = stacked_inputs(gen, "classed", 3, n, 1000, True, seed=n)
+    args = args[:3] + (tie(args[3]),) + args[4:]
+    for g, w in zip(ops.stacked_select(*args, **kw),
+                    ref.stacked_select_ref(*args, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [11, 33, 200])
+def test_fused_kernel_at_gamma_2(gen, n):
+    """At gamma 2 powf and torch.pow may round the accuracy weight
+    differently, so a pick may differ where a draw lands on a boundary:
+    all but a few equal."""
+    sel = _fused_inputs(gen, n, 4000, seed=n)
+    got = ops.fused_select(*sel, gamma=2.0)
+    want = ref.fused_select_ref(*sel, gamma=2.0)
+    assert torch.equal(got < 0, want < 0)
+    assert (got != want).sum().item() <= 4
 
 
 def test_select_fused_launches_once(gen):
@@ -645,6 +690,81 @@ def test_stacked_kernel_matches_plain(gen, name):
         assert (~has).any() and has.any()
         assert ((picks >= 0) == has).all() if form == "fleet" \
             else (picks >= 0).all()
+
+
+# (form, queue shifts, fallback): the classed form as premodel calls it
+# and bare; the fleet form with its padded lanes, and with shifts and the
+# fallback too.
+STACKED_VARIANTS = [("classed", True, True), ("classed", False, False),
+                    ("fleet", False, False), ("fleet", True, True)]
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+@pytest.mark.parametrize("B", EDGE_B)
+def test_stacked_kernel_at_segment_and_slot_edges(gen, n, B):
+    """Picks and has_base equal at every segment and slot edge, each
+    (n, B) in one of the four variants in turn; one launch a call."""
+    i = EDGE_N.index(n) + EDGE_B.index(B)
+    form, shifts, fallback = STACKED_VARIANTS[i % len(STACKED_VARIANTS)]
+    args, kw = stacked_inputs(gen, form, 3, n, B if form == "classed"
+                              else max(1, B // 3), shifts, seed=n + B)
+    kw["fallback"] = fallback
+    before = ops.stacked_select.launches
+    picks, has = ops.stacked_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.stacked_select.launches == before + 1
+    want, whas = ref.stacked_select_ref(*args, **kw)
+    assert torch.equal(picks, want) and torch.equal(has, whas)
+    if args[5].shape[0] > 100:
+        assert (~has).any() and has.any()
+
+
+@pytest.mark.parametrize("kernel,B", [("probs", 1), ("probs", 8192),
+                                      ("select", 1), ("select", 7),
+                                      ("select", 200), ("select", 8192)])
+@pytest.mark.parametrize("n", [1, 2, 11, 33, 128, 129, 200, 1000, 4096])
+def test_selection_plan_mirrors_the_kernel(gen, kernel, B, n):
+    """The launch plan the kernel's library reports on the card equals
+    its Python mirror under the card's limit."""
+    got = policy_select.selection_plan(kernel, B, n, "cuda")
+    mirror = (policy_select.probs_plan if kernel == "probs"
+              else policy_select.select_plan)
+    assert got == dict(mirror(B, n, got["limit"]), limit=got["limit"])
+
+
+def test_selection_kernels_take_4096_models_and_refuse_past_the_limit(gen):
+    """K1, B2 and B4 at 4096 models and at the largest pool a block
+    holds equal to their plain versions; one model more raises a
+    ValueError that names the limit, and launches nothing."""
+    limit = policy_select.selection_plan("select", 1, 1, "cuda")["limit"]
+    for n in (4096, policy_select.max_pool("select", limit)):
+        sel = _fused_inputs(gen, n, 7, seed=n)
+        assert torch.equal(ops.fused_select(*sel),
+                           ref.fused_select_ref(*sel))
+        args, kw = stacked_inputs(gen, "classed", 2, n, 7, True, seed=n)
+        for g, w in zip(ops.stacked_select(*args, **kw),
+                        ref.stacked_select_ref(*args, **kw)):
+            assert torch.equal(g, w)
+    for n in (4096, policy_select.max_pool("probs", limit)):
+        _, pool = _select_pool(n, seed=n)
+        k1 = (pool.mu, pool.sigma, pool.acc) + sel[4:6] \
+            + (torch.ones(7, n, device="cuda"),)
+        assert torch.equal(ops.modipick_probs(*k1),
+                           ref.policy_probs_ref(*k1))
+    before = ops.launch_counts()
+    n = policy_select.max_pool("select", limit) + 1
+    sel = _fused_inputs(gen, n, 7, seed=1)
+    with pytest.raises(ValueError, match=f"{limit} bytes"):
+        ops.fused_select(*sel)
+    args, kw = stacked_inputs(gen, "fleet", 2, n, 3, seed=1)
+    with pytest.raises(ValueError, match=f"{limit} bytes"):
+        ops.stacked_select(*args, **kw)
+    n = policy_select.max_pool("probs", limit) + 1
+    _, pool = _select_pool(n, seed=1)
+    with pytest.raises(ValueError, match=f"{limit} bytes"):
+        ops.modipick_probs(pool.mu, pool.sigma, pool.acc, sel[4], sel[5],
+                           torch.ones(7, n, device="cuda"))
+    assert ops.launch_counts() == before
 
 
 def test_stacked_kernel_at_gamma_2(gen):

@@ -114,19 +114,21 @@ def test_select_fleet_matches_reference(reference_draws, B, seed):
         TF.select_fleet(got_s, t_u[:2], t_l[:2])
 
 
+@pytest.mark.parametrize("npad", [8, 129, 200])
 def test_select_fleet_stacked_plain_equals_reference_on_synthetic(
-        reference_draws):
+        reference_draws, npad):
     """The shard_map test's operands (8 cells of 3–7 models, padded to
-    8, B on the bucket): the stacked host entry point equal to the
-    reference's vmapped body."""
-    C, npad, B = 8, 8, 256
-    rng = np.random.default_rng(3)
+    8, B on the bucket), and cells of npad − 5 to npad − 1 models padded
+    to 129 and 200 (wider than 128: the port has no cap): the stacked
+    host entry point equal to the reference's vmapped body."""
+    C, B = 8, 256
+    rng = np.random.default_rng(3 if npad == 8 else npad)
     mu = np.full((C, npad), jsel.PAD_MU, np.float32)
     sig = np.zeros((C, npad), np.float32)
     acc = np.ones((C, npad), np.float32)
     rank = np.full((C, npad), jsel.PAD_RANK, np.float32)
     for c in range(C):
-        n = 3 + c % 5
+        n = npad - 5 + c % 5 if npad > 8 else 3 + c % 5
         mu[c, :n] = rng.uniform(3.0, 120.0, n)
         sig[c, :n] = 0.1 * mu[c, :n]
         acc[c, :n] = rng.uniform(0.5, 0.85, n)

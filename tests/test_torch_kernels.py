@@ -21,8 +21,13 @@ from repro_torch.kernels.decode_attention import (MAX_SPLIT, MAX_SPLIT_INT8,
                                                   WAVE_TILES, split_plan,
                                                   split_plan_int8)
 from repro_torch.kernels.flash_attention import check_aligned
-from repro_torch.kernels.policy_select import (DevicePool, _fused_select,
-                                               masks_device)
+from repro_torch.kernels.policy_select import (MAX_SMEM,
+                                               SELECT_FILL_WARPS,
+                                               SELECT_LANE_SLOTS,
+                                               SELECT_WARPS, DevicePool,
+                                               _fused_select,
+                                               masks_device, max_pool,
+                                               probs_plan, select_plan)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -130,7 +135,8 @@ def _pool_arrays(rng, n):
     return mu, sig, acc
 
 
-@pytest.mark.parametrize("n,gamma", [(2, 1.0), (3, 1.0), (8, 2.0)])
+@pytest.mark.parametrize("n,gamma", [(2, 1.0), (3, 1.0), (8, 2.0),
+                                     (200, 1.0)])
 def test_probs_plain_matches_pallas(n, gamma):
     rng = np.random.default_rng(n)
     B = 300
@@ -185,10 +191,12 @@ def test_masks_match_oracle_and_numpy_reference():
 
 
 @pytest.mark.parametrize("n,seed,gamma", [(3, 11, 1.0), (6, 12345, 1.0),
-                                          (4, 7, 2.0)])
+                                          (4, 7, 2.0), (129, 5, 1.0),
+                                          (200, 6, 1.0)])
 def test_fused_select_picks_equal_reference(n, seed, gamma):
     """Fed the reference's own uniforms, the port's stages 1-3 and draw
-    pick exactly what the reference's ``_fused_select`` picks."""
+    pick exactly what the reference's ``_fused_select`` picks, also for
+    pools wider than the reference's 128 lanes."""
     from repro.kernels.policy_select import _fused_select as jax_fused
     rng = np.random.default_rng(seed)
     bpad = 512
@@ -260,7 +268,7 @@ def test_decode_wrapper_raises(case):
         ops.decode_attention(q, k, k, pos)
 
 
-@pytest.mark.parametrize("case", ["meta", "f64", "shape", "pool"])
+@pytest.mark.parametrize("case", ["meta", "f64", "shape"])
 def test_probs_wrapper_raises(case):
     B, n = 4, 3
     args = [torch.zeros(n), torch.zeros(n), torch.ones(n), torch.ones(B),
@@ -269,11 +277,8 @@ def test_probs_wrapper_raises(case):
         args = [a.to("meta") for a in args]
     elif case == "f64":
         args[3] = args[3].double()
-    elif case == "shape":
-        args[0] = torch.zeros(n + 1)
     else:
-        args = [torch.zeros(200), torch.zeros(200), torch.ones(200),
-                torch.ones(B), torch.ones(B), torch.ones(B, 200)]
+        args[0] = torch.zeros(n + 1)
     with pytest.raises((ValueError, TypeError)):
         ops.modipick_probs(*args)
 
@@ -286,8 +291,7 @@ def _stacked_args(P=2, n=3, B=4):
 
 @pytest.mark.parametrize("case", ["mu_1d", "row_int64", "row_length",
                                   "acc_shape", "rank_per_row_only",
-                                  "shifts_shape", "float64", "pool_too_wide",
-                                  "no_rows"])
+                                  "shifts_shape", "float64", "no_rows"])
 def test_stacked_wrapper_raises(case):
     """The stacked selection's wrapper refuses what its kernel does not
     take, on the CPU as on the card."""
@@ -306,12 +310,86 @@ def test_stacked_wrapper_raises(case):
         kw["shifts"] = torch.ones(4)
     elif case == "float64":
         args[5] = torch.ones(4, dtype=torch.float64)
-    elif case == "pool_too_wide":
-        args = _stacked_args(n=129)
     else:
         args = _stacked_args(P=0)
     with pytest.raises((ValueError, TypeError)):
         ops.stacked_select(*args, **kw)
+
+
+# ----------------------------------------------------------------------
+# The selection kernels' launch plans: the Python mirrors of the
+# kernel's own (``chip_smoke.py`` and tests/test_torch_cuda.py hold the
+# two equal on the card), and no cap on the plain path.
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("B,n,lanes,slots,warps,blocks", [
+    (200, 11, 16, 1, 4, 25),        # the engine's burst: 25 SMs
+    (8192, 2, 2, 1, 4, 128),        # select_batch's operands
+    (100_000, 3, 1, 3, 4, 782),     # fills the card a lane a request
+    (100_000, 11, 4, 3, 4, 3125),
+    (1, 1, 1, 1, 1, 1),
+    (7, 33, 32, 2, 4, 2),
+    (200, 4096, 32, 128, 2, 100)])  # two warps' state fill a block
+def test_select_plan_at_known_shapes(B, n, lanes, slots, warps, blocks):
+    plan = select_plan(B, n)
+    assert (plan["lanes"], plan["slots"], plan["warps"], plan["blocks"]) \
+        == (lanes, slots, warps, blocks)
+    assert plan["requests_per_warp"] * lanes == 32
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 17, 33, 129, 4096, 9664])
+@pytest.mark.parametrize("B", [1, 7, 200, 8192, 100_000])
+def test_select_plan_covers_the_batch(B, n):
+    plan = select_plan(B, n)
+    lanes, per = plan["lanes"], plan["requests_per_warp"]
+    widest = 1 << (min(n, 32) - 1).bit_length()
+    assert lanes * per == 32 and lanes <= widest
+    assert plan["slots"] == -(-n // lanes)
+    if lanes < widest:      # fewer lanes only where the batch fills the card
+        assert -(-B // per) >= SELECT_FILL_WARPS
+        assert plan["slots"] <= SELECT_LANE_SLOTS
+    per_block = plan["warps"] * per
+    assert (plan["blocks"] - 1) * per_block < B <= plan["blocks"] * per_block
+    assert 1 <= plan["warps"] <= SELECT_WARPS
+    assert 0 < plan["smem"] <= MAX_SMEM
+
+
+def test_max_pool_takes_4096_models_and_stops_where_a_block_is_full():
+    most = max_pool("select")
+    assert most >= 4096
+    assert select_plan(1, most)["warps"] == 1
+    assert select_plan(1, most + 1)["warps"] == 0
+    most = max_pool("probs")
+    assert most >= 4096
+    assert probs_plan(1, most)["rows"] >= 1
+    assert probs_plan(1, most + 1)["rows"] == 0
+    # K1 keeps its 64-row blocks in the default 48 KB up to 128 models
+    assert probs_plan(8192, 128) == dict(rows=64, blocks=128, smem=34_560)
+    assert probs_plan(8192, 200)["rows"] == 64
+
+
+def test_cpu_path_takes_a_pool_wider_than_any_block():
+    """The plain versions have no cap: a pool one model past what a
+    block on the card holds runs on the CPU."""
+    rng = np.random.default_rng(2)
+    B = 6
+    for kernel in ("select", "probs"):
+        n = max_pool(kernel) + 1
+        mu, sig, acc = (torch.from_numpy(a) for a in _pool_arrays(rng, n))
+        rank = torch.from_numpy(np.argsort(np.argsort(-acc.numpy()))
+                                .astype(np.float32))
+        t_u = torch.full((B,), 70.0)
+        t_l = t_u - 25.0
+        r01 = torch.linspace(0.0, 0.9, B)
+        if kernel == "probs":
+            out = ops.modipick_probs(mu, sig, acc, t_u, t_l, torch.ones(B, n))
+            assert out.shape == (B, n)
+            torch.testing.assert_close(out.sum(1), torch.ones(B))
+            continue
+        picks = ops.fused_select(mu, sig, acc, rank, t_u, t_l, r01)
+        sp, has = ops.stacked_select(mu[None], sig[None], acc, rank,
+                                     torch.zeros(B, dtype=torch.int32), t_u,
+                                     t_l, r01)
+        assert (picks >= 0).all() and torch.equal(sp, picks) and has.all()
 
 
 def test_cpu_path_launches_nothing():

@@ -298,6 +298,50 @@ def test_select_classed_matches_reference(reference_draws, k, shifted, B):
         assert len(set(idx[~has].tolist())) > 1
 
 
+@pytest.mark.parametrize("n", [129, 200])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_select_classed_wider_than_128_matches_reference(reference_draws, n,
+                                                          shifted):
+    """A pool wider than 128 models (the port has no cap): k = 3
+    synthetic class rows through ``select_classed`` on both sides."""
+    from types import SimpleNamespace
+
+    from repro.kernels.policy_select import DevicePool as JPool
+    rng = np.random.default_rng(n + shifted)
+    k, B = 3, 300
+    acc = rng.uniform(0.3, 0.9, n)
+    order = np.argsort(-acc, kind="stable")
+    mu = rng.uniform(5.0, 200.0, (k, n))
+    sig = rng.uniform(0.0, 10.0, (k, n))
+    jp = [JPool(mu[c], sig[c], acc, order, int(np.argmin(mu[c])))
+          for c in range(k)]
+    tp = [policy_select.DevicePool(mu[c], sig[c], acc, order,
+                                   int(np.argmin(mu[c])), device="cpu")
+          for c in range(k)]
+    want_pool = SimpleNamespace(
+        k=k, n=n, npad=jp[0].npad, mu=jnp.stack([p.mu for p in jp]),
+        sigma=jnp.stack([p.sigma for p in jp]), acc=jp[0].acc,
+        rank=jp[0].rank)
+    got_pool = SimpleNamespace(
+        k=k, n=n, device=torch.device("cpu"),
+        mu=torch.stack([p.mu for p in tp]),
+        sigma=torch.stack([p.sigma for p in tp]), acc=tp[0].acc,
+        rank=tp[0].rank)
+    t_u = rng.uniform(-20.0, 250.0, B)
+    t_u[: B // 10] = 1.0                           # no base anywhere
+    t_l = t_u - 20.0
+    t_l[B // 10: B // 5] = t_u[B // 10: B // 5] + 60.0
+    cls = rng.integers(0, k, B).astype(np.int32)
+    shifts = rng.uniform(0.0, 40.0, n) if shifted else None
+    idx, has = policy_select.select_classed(got_pool, cls, t_u, t_l,
+                                            shifts=shifts, seed=4)
+    widx, whas = jsel.select_classed(want_pool, cls, t_u, t_l,
+                                     shifts=shifts, seed=4)
+    np.testing.assert_array_equal(has, whas)
+    np.testing.assert_array_equal(idx, widx)
+    assert (~has).any() and has.any()
+
+
 def test_select_classed_refuses_an_unknown_class():
     store = _stores(TP.ConditionalProfileStore, ModelProfile, n_classes=2)
     with pytest.raises(ValueError, match="class ids"):
