@@ -37,7 +37,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and 1000), the launch plans of K1 and of the fused and stacked
    kernels as the kernel reports them against their Python mirrors, and
    a pool one model wider than a block holds refused with a ValueError
-   (``[plan]`` lines);
+   (``[plan]`` lines); K2's backward kernel against its plain version
+   (``flash_attention_bwd_ref``, from the forward's log-sum-exp, itself
+   held against ``flash_attention_lse_ref``) at the training phase's
+   shapes and edges (hd 256, whisper's unmasked encoder, a window inside
+   S, a ragged S, G = 1) in both types, and K5's
+   (``rglru_scan_bwd_ref``) at recurrentgemma's training shape, a
+   ragged S, segments held in registers and walked from memory; two
+   calls of each give the same bits;
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -75,6 +82,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    phase 3; each request's logits, step by step, held to 1e-4 of their
    max |logit| against the request run alone, teacher-forced on its
    tokens (``[batcher ...]`` lines);
+4b. training at full width (``[train <arch>]`` lines): qwen2-1.5b at
+   B 4, S 1024 and recurrentgemma-2b at B 2, S 1024, fp32 parameters
+   and moments, remat "full", through ``make_train_step``: the first
+   step's loss and every gradient on the kernel path held against the
+   plain path on the card, with the peak memory of that step with and
+   without remat; 5 steps on one repeated batch (the loss must fall),
+   the launch counters zeroed just before and read just after (K2's and
+   K5's backward kernels once per attention / RG-LRU layer a step);
+   a checkpoint restored onto fresh templates whose next step equals
+   the un-restored one bit for bit; one more step under torch.profiler
+   (``[trace]``); step ms, tokens/s and peak memory;
 5. the batched selection on the qwen2 executor's profile store, each
    entry point with the counters zeroed just before and read just after
    and required to launch exactly its one kernel:
@@ -209,6 +227,34 @@ LOGIT_RTOL = 3e-2   # full model, bf16: kernel vs plain path, of max |logit|
 # two paths' logits are unrelated whatever the kernels do; the
 # layer-by-layer check holds every family instead.
 FREE_RUNNING = ("qwen2-1.5b",)
+# The backward kernels relative to max(max |want|, 1) (``check_scaled``):
+# summation order in float32; one rounding of the output in bfloat16
+# (kernel and plain version both accumulate in fp32).
+BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=0.0),
+           torch.bfloat16: dict(atol=1e-2, rtol=0.0)}
+# K2's backward against its plain version: (B, H, KV, Sq, Sk, hd, causal,
+# window) in both types; the first is the training phase's qwen2 shape,
+# the kernels line's row in float32.
+FLASH_BWD = ((4, 12, 2, 1024, 1024, 128, True, 0),   # qwen2 training
+             (2, 10, 1, 1024, 1024, 256, True, 2048),  # recurrentgemma
+             (1, 6, 6, 1500, 1500, 64, False, 0),    # whisper's encoder
+             (1, 4, 2, 1024, 1024, 128, True, 256),  # a window inside S
+             (1, 4, 2, 1000, 1000, 128, True, 0),    # ragged S
+             (2, 8, 8, 256, 256, 128, True, 0))      # G = 1
+# K5's backward: (B, S, W, dtype); the first is recurrentgemma's
+# training shape (the kernels line's row); S 512 holds its segments in
+# registers, S > 32·kR = 512 walks them from memory.
+RGLRU_BWD = ((2, 1024, 2560, torch.float32), (2, 1000, 2560, torch.float32),
+             (2, 512, 2560, torch.float32), (2, 1000, 2560, torch.bfloat16))
+# The training phase: full width, fp32 parameters and moments, remat
+# "full", on one repeated batch of B sequences of S tokens.  The first
+# step's loss and every gradient on the kernel path are held against
+# the same step on the plain path (ops.PLAIN) on the card, to
+# TRAIN_LOSS_RTOL and to TRAIN_GRAD_TOL of each leaf's max |gradient|;
+# both run fp32 throughout, so only summation orders differ (PERF.md
+# states them with their reason).
+TRAIN = {"qwen2-1.5b": dict(B=4, S=1024), "recurrentgemma-2b": dict(B=2, S=1024)}
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STEPS = 1e-4, 2e-3, 5
 # The SSD scan relative to max |y| (the chunked kernel and the sequential
 # plain version sum in different orders; tests/test_kernels.py's bounds).
 SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -602,8 +648,137 @@ def phase_kernels(ops, ref, policy_select, gen):
             plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bb), iters=10),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
 
+    rows.update(backward_kernels(ops, ref, randn))
     selection_kernels(ops, ref, policy_select, gen)
     log_timing()
+    return rows
+
+
+def flash_bwd_bound(q, k, causal, window) -> tuple:
+    """K2's backward: q, k, v, o, dO and the lse read once, dq, dk, dv
+    written once; the FA2 backward's five products (S, dP, dV, dK, dQ:
+    2·hd operations each) over the visible (query, key) pairs."""
+    from repro_torch.kernels import ref
+    B, H, Sq, hd = q.shape
+    pairs = int(ref.attention_mask(Sq, k.shape[2], causal, window,
+                                   q.device).sum())
+    return bound(q.element_size() * 4 * (q.numel() + k.numel())
+                 + 4 * B * H * Sq, 10 * hd * pairs * B * H, q.dtype)
+
+
+def backward_kernels(ops, ref, randn) -> dict:
+    """K2's and K5's backward kernels against their plain versions at the
+    training phase's shapes and edges, two calls each equal bit for bit
+    (no atomics); their kernels-line rows (fp32, the training shapes),
+    K2's with SDPA's backward at the same shape as its yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, H, KV, Sq, Sk, hd, causal, window) in enumerate(FLASH_BWD):
+            q = randn(B, Sq, H, hd, dtype=dtype).transpose(1, 2)
+            k = randn(B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+            v = randn(B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+            dout = randn(B, H, Sq, hd, dtype=dtype)  # not o's layout
+            with torch.no_grad():
+                o, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+            args = (q, k, v, o, lse, dout)
+            kw = dict(causal=causal, window=window)
+            err_lse = check(f"K2 lse {dtype}", lse,
+                            ref.flash_attention_lse_ref(q, k, v, **kw),
+                            TOL[torch.float32])
+            got = ops.flash_attention_bwd(*args, **kw)
+            again = ops.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_bwd_ref(*args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("flash_attention_bwd: two calls differ")
+            err = max(check_scaled(f"flash_attention_bwd d{n} {dtype}", g, w,
+                                   BWD_TOL[dtype])
+                      for n, g, w in zip("qkv", got, want))
+            log(f"K2-bwd flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} "
+                f"Sk={Sk} hd={hd} causal={causal} window={window} {dtype}: "
+                f"max err of max|d| {err:.3g} (tol {BWD_TOL[dtype]}), lse "
+                f"max_abs_err {err_lse:.3g}; two calls equal")
+            if i > 1 or dtype != torch.float32:
+                continue
+            # the training phase's two shapes (qwen2's, recurrentgemma's,
+            # whose window covers S): the backward beside SDPA's, and the
+            # forward with its LSE beside the serve call without it
+            arch = ("qwen2", "recurrentgemma")[i]
+            qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                          for t in (q, k, v))
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, enable_gqa=True)
+            doc = dout.contiguous()
+            b = flash_bwd_bound(q, k, causal, window)
+            row = dict(
+                name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/models/attention.py:84 (XLA autodiff of "
+                         "attention_full; the Pallas _flash_kernel, "
+                         "src/repro/kernels/flash_attention.py:28, has no "
+                         "backward)",
+                max_abs_err=err,
+                ms=time_ms(lambda: ops.flash_attention_bwd(*args, **kw),
+                           iters=10, label=f"K2-bwd {arch} train kernel"),
+                plain_ms=time_ms(
+                    lambda: ref.flash_attention_bwd_ref(*args, **kw),
+                    iters=5),
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    out, (qc, kc, vc), doc, retain_graph=True), iters=10,
+                    label=f"K2-bwd {arch} train SDPA backward"))
+            del out, qc, kc, vc
+            if i == 0:
+                rows["flash_attention_bwd"] = row
+            else:
+                extra(f"flash_attention_bwd B={B} H={H} KV={KV} S={Sq} "
+                      f"hd={hd} window={window} fp32", row["ms"],
+                      row["plain_ms"], b, row["library_ms"])
+            with torch.no_grad():
+                lse_ms = time_ms(lambda: fa._forward(q, k, v, causal, window,
+                                                     with_lse=True), iters=10)
+                serve_ms = time_ms(lambda: fa._forward(
+                    q, k, v, causal, window, with_lse=False), iters=10)
+            log(f"[extra] flash_attention forward at {arch}'s training "
+                f"shape fp32: with its lse {lse_ms:.5g} ms, without "
+                f"{serve_ms:.5g} ms")
+    for i, (B, S, W, dtype) in enumerate(RGLRU_BWD):
+        log_segments(B, S, W)
+        a = (torch.sigmoid(randn(B, S, W, dtype=torch.float32))
+             * 0.98).to(dtype)
+        b = (randn(B, S, W, dtype=torch.float32) * 0.1).to(dtype)
+        dh = randn(B, S, W, dtype=dtype)
+        with torch.no_grad():
+            h = ops.rglru_scan(a, b)
+        got = ops.rglru_scan_bwd(a, h, dh)
+        again = ops.rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_bwd_ref(a, h, dh)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("rglru_scan_bwd: two calls differ")
+        err = max(check_scaled(f"rglru_scan_bwd {n} {dtype}", g, w,
+                               BWD_TOL[dtype])
+                  for n, g, w in zip(("da", "db"), got, want))
+        log(f"K5-bwd rglru_scan_bwd B={B} S={S} W={W} {dtype}: max err of "
+            f"max|d| {err:.3g} (tol {BWD_TOL[dtype]}); two calls equal")
+        if i != 0:
+            continue
+        bb = bound(a.element_size() * 5 * a.numel(), 4 * a.numel(), dtype)
+        rows["rglru_scan_bwd"] = dict(
+            name="rglru_scan_bwd", route="cuda",
+            source="src/repro_torch/csrc/rglru_scan.cu",
+            replaces="src/repro/models/rglru.py:56 (XLA autodiff of "
+                     "rglru_scan_xla; the Pallas _rglru_kernel, "
+                     "src/repro/kernels/rglru_scan.py:21, has no backward)",
+            max_abs_err=err,
+            ms=time_ms(lambda: ops.rglru_scan_bwd(a, h, dh),
+                       label="K5-bwd kernel"),
+            plain_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh),
+                             iters=3),
+            bound_ms=bb[0], bound_by=bb[1], library_ms=None)
     return rows
 
 
@@ -1458,10 +1633,8 @@ def expected_launches(cfgs) -> dict:
     each config: prefill and decode attention per attention layer (and
     decode step), the SSD scan per SSD layer, the RG-LRU scan per RG-LRU
     layer; no selection kernel on the scalar path."""
-    want = dict(flash_attention=0, decode_attention=0,
-                decode_attention_int8=0, ssd_scan=0, rglru_scan=0,
-                modipick_probs=0, fused_select=0, charged_select=0,
-                stacked_select=0)
+    from repro_torch.kernels import ops
+    want = dict.fromkeys(ops.launch_counts(), 0)
     for cfg in cfgs:
         kinds = cfg.block_kinds
         n_attn = sum(k in ("attn", "local") for k in kinds)
@@ -1876,6 +2049,198 @@ def model_phase(arch, gen) -> dict:
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase "
         f"{time.perf_counter() - t0:.1f}s")
     del params, cache, outs, plain
+    release()
+    return counts
+
+
+def trace_step(label, step) -> None:
+    """One training step under torch.profiler: its wall time, the
+    device's busy and idle share, the kernels launched, and the top
+    device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f"{label} [trace] step {ms:.1f} ms under the profiler, "
+        f"{len(kernels)} device kernels, device busy {busy:.1f} ms (idle "
+        f"share {1 - busy / ms:.3f})")
+    top = sorted(prof.key_averages(),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    log(f"{label} [trace] top device self time: " + "; ".join(
+        f"{e.key} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+        for e in top))
+
+
+def train_phase(arch, ops) -> dict:
+    """``TRAIN[arch]`` at the published width and depth: fp32 parameters
+    and moments, remat "full", through ``make_train_step``.  Before any
+    step: the first step's loss and every leaf's gradient on the kernel
+    path against the plain path (``ops.PLAIN``) on the card, and the
+    peak memory of that step with and without remat.  Then
+    ``TRAIN_STEPS`` steps on one repeated batch (the loss must fall), a
+    checkpoint, one more step, and the same step again from the
+    checkpoint restored onto fresh templates (loss and every parameter
+    equal bit for bit).  The launch counters are zeroed just before the
+    steps and read just after: K2's and K5's backward kernels launch
+    once per attention / RG-LRU layer a step.  Returns the counts."""
+    import shutil
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import leaf_layout, named_leaves
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
+
+    t0 = time.perf_counter()
+    label = f"[train {arch}]"
+    cfg = get_config(arch)
+    check_published(arch, cfg)
+    B, S = TRAIN[arch]["B"], TRAIN[arch]["S"]
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    params = M.init_params(cfg, gen, torch.float32)
+    stream = TokenStream(cfg.vocab_size, B, S, seed=23)
+    batch = to_device(stream.batch_at(0), "cuda")
+    n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds)
+    n_rglru = sum(k == "rglru" for k in cfg.block_kinds)
+    log(f"{label} {cfg.param_count() / 1e9:.4g} B parameters fp32 "
+        f"({torch.cuda.memory_allocated() / 1e9:.3f} GB); B={B} S={S}; "
+        f"{n_attn} attention and {n_rglru} RG-LRU layers")
+
+    # the first step's gradients, kernel path against plain path, and
+    # the peak memory with and without remat
+    peak = {}
+    for remat in (False, True):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss_k, _, grads_k = loss_and_grads(
+            api.make_forward_loss(cfg, remat=remat), params, batch)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if not remat:
+            del grads_k
+    log(f"{label} peak memory of one forward and backward above the "
+        f"parameters: remat none {peak[False]:.3f} GB, remat full "
+        f"{peak[True]:.3f} GB")
+    loss_p, _, grads_p = loss_and_grads(
+        api.make_forward_loss(cfg, remat=True, impl=ops.PLAIN), params,
+        batch)
+    err_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not err_loss <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label} first-step loss {float(loss_k)} on "
+                             f"the kernel path, {float(loss_p)} on the "
+                             f"plain path")
+    worst = (0.0, "")
+    for path, g in grads_k.items():
+        want = grads_p[path]
+        err = float((g - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"{label} gradient of {path}: kernel path "
+                                 f"off by {err} of its max |gradient|")
+        worst = max(worst, (err, path))
+    log(f"{label} first step, kernel path against plain path: loss "
+        f"{float(loss_k):.6f} (rel err {err_loss:.3g}, tol "
+        f"{TRAIN_LOSS_RTOL}); {len(grads_k)} gradients, worst "
+        f"{worst[0]:.3g} of max |g| at {worst[1]} (tol {TRAIN_GRAD_TOL})")
+    del grads_k, grads_p
+
+    # steps on one repeated batch, with the counters zeroed around them
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=0, schedule="constant",
+                       remat="full", opt_moments="fp32")
+    step_fn = make_train_step(cfg, tcfg)
+    opt = init_opt_state(params, "fp32", leaf_layout(cfg, params))
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    log(f"{label} launches over {TRAIN_STEPS} steps " + json.dumps(counts))
+    # remat: a superblock's forward runs again in backward, the tail's not
+    stacked = cfg.block_kinds[:cfg.n_superblocks * len(cfg.pattern)]
+    want = {"flash_attention_bwd": n_attn * TRAIN_STEPS,
+            "rglru_scan_bwd": n_rglru * TRAIN_STEPS,
+            "flash_attention": (n_attn + sum(
+                k in ("attn", "local") for k in stacked)) * TRAIN_STEPS,
+            "rglru_scan": (n_rglru + stacked.count("rglru")) * TRAIN_STEPS}
+    got = {k: counts[k] for k in want}
+    if got != want or not counts["flash_attention_bwd"] > 0 or (
+            n_rglru and not counts["rglru_scan_bwd"] > 0):
+        raise AssertionError(f"{label} launches {got} != {want}")
+    if any(counts[k] for k in counts if k not in want):
+        raise AssertionError(f"{label} launched other kernels: {counts}")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label} the loss did not fall: {losses}")
+    step_s = float(np.median(times[1:]))
+    log(f"{label} losses " + " ".join(f"{x:.5f}" for x in losses)
+        + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+        f"first {times[0] * 1e3:.1f} ms), {B * S / step_s:.1f} tokens/s; "
+        f"per step K2-bwd {counts['flash_attention_bwd'] // TRAIN_STEPS}, "
+        f"K5-bwd {counts['rglru_scan_bwd'] // TRAIN_STEPS} launches; peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    # checkpoint, one more step, and the same step from the checkpoint
+    ckdir = str(Path(__file__).resolve().parent / "build" / "train_ckpt"
+                / arch)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ts = time.perf_counter()
+    ckpt.save(ckdir, TRAIN_STEPS, params, opt,
+              extra={"data": stream.state()}, keep_last=1)
+    save_s = time.perf_counter() - ts
+    params, opt, m_next = step_fn(params, opt, batch)  # the un-restored
+    del opt
+    release()
+    fresh = M.init_params(cfg, gen, torch.float32)
+    fresh_opt = init_opt_state(fresh, "fp32", leaf_layout(cfg, fresh))
+    ts = time.perf_counter()
+    fresh, fresh_opt, extra = ckpt.restore(ckdir, TRAIN_STEPS, fresh,
+                                           fresh_opt)
+    restore_s = time.perf_counter() - ts
+    if extra["data"] != stream.state() or int(fresh_opt.step) != TRAIN_STEPS:
+        raise AssertionError(f"{label} restored {extra}, step "
+                             f"{int(fresh_opt.step)}")
+    fresh, fresh_opt, m_again = step_fn(fresh, fresh_opt, batch)
+    torch.cuda.synchronize()
+    same = [path for (path, a), (_, b) in zip(named_leaves(params),
+                                                named_leaves(fresh))
+            if torch.equal(a, b)]
+    if float(m_again["loss"]) != float(m_next["loss"]) or len(same) != len(
+            named_leaves(params)):
+        raise AssertionError(
+            f"{label} the restored step differs: loss "
+            f"{float(m_again['loss'])} vs {float(m_next['loss'])}, "
+            f"{len(same)} of {len(named_leaves(params))} leaves equal")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"{label} checkpoint of step {TRAIN_STEPS}: save {save_s:.1f}s, "
+        f"restore {restore_s:.1f}s; the restored step equals the "
+        f"un-restored one bit for bit (loss {float(m_next['loss']):.6f}, "
+        f"{len(same)} leaves)")
+    del params
+    release()
+    trace_step(label, lambda: step_fn(fresh, fresh_opt, batch))
+    log(f"{label} phase {time.perf_counter() - t0:.1f}s")
+    del fresh, fresh_opt
     release()
     return counts
 
@@ -2897,6 +3262,11 @@ def main() -> int:
         launches[name] += c
     release()
 
+    # 4b. training at full width: forward and backward kernels
+    for arch in TRAIN:
+        for name, c in train_phase(arch, ops).items():
+            launches[name] += c
+
     # 5. the batched selection entry points on the executor's store
     counts, selection_rows = main_selection(ex, ops, ref, policy_select)
     log_timing()
@@ -2934,7 +3304,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     order = ("flash_attention", "decode_attention", "decode_attention_int8",
              "ssd_scan", "rglru_scan", "modipick_probs", "fused_select",
-             "charged_select", "stacked_select")
+             "charged_select", "stacked_select", "flash_attention_bwd",
+             "rglru_scan_bwd")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}

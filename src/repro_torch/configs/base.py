@@ -1,5 +1,4 @@
-"""Model configuration for the port: the reference's config system
-without its training settings.
+"""Configuration for the port: the reference's config system.
 
 A :class:`ModelConfig` carries the same fields, defaults and derived
 sizes as the reference's, for the block kinds and feed-forwards this
@@ -9,7 +8,7 @@ cross-attention, image embeddings before the text; bf16 or int8 KV
 caches); ``reduced`` and ``scaled`` give the same shapes the reference
 gives, so a port model and a reference model built from the same
 arguments hold the same parameters.  :data:`SHAPES` are the reference's
-batch shapes.
+batch shapes, :class:`TrainConfig` its training settings.
 """
 from __future__ import annotations
 
@@ -253,3 +252,25 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training settings, field for field with the same
+    defaults.  ``remat`` other than ``"none"`` recomputes each
+    superblock in the backward pass; ``compress_grads`` is carried and
+    read by nothing, as in the reference."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # cosine | linear | constant
+    remat: str = "full"  # none | full | dots
+    grad_accum: int = 1
+    opt_moments: str = "fp32"  # fp32 | int8 (8-bit Adam moments)
+    compress_grads: bool = False  # int8 + error-feedback all-reduce
+    seed: int = 0

@@ -60,6 +60,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBQ = 32;  // query rows per block (both bodies)
 constexpr int kBK = 32;  // keys per KV tile (both bodies)
 
@@ -106,7 +107,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <int HD>
 __global__ void __launch_bounds__(kF32Warps * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H,
                  int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                  Strides os, int causal, int window, float scale) {
   constexpr int DPL = (HD + 31) / 32;  // accumulator columns per lane
@@ -208,6 +210,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + warp * kRowsPerWarp + r;
     if (qi >= Sq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * H + h) * Sq + qi] = m[r] + logf(fmaxf(l[r], 1e-30f));
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -274,7 +278,8 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int H, int KV, int Sq, int Sk,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int H, int KV, int Sq, int Sk,
                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
                   int window, float scale) {
   constexpr int LD = tc_ld<HD>();
@@ -440,6 +445,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m, l are in log2 units
+    float* lr_ = lse + ((long long)b * H + h) * Sq;
+    if (r0 < Sq) lr_[r0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
+    if (r1 < Sq) lr_[r1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
+  }
   const int dc = (lane & 3) * 2;
 #pragma unroll
   for (int n = 0; n < ON; ++n) {
@@ -453,9 +463,318 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// Backward (FlashAttention-2): recompute P = exp(S·scale − lse) tile by
+// tile from the forward's log-sum-exp, never the (Sq, Sk) matrix.
+//
+// - `bwd_dot_kernel`: D = rowsum(dO ∘ O) in fp32, one warp a row.
+// - `bwd_dkdv_kernel`: one block a (batch, KV head, KV tile of kBK
+//   keys).  It walks the G query heads of its GQA group and, for each,
+//   the q tiles that can see its keys (the causal / window bounds of the
+//   forward give the range), and accumulates dV += Pᵀ dO and
+//   dK += dSᵀ Q · scale with dS = P ∘ (dO Vᵀ − D).  The group's sum stays
+//   inside the block: no atomics, so the gradients are the same bits
+//   from run to run.
+// - `bwd_dq_kernel`: one block a (batch, head, q tile) walks the KV tiles
+//   its rows see, dQ += dS K · scale.
+// Both bodies work in fp32 on the CUDA cores for either input type
+// (bf16 is widened as it is staged into shared memory).  The score tile
+// is computed with lane j on key j and a warp on 4 query rows; the
+// accumulation with 8 threads a row of the output tile, each on the
+// columns d ≡ t (mod 8).  Shared rows are padded by one float, so the 32
+// keys a warp reads fall in 32 banks.  At hd 256 a block holds 4 tiles
+// of 32 × 257 floats and two 32 × 33 ones: 140 KB, one block an SM.
+// What bounds it: shared-memory traffic of the CUDA-core products (about
+// one load an FMA); the tensor cores (`mma.sync` / `wgmma`) are the next
+// step.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdRows = kBQ / kBwdWarps;  // score rows a warp
+static_assert(kBQ == 32 && kBK == 32, "the backward maps a lane to a key");
+
+__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_val(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st_val(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (4 * 32 * (HD + 1) + 2 * 32 * (32 + 1) + 2 * 32);
+}
+
+// Stage rows [r0, r0 + 32) of a (seq, hd) slice into a padded fp32 tile;
+// rows at or past n are zero.
+template <typename T, int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           long long ss, int r0, int n) {
+  for (int e = threadIdx.x; e < 32 * HD; e += kBwdThreads) {
+    const int r = e / HD, c = e % HD;
+    dst[r * (HD + 1) + c] = r0 + r < n ? ld_f32(src + (r0 + r) * ss + c) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+               float* __restrict__ dsum, int H, int Sq, int hd, Strides os,
+               Strides ds) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * kBwdWarps + warp;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (qi >= Sq) return;
+  const T* orow = o + b * os.b + h * os.h + qi * os.s;
+  const T* drow = dout + b * ds.b + h * ds.h + qi * ds.s;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc += ld_f32(orow + d) * ld_f32(drow + d);
+  acc = warp_sum(acc);
+  if (lane == 0) dsum[((long long)b * H + h) * Sq + qi] = acc;
+}
+
+// The score tile's entries of this thread: rows warp + 8 r (r < 4) and
+// key lane; P and dS = P (dP − D) into sP, sdS ([32][33]).
+template <int HD>
+__device__ __forceinline__ void bwd_scores(
+    const float* sQ, const float* sdO, const float* sK, const float* sV,
+    const float* sL, const float* sD, float* sP, float* sdS, int q0, int k0,
+    int Sq, int Sk, int causal, int window, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s[kBwdRows], dp[kBwdRows];
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) s[r] = dp[r] = 0.f;
+  const float* krow = sK + lane * (HD + 1);
+  const float* vrow = sV + lane * (HD + 1);
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    const float kd = krow[d], vd = vrow[d];
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const int i = warp + kBwdWarps * r;
+      s[r] = fmaf(sQ[i * (HD + 1) + d], kd, s[r]);
+      dp[r] = fmaf(sdO[i * (HD + 1) + d], vd, dp[r]);
+    }
+  }
+  const int kj = k0 + lane;
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) {
+    const int i = warp + kBwdWarps * r;
+    const int qi = q0 + i;
+    const bool vis = qi < Sq && visible(qi, kj, Sk, causal, window);
+    const float p = vis ? expf(s[r] * scale - sL[i]) : 0.f;
+    sP[i * 33 + lane] = p;
+    sdS[i * 33 + lane] = p * (dp[r] - sD[i]);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Sq,
+                int Sk, Strides qs, Strides ks, Strides vs, Strides ds,
+                Strides dks, Strides dvs, int causal, int window,
+                float scale) {
+  constexpr int LD = HD + 1, CPT = HD / 8;  // columns a thread
+  extern __shared__ float bsm[];
+  float* sK = bsm;
+  float* sV = sK + 32 * LD;
+  float* sQ = sV + 32 * LD;
+  float* sdO = sQ + 32 * LD;
+  float* sP = sdO + 32 * LD;
+  float* sdS = sP + 32 * 33;
+  float* sL = sdS + 32 * 33;
+  float* sD = sL + 32;
+
+  const int k0 = blockIdx.x * kBK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x, row = tid >> 3, col = tid & 7;
+
+  stage_rows<T, HD>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, Sk);
+  stage_rows<T, HD>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, Sk);
+  float adk[CPT], adv[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) adk[c] = adv[c] = 0.f;
+
+  // the q rows that can see keys [k0, k0 + kBK)
+  const int q_lo = causal ? (k0 / kBQ) * kBQ : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kBK - 1 + window) : Sq;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* db = dout + b * ds.b + h * ds.h;
+    const float* lb = lse + ((long long)b * H + h) * Sq;
+    const float* Db = dsum + ((long long)b * H + h) * Sq;
+    for (int q0 = q_lo; q0 < q_hi; q0 += kBQ) {
+      __syncthreads();  // the previous tile's readers are done
+      stage_rows<T, HD>(sQ, qb, qs.s, q0, Sq);
+      stage_rows<T, HD>(sdO, db, ds.s, q0, Sq);
+      if (tid < 32) {
+        sL[tid] = q0 + tid < Sq ? lb[q0 + tid] : 0.f;
+        sD[tid] = q0 + tid < Sq ? Db[q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      bwd_scores<HD>(sQ, sdO, sK, sV, sL, sD, sP, sdS, q0, k0, Sq, Sk, causal,
+                     window, scale);
+      __syncthreads();
+      // dV[row] += Σ_i P[i][row] dO[i];  dK[row] += Σ_i dS[i][row] Q[i]
+      for (int i = 0; i < kBQ; ++i) {
+        const float p = sP[i * 33 + row], dsv = sdS[i * 33 + row];
+        const float* qr = sQ + i * LD + col;
+        const float* dr = sdO + i * LD + col;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          adv[c] = fmaf(p, dr[8 * c], adv[c]);
+          adk[c] = fmaf(dsv, qr[8 * c], adk[c]);
+        }
+      }
+    }
+  }
+  const int kj = k0 + row;
+  if (kj >= Sk) return;
+  T* dkr = dk + b * dks.b + kvh * dks.h + kj * dks.s;
+  T* dvr = dv + b * dvs.b + kvh * dvs.h + kj * dvs.s;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    st_val(dkr + col + 8 * c, adk[c] * scale);
+    st_val(dvr + col + 8 * c, adv[c]);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              T* __restrict__ dq, int H, int KV, int Sq, int Sk, Strides qs,
+              Strides ks, Strides vs, Strides ds, Strides dqs, int causal,
+              int window, float scale) {
+  constexpr int LD = HD + 1, CPT = HD / 8;
+  extern __shared__ float bsm[];
+  float* sQ = bsm;
+  float* sdO = sQ + 32 * LD;
+  float* sK = sdO + 32 * LD;
+  float* sV = sK + 32 * LD;
+  float* sP = sV + 32 * LD;
+  float* sdS = sP + 32 * 33;
+  float* sL = sdS + 32 * 33;
+  float* sD = sL + 32;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, row = tid >> 3, col = tid & 7;
+
+  stage_rows<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
+  stage_rows<T, HD>(sdO, dout + b * ds.b + h * ds.h, ds.s, q0, Sq);
+  if (tid < 32) {
+    const long long base = ((long long)b * H + h) * Sq;
+    sL[tid] = q0 + tid < Sq ? lse[base + q0 + tid] : 0.f;
+    sD[tid] = q0 + tid < Sq ? dsum[base + q0 + tid] : 0.f;
+  }
+  float adq[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) adq[c] = 0.f;
+
+  int k_lo, k_hi;
+  kv_range(q0, Sq, Sk, causal, window, k_lo, k_hi);
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+    __syncthreads();
+    stage_rows<T, HD>(sK, kb, ks.s, k0, Sk);
+    stage_rows<T, HD>(sV, vb, vs.s, k0, Sk);
+    __syncthreads();
+    bwd_scores<HD>(sQ, sdO, sK, sV, sL, sD, sP, sdS, q0, k0, Sq, Sk, causal,
+                   window, scale);
+    __syncthreads();
+    // dQ[row] += Σ_j dS[row][j] K[j]
+    for (int j = 0; j < kBK; ++j) {
+      const float dsv = sdS[row * 33 + j];
+      const float* kr = sK + j * LD + col;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) adq[c] = fmaf(dsv, kr[8 * c], adq[c]);
+    }
+  }
+  const int qi = q0 + row;
+  if (qi >= Sq) return;
+  T* dqr = dq + b * dqs.b + h * dqs.h + qi * dqs.s;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) st_val(dqr + col + 8 * c, adq[c] * scale);
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dsum, void* dq,
+               void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
+               const Strides* st, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<HD>();
+  auto kdkdv = bwd_dkdv_kernel<T, HD>;
+  auto kdq = bwd_dq_kernel<T, HD>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(
+        kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dp = static_cast<const T*>(dout);
+  // st: q, k, v, o, dout, dq, dk, dv
+  bwd_dot_kernel<T><<<dim3((Sq + kBwdWarps - 1) / kBwdWarps, H, B),
+                      kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), dp, dsum, H, Sq, HD, st[3], st[4]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kdkdv<<<dim3((Sk + kBK - 1) / kBK, KV, B), kBwdThreads, smem, stream>>>(
+      qp, kp, vp, dp, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H,
+      KV, Sq, Sk, st[0], st[1], st[2], st[4], st[6], st[7], causal, window,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kdq<<<dim3((Sq + kBQ - 1) / kBQ, H, B), kBwdThreads, smem, stream>>>(
+      qp, kp, vp, dp, lse, dsum, static_cast<T*>(dq), H, KV, Sq, Sk, st[0],
+      st[1], st[2], st[4], st[5], causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(int hd, const void* q, const void* k, const void* v,
+                 const void* o, const void* dout, const float* lse,
+                 float* dsum, void* dq, void* dk, void* dv, int B, int H,
+                 int KV, int Sq, int Sk, const Strides* st, int causal,
+                 int window, float scale, cudaStream_t s) {
+#define BWD_CASE(HD)                                                        \
+  case HD:                                                                  \
+    return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H, \
+                             KV, Sq, Sk, st, causal, window, scale, s);
+  switch (hd) {
+    BWD_CASE(16)
+    BWD_CASE(32)
+    BWD_CASE(64)
+    BWD_CASE(128)
+    BWD_CASE(256)
+    default:
+      return -1;
+  }
+#undef BWD_CASE
+}
+
+// ---------------------------------------------------------------------
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B,
                int H, int KV, int Sq, int Sk, Strides qs, Strides ks,
                Strides vs, Strides os, int causal, int window, float scale,
                cudaStream_t stream) {
@@ -467,13 +786,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kF32Warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk, qs,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
+      Sk, qs,
       ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B,
                 int H, int KV, int Sq, int Sk, Strides qs, Strides ks,
                 Strides vs, Strides os, int causal, int window, float scale,
                 cudaStream_t stream) {
@@ -490,18 +811,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kTcWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk, qs,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Sq, Sk,
+      qs,
       ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 #define FLASH_DISPATCH(fn)                                                    \
   switch (hd) {                                                              \
-    case 16: return fn<16>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
-    case 32: return fn<32>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
-    case 64: return fn<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
-    case 128: return fn<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st); \
-    case 256: return fn<256>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st); \
+    case 16: return fn<16>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
+    case 32: return fn<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
+    case 64: return fn<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st);   \
+    case 128: return fn<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st); \
+    case 256: return fn<256>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, window, scale, st); \
     default: return -1;                                                      \
   }
 
@@ -512,14 +834,44 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // dtype / head size.
 extern "C" int flash_attention_fwd(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KV, int Sq, int Sk, long long qsb, long long qsh,
+    void* lse_ptr, int B, int H, int KV, int Sq, int Sk, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     int causal, int window, float scale, void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (dtype == 0) FLASH_DISPATCH(launch_f32)
   if (dtype == 1) FLASH_DISPATCH(launch_bf16)
+  return -1;
+}
+
+// The backward of flash_attention_fwd (same dtype, hd, mask and scale).
+// lse (B, H, Sq) fp32 is the forward's log-sum-exp; dsum (B, H, Sq) fp32
+// is scratch for D.  strides: 24 (batch, head, seq) element strides, of
+// q, k, v, o, dout, dq, dk, dv in that order, hd contiguous in each.
+// dq, dk and dv are written whole (no accumulation into them).  Returns
+// cudaGetLastError() after the last launch, or -1 for an unsupported
+// dtype / head size.
+extern "C" int flash_attention_bwd(
+    int dtype, int hd, const void* q, const void* k, const void* v,
+    const void* o, const void* dout, const void* lse, void* dsum, void* dq,
+    void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
+    const long long* strides, int causal, int window, float scale,
+    void* stream) {
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* D = static_cast<float*>(dsum);
+  if (dtype == 0)
+    return dispatch_bwd<float>(hd, q, k, v, o, dout, l, D, dq, dk, dv, B, H,
+                               KV, Sq, Sk, st, causal, window, scale, s);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(hd, q, k, v, o, dout, l, D, dq, dk, dv,
+                                       B, H, KV, Sq, Sk, st, causal, window,
+                                       scale, s);
   return -1;
 }

@@ -134,6 +134,118 @@ int launch(const void* a, const void* b, void* h, int B, int S, int W,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// Backward.  With g_t = ∂L/∂h_t through the recurrence,
+//   g_t = dh_t + a_{t+1} g_{t+1},  da_t = g_t h_{t-1} (h_{-1} = 0),
+//   db_t = g_t,
+// the forward's affine recurrence read from the end: the carry
+// x = a_{t+1} g_{t+1} flows right to left, x' = a_t (dh_t + x).  The same
+// segment plan and two passes apply with the segments walked backwards:
+// pass 1 composes each segment's map x_in -> x_out from its right end,
+// the block combines the maps of the segments to the right of each one
+// into its carry-in, and pass 2 re-walks the segment from it, writing
+// da and db.  a, h and dh are read once (h_{t-1} shifted by a step);
+// bytes bound it, as the forward.
+template <typename T, bool kCached>
+__global__ void __launch_bounds__(kCh * kMaxSeg)
+rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                 const T* __restrict__ dh, T* __restrict__ da,
+                 T* __restrict__ db, int S, int W, int seg, long long asb,
+                 long long ass, long long hsb, long long hss, long long gsb,
+                 long long gss, long long dasb, long long dass, long long dbsb,
+                 long long dbss) {
+  __shared__ float sProd[kMaxSeg][kCh], sLoc[kMaxSeg][kCh];
+  const int ch = threadIdx.x, sg = threadIdx.y, n_seg = blockDim.y;
+  const int w = blockIdx.x * kCh + ch;
+  const bool on = w < W;
+  const long long bi = blockIdx.y;
+  const int s_lo = sg * seg, s_hi = min(S, s_lo + seg);
+  const T* ap = a + bi * asb + w;
+  const T* hp = h + bi * hsb + w;
+  const T* gp = dh + bi * gsb + w;
+  T* dap = da + bi * dasb + w;
+  T* dbp = db + bi * dbsb + w;
+
+  // pass 1: the segment's map x -> prod x + loc, from its right end
+  float av[kCached ? kR : 1], gv[kCached ? kR : 1], hv[kCached ? kR : 1];
+  float prod = 1.f, loc = 0.f;
+  if (kCached) {
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int s = s_lo + i;
+      const bool in = on && s < s_hi;
+      av[i] = in ? to_f32(ap[s * ass]) : 1.f;
+      gv[i] = in ? to_f32(gp[s * gss]) : 0.f;
+      hv[i] = in && s > 0 ? to_f32(hp[(s - 1) * hss]) : 0.f;
+    }
+#pragma unroll
+    for (int i = kR - 1; i >= 0; --i) {
+      loc = av[i] * (gv[i] + loc);
+      prod *= av[i];
+    }
+  } else if (on) {
+    for (int s = s_hi - 1; s >= s_lo; --s) {
+      const float x = to_f32(ap[s * ass]);
+      loc = x * (to_f32(gp[s * gss]) + loc);
+      prod *= x;
+    }
+  }
+  sProd[sg][ch] = prod;
+  sLoc[sg][ch] = loc;
+  __syncthreads();
+
+  // the carry into this segment from the segments to its right
+  float carry = 0.f;
+  for (int k = n_seg - 1; k > sg; --k)
+    carry = fmaf(sProd[k][ch], carry, sLoc[k][ch]);
+  if (!on) return;
+
+  // pass 2: the segment from its carry, right to left
+  if (kCached) {
+#pragma unroll
+    for (int i = kR - 1; i >= 0; --i) {
+      const int s = s_lo + i;
+      if (s < s_hi) {
+        const float g = gv[i] + carry;
+        dap[s * dass] = from_f32<T>(g * hv[i]);
+        dbp[s * dbss] = from_f32<T>(g);
+        carry = av[i] * g;
+      }
+    }
+  } else {
+    for (int s = s_hi - 1; s >= s_lo; --s) {
+      const float g = to_f32(gp[s * gss]) + carry;
+      const float hprev = s > 0 ? to_f32(hp[(s - 1) * hss]) : 0.f;
+      dap[s * dass] = from_f32<T>(g * hprev);
+      dbp[s * dbss] = from_f32<T>(g);
+      carry = to_f32(ap[s * ass]) * g;
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* a, const void* h, const void* dh, void* da,
+               void* db, int B, int S, int W, int seg, const long long* st,
+               cudaStream_t stream) {
+  const int n_seg = (S + seg - 1) / seg;
+  if (seg < 1 || n_seg > kMaxSeg) return -1;
+  const dim3 grid((W + kCh - 1) / kCh, B), block(kCh, n_seg);
+  const T* ap = static_cast<const T*>(a);
+  const T* hp = static_cast<const T*>(h);
+  const T* gp = static_cast<const T*>(dh);
+  T* dap = static_cast<T*>(da);
+  T* dbp = static_cast<T*>(db);
+  if (seg <= kR)
+    rglru_bwd_kernel<T, true><<<grid, block, 0, stream>>>(
+        ap, hp, gp, dap, dbp, S, W, seg, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], st[9]);
+  else
+    rglru_bwd_kernel<T, false><<<grid, block, 0, stream>>>(
+        ap, hp, gp, dap, dbp, S, W, seg, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], st[9]);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (a, b and h share it).  seg: the
@@ -150,5 +262,25 @@ extern "C" int rglru_scan_fwd(int dtype, const void* a, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, b, h, B, S, W, seg, st, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, b, h, B, S, W, seg, st, s);
+  return -1;
+}
+
+// The backward of rglru_scan_fwd: from a, the forward's output h and
+// dh = dL/dh (all (B, S, W), one dtype), da and db.  seg as for the
+// forward.  Strides are in elements: the (batch, seq) strides of a, h,
+// dh, da, db in that order.  Returns cudaGetLastError() after the
+// launch, or -1 for an unsupported dtype or segment length.
+extern "C" int rglru_scan_bwd(int dtype, const void* a, const void* h,
+                              const void* dh, void* da, void* db, int B,
+                              int S, int W, int seg, long long asb,
+                              long long ass, long long hsb, long long hss,
+                              long long gsb, long long gss, long long dasb,
+                              long long dass, long long dbsb, long long dbss,
+                              void* stream) {
+  const long long st[10] = {asb, ass, hsb, hss, gsb, gss, dasb, dass, dbsb, dbss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(a, h, dh, da, db, B, S, W, seg, st, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(a, h, dh, da, db, B, S, W, seg, st, s);
   return -1;
 }

@@ -3,17 +3,24 @@
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its hand-written kernel for a tensor on the card (or raises);
 it adds one to its ``launches`` count each time it launches the kernel,
-and nowhere else.  All kernels are CUDA C++ for ``sm_90a``, one source
-each under ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
-(``kernels/build.py``); the four selection kernels share one source.
+and nowhere else.  ``flash_attention`` and ``rglru_scan`` have backward
+kernels (``flash_attention_bwd``, ``rglru_scan_bwd``, counted on their
+own), which autograd launches on the card; every other wrapper raises
+under grad mode on an input that requires grad (``build.refuse_grad``).
+All kernels are CUDA C++ for ``sm_90a``, one source each under
+``csrc/``, built with ``nvcc`` and bound with ``ctypes``
+(``kernels/build.py``); the four selection kernels share one source, and
+each backward kernel its forward's.
 
 | wrapper            | kernel                          | replaces (reference ``kernels/``)            |
 | ------------------ | ------------------------------- | -------------------------------------------- |
 | ``flash_attention``  | ``csrc/flash_attention.cu``   | ``flash_attention.py`` ``_flash_kernel``         |
+| ``flash_attention_bwd`` | ``csrc/flash_attention.cu`` | the reference's XLA autodiff of ``attention_full`` / ``attention_windowed`` (``models/attention.py``) |
 | ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
 | ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode step (``models/attention.py``: quantize and write the new token, dequantize, einsums) |
 | ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
 | ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
+| ``rglru_scan_bwd``   | ``csrc/rglru_scan.cu``        | the reference's XLA autodiff of ``rglru_scan_xla`` (``models/rglru.py``) |
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |
 | ``fused_select``     | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_fused_select`` (jnp)     |
 | ``charged_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_charged_step`` under ``lax.scan`` |
@@ -26,15 +33,19 @@ from typing import Callable, Dict, NamedTuple
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.policy_select import (charged_select, fused_select,
                                                modipick_probs, stacked_select)
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 WRAPPERS = (flash_attention, decode_attention, decode_attention_int8,
             ssd_scan, rglru_scan, modipick_probs, fused_select,
-            charged_select, stacked_select)
+            charged_select, stacked_select, flash_attention_bwd,
+            rglru_scan_bwd)
+# The wrappers whose kernel has a backward kernel on the card.
+DIFFERENTIABLE = (flash_attention, rglru_scan)
 
 
 class ModelKernels(NamedTuple):

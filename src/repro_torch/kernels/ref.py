@@ -14,22 +14,67 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
     """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) → (B,H,Sq,hd). Naive full softmax."""
-    B, H, Sq, hd = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    group = H // KV
-    kx = k.repeat_interleave(group, dim=1)
-    vx = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) * hd ** -0.5
-    qi = torch.arange(Sq, device=q.device)[:, None]
-    kj = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    s, _ = _scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    vx = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx.float()).to(q.dtype)
+
+
+def attention_mask(Sq, Sk, causal, window, device):
+    """(Sq, Sk) bool: which keys each query row sees."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kj <= qi
     if window > 0:
         mask &= kj > qi - window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vx.float()).to(q.dtype)
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """fp32 scaled scores (B,H,Sq,Sk) of q against the GQA-expanded k,
+    masked to NEG_INF, and the mask."""
+    group = q.shape[1] // k.shape[1]
+    kx = k.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) \
+        * q.shape[-1] ** -0.5
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def flash_attention_lse_ref(q, k, v, *, causal=True, window=0):
+    """The forward's log-sum-exp (B,H,Sq) fp32: logsumexp over the
+    visible keys of the scaled scores, the ``lse`` K2 writes for its
+    backward."""
+    s, _ = _scores(q, k, causal, window)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal=True,
+                            window=0):
+    """The FlashAttention-2 backward over full score matrices, in fp32:
+    P = exp(S·scale − lse) on the visible keys, dV = Pᵀ dO, dP = dO Vᵀ,
+    D = rowsum(dO ∘ O), dS = P ∘ (dP − D), dQ = dS K · scale,
+    dK = dSᵀ Q · scale, dK and dV summed over each GQA group.  Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    group = H // KV
+    s, mask = _scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    do, vx = dout.float(), v.repeat_interleave(group, dim=1).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vx)
+    D = torch.sum(do * o.float(), dim=-1, keepdim=True)
+    ds = p * (dp - D)
+    scale = hd ** -0.5
+    kx = k.repeat_interleave(group, dim=1).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.view(B, KV, group, Sk, hd).sum(2)
+    dv = dv.view(B, KV, group, Sk, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, pos, *, window=0):
@@ -334,3 +379,23 @@ def rglru_scan_ref(a, b):
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a, h, dh):
+    """The backward of ``rglru_scan_ref`` as a reverse loop in fp32, from
+    a and the forward's output h: g_t = dh_t + a_{t+1} g_{t+1},
+    da_t = g_t h_{t−1} (h_{−1} = 0), db_t = g_t.  Returns (da, db) in
+    a.dtype."""
+    af, hf, gf = a.float(), h.float(), dh.float()
+    g = torch.zeros_like(af[:, 0])
+    da, db = [], []
+    for t in range(a.shape[1] - 1, -1, -1):
+        if t + 1 < a.shape[1]:
+            g = gf[:, t] + af[:, t + 1] * g
+        else:
+            g = gf[:, t]
+        db.append(g)
+        da.append(g * hf[:, t - 1] if t > 0 else torch.zeros_like(g))
+    da = torch.stack(da[::-1], dim=1)
+    db = torch.stack(db[::-1], dim=1)
+    return da.to(a.dtype), db.to(a.dtype)

@@ -14,6 +14,13 @@ segment's carry-in, and each thread re-walks its segment from it.
 On a CPU tensor the wrapper runs the plain version
 (``ref.rglru_scan_ref``); on a CUDA tensor it launches the kernel or
 raises.
+
+Training: on a CUDA tensor under grad mode with an input that requires
+grad, :func:`rglru_scan` runs through :class:`RGLRUScan`, whose forward
+launches the same kernel and saves a and h, and whose backward launches
+the backward kernel (:func:`rglru_scan_bwd`): g_t = dh_t + a_{t+1}
+g_{t+1}, da_t = g_t h_{t−1}, db_t = g_t, the same segments walked from
+the end.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.kernels.flash_attention import DTYPES
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_I, _P, _P, _P, _I, _I, _I, _I] + [_L] * 6 + [_P]
+_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 10 + [_P]
 
 CHANNELS = 32      # channels a block (kCh in the kernel)
 MAX_SEGMENTS = 32  # segments a block (kMaxSeg)
@@ -63,15 +71,7 @@ def _check(a, b) -> None:
                          "contiguous (stride 1) in a and b")
 
 
-def rglru_scan(a, b):
-    """a, b: (B,S,W).  Returns h: (B,S,W) in a.dtype with
-    h_t = a_t h_{t−1} + b_t."""
-    _check(a, b)
-    if a.device.type == "cpu":
-        return ref.rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan has no path for {a.device}")
-    build.refuse_grad("rglru_scan", a, b)
+def _forward(a, b):
     fn = build.function("rglru_scan", "rglru_scan_fwd", _ARGTYPES)
     B, S, W = a.shape
     seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))
@@ -86,4 +86,72 @@ def rglru_scan(a, b):
     return h
 
 
+class RGLRUScan(torch.autograd.Function):
+    """K5 with its backward kernel: what :func:`rglru_scan` runs on the
+    card when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, dh)
+
+
+def rglru_scan(a, b):
+    """a, b: (B,S,W).  Returns h: (B,S,W) in a.dtype with
+    h_t = a_t h_{t−1} + b_t."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan has no path for {a.device}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return RGLRUScan.apply(a, b)
+    return _forward(a, b)
+
+
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a, h, dh):
+    """(da, db) of ``h = rglru_scan(a, b)`` for the output gradient dh,
+    from a and the forward's h (all (B,S,W), W contiguous; dh is cast to
+    a's dtype).  On a CPU tensor the plain version
+    (``ref.rglru_scan_bwd_ref``); on a CUDA tensor the kernel, or
+    raises."""
+    _check(a, h)
+    if dh.shape != a.shape:
+        raise ValueError(f"dh {tuple(dh.shape)} must have a's shape "
+                         f"{tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return ref.rglru_scan_bwd_ref(a, h, dh)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd has no path for {a.device}")
+    if dh.device != a.device:
+        raise ValueError("a, h and dh must lie on one device")
+    build.refuse_grad("rglru_scan_bwd", a, h, dh)
+    dh = dh.to(a.dtype)
+    if dh.stride(2) != 1:
+        dh = dh.contiguous()
+    fn = build.function("rglru_scan", "rglru_scan_bwd", _BWD_ARGTYPES)
+    B, S, W = a.shape
+    seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))
+    da = torch.empty((B, S, W), dtype=a.dtype, device=a.device)
+    db = torch.empty_like(da)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = fn(DTYPES[a.dtype], a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+             da.data_ptr(), db.data_ptr(), B, S, W, seg,
+             *(s for t in (a, h, dh, da, db) for s in t.stride()[:2]),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan_bwd kernel launch failed (error {err})")
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
+rglru_scan_bwd.launches = 0

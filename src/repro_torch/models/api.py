@@ -5,8 +5,7 @@ The reference returns ``jax.ShapeDtypeStruct``s for its dry-run; the
 port has none, so a spec is a ``(shape tuple, torch dtype)`` pair and a
 decode step's cache is the port's per-layer list of such pairs
 (``model.cache_specs``).  Nothing here allocates but
-:func:`make_train_batch`.  Training's loss (``make_forward_loss``) is
-not ported.
+:func:`make_train_batch`.
 """
 from __future__ import annotations
 
@@ -51,6 +50,15 @@ def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     B = shape.global_batch
     return {"tokens": ((B,), torch.int32), "pos": ((B,), torch.int32),
             "cache": M.cache_specs(cfg, B, shape.seq_len, act_dtype(cfg))}
+
+
+def make_forward_loss(cfg: ModelConfig, remat: bool = False,
+                      impl: ModelKernels = KERNELS):
+    """The training loss ``loss_fn(params, batch) -> (loss, metrics)``
+    (``model.forward_train``)."""
+    def loss_fn(params, batch):
+        return M.forward_train(cfg, params, batch, remat=remat, impl=impl)
+    return loss_fn
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int,

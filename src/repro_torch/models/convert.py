@@ -19,11 +19,20 @@ and each decoder layer's ``norm_x`` and ``xattn`` are carried beside its
 self-attention.  Every leaf is copied with
 ``np.array`` before it becomes a tensor, so no tensor shares memory with
 a read-only buffer.
+
+:func:`from_jax_opt_state` carries the reference's optimizer state the
+same way, and :func:`leaf_layout` says, for each leaf of the port's
+parameters, what the reference's optimizer sees there: whether the
+reference stacks it (a superblock's layer, or an encoder layer, gains a
+leading layer axis there), and the widths of the reference leaves a
+fused leaf holds side by side along its last axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from typing import Dict, List, NamedTuple, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -123,3 +132,108 @@ def from_jax_params(cfg: ModelConfig, params_np, *, dtype=torch.float32,
                           for j in range(cfg.encdec.n_encoder_layers))],
             "final_norm": _tensor(enc["final_norm"]["scale"], dtype, device)}
     return params
+
+
+def named_leaves(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """(path, leaf) of every leaf of a tree of dicts and lists, in order;
+    a path joins dict keys and list indices with ``/``
+    (``layers/3/wqkv``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key, sub in items:
+        out += named_leaves(sub, f"{prefix}/{key}" if prefix else str(key))
+    return out
+
+
+class LeafLayout(NamedTuple):
+    """What the reference's optimizer sees at a leaf of the port."""
+    stacked: bool                # the reference holds it with a layer axis
+    segments: Tuple[int, ...]    # widths of the fused reference leaves
+
+
+def _fused_segments(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Segment widths of the fused leaves, by their path inside a layer."""
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    seg = {"wqkv": (H * hd, KV * hd, KV * hd),
+           "xattn/wkv": (KV * hd, KV * hd)}
+    seg["bqkv"], seg["xattn/bkv"] = seg["wqkv"], seg["xattn/wkv"]
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_in, n = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+        seg["ssd/w_in"] = (d_in, d_in, n, n, s.n_heads(cfg.d_model))
+        seg["ssd/conv_w"] = seg["ssd/conv_b"] = (d_in, n, n)
+    if cfg.rglru is not None:
+        w = cfg.rglru.width(cfg.d_model)
+        for key in ("w_in", "w_gates", "b_gates"):
+            seg[f"rglru/{key}"] = (w, w)
+    return seg
+
+
+def leaf_layout(cfg: ModelConfig, params) -> Dict[str, LeafLayout]:
+    """Each leaf path of ``params`` (the port's parameters of ``cfg``)
+    → its :class:`LeafLayout`.  The reference stacks the layers of its
+    superblocks (layer ``i < n_superblocks · len(pattern)``) and every
+    encoder layer; the tail, the embedding, the head and the final norms
+    are unstacked.  An unfused leaf is one segment of its last axis."""
+    fused = _fused_segments(cfg)
+    n_stacked = cfg.n_superblocks * len(cfg.pattern)
+    out = {}
+    for path, leaf in named_leaves(params):
+        parts = path.split("/")
+        if parts[0] == "layers":
+            stacked, inner = int(parts[1]) < n_stacked, "/".join(parts[2:])
+        elif parts[:2] == ["encoder", "layers"]:
+            stacked, inner = True, "/".join(parts[3:])
+        else:
+            stacked, inner = False, path
+        last = leaf.shape[-1] if leaf.dim() else 1
+        segs = fused.get(inner, (last,))
+        if sum(segs) != last:
+            raise ValueError(f"{path}: segments {segs} do not cover its "
+                             f"last axis of {last}")
+        out[path] = LeafLayout(stacked, segs)
+    return out
+
+
+def _split_q8(tree, field):
+    """The reference's moment tree with each int8 leaf (a dict of ``q``,
+    ``scale`` [and ``lo``]) replaced by its ``field``."""
+    if isinstance(tree, dict):
+        if "q" in tree and set(tree) <= {"q", "scale", "lo"}:
+            return tree[field]
+        return {k: _split_q8(v, field) for k, v in tree.items()}
+    return tree
+
+
+def from_jax_opt_state(cfg: ModelConfig, opt_np, *, device="cuda"):
+    """Map the reference's ``OptState`` (``step``, ``mu``, ``nu`` as
+    numpy trees, fp32 or int8 moments) onto the port's
+    (``training.optimizer.OptState``), on ``device``.  An int8 moment's
+    ``q`` is carried like its parameter, its per-row ``scale`` (and
+    ``lo``) fused side by side in the order of the fused leaves: one
+    scale per segment, the port's layout."""
+    from repro_torch.training.optimizer import OptState
+    dev = resolve_device(device)
+
+    def moments(tree, fields):
+        if not fields:
+            return dict(named_leaves(from_jax_params(
+                cfg, tree, dtype=torch.float32, device=dev)))
+        parts = {f: dict(named_leaves(from_jax_params(
+            cfg, _split_q8(tree, f),
+            dtype=torch.int8 if f == "q" else torch.float32, device=dev)))
+            for f in fields}
+        return {path: {f: parts[f][path] for f in fields}
+                for path in parts["q"]}
+
+    int8 = isinstance(opt_np.mu["final_norm"]["scale"], dict)
+    step = torch.tensor(int(np.asarray(opt_np.step)), dtype=torch.int32,
+                        device=dev)
+    return OptState(step, moments(opt_np.mu, ("q", "scale") if int8 else ()),
+                    moments(opt_np.nu,
+                            ("q", "scale", "lo") if int8 else ()))

@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -217,8 +218,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
     """Token embeddings (scaled by √D where the config says so), plus
     fp32 sinusoidal positions cast to their dtype for a config without
-    RoPE when ``positions`` are given."""
-    x = params["embed"][tokens]
+    RoPE when ``positions`` are given.  The lookup is ``F.embedding``,
+    whose backward on the card sums a token's rows in a fixed order (an
+    indexed read's backward adds them atomically), so a training step
+    gives the same bits every run."""
+    x = F.embedding(tokens, params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
                          device=x.device)
@@ -237,13 +241,20 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def ffn_block(cfg: ModelConfig, p, x, routing=None):
-    """x + the layer's feed-forward of its second norm: the MLP, or the
-    MoE (routed by ``routing`` when given, else by its own input)."""
+def ffn_aux(cfg: ModelConfig, p, x, routing=None):
+    """(x + the layer's feed-forward of its second norm, the MoE's Switch
+    load-balancing loss or None): the MLP, or the MoE (routed by
+    ``routing`` when given, else by its own input)."""
     h2 = apply_norm(cfg.norm, x, p["norm2"], cfg.norm_eps)
     if cfg.moe is not None:
-        return x + moe_mod.moe_ffn(p["mlp"], h2, cfg, routing)[0]
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp)
+        out, aux = moe_mod.moe_ffn(p["mlp"], h2, cfg, routing)
+        return x + out, aux
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp), None
+
+
+def ffn_block(cfg: ModelConfig, p, x, routing=None):
+    """x + the layer's feed-forward (:func:`ffn_aux` without the loss)."""
+    return ffn_aux(cfg, p, x, routing)[0]
 
 
 def rope_for(cfg: ModelConfig, positions):
@@ -322,7 +333,8 @@ def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
     """A layer's first half over the full sequence: x + its mixer
     (attention, SSD or RG-LRU) of its first norm, and for an ``xdec``
     layer its cross-attention over ``enc_out``.  x: (B,S,D).  Returns
-    (x, the layer's cache)."""
+    (x, the layer's cache); an attention layer's cache is None when
+    ``cache_len`` is (training keeps none)."""
     h = apply_norm(cfg.norm, x, p["norm1"], cfg.norm_eps)
     if kind == "ssd":
         out, cache = ssm_mod.ssd_prefill(p["ssd"], h, cfg, impl)
@@ -333,7 +345,9 @@ def mix_prefill(cfg: ModelConfig, kind: str, p, x, tables, cache_len: int,
                                             cache_len=cache_len, impl=impl)
     x = x + out
     if kind == "xdec":
-        x, cache["xk"], cache["xv"] = cross_block(cfg, p, x, enc_out, impl)
+        x, xk, xv = cross_block(cfg, p, x, enc_out, impl)
+        if cache is not None:
+            cache["xk"], cache["xv"] = xk, xv
     return x, cache
 
 
@@ -404,3 +418,77 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
         x, cache[i] = block_decode(cfg, kind, p, x, cache[i], pos, tables,
                                    impl)
     return final_logits(cfg, params, x), cache
+
+
+# ----------------------------------------------------------------------
+# Training
+# ----------------------------------------------------------------------
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_train(cfg: ModelConfig, kind: str, p, x, tables,
+                impl: ModelKernels = KERNELS, enc_out=None):
+    """One layer over the full sequence for training: (x, aux), aux the
+    layer's MoE load-balancing loss (0 for a dense feed-forward or an
+    ``ssd`` layer)."""
+    x, _ = mix_prefill(cfg, kind, p, x, tables, None, impl, enc_out)
+    if kind == "ssd":
+        return x, _zero_aux(x)
+    x, aux = ffn_aux(cfg, p, x)
+    return x, (_zero_aux(x) if aux is None else aux)
+
+
+def forward_train(cfg: ModelConfig, params, batch, remat: bool = False,
+                  impl: ModelKernels = KERNELS):
+    """batch: ``{"tokens", "targets", ["image_embeds" | "frames"]}``.
+    Returns (loss + 0.01 · aux (fp32), metrics ``{"loss", "aux_loss",
+    "ppl_proxy"}``), as the reference's ``forward_train``.
+
+    aux sums the MoE layers' Switch losses.  A VLM scores only its text
+    positions, and a target < 0 is masked out of the mean.  ``remat``
+    wraps each superblock (one repetition of ``cfg.pattern``; the tail
+    layers run as they are, as in the reference) in
+    ``torch.utils.checkpoint`` without re-entry, so the backward pass
+    recomputes it from its input: the numbers are the same, the
+    activations held are fewer.  On the card the attention and RG-LRU
+    layers launch their kernels forward and backward."""
+    from torch.utils.checkpoint import checkpoint
+    x, positions, enc_out = assemble_input(cfg, params, batch, impl)
+    tables = rope_for(cfg, positions)
+    kinds, layers = layer_kinds(cfg), params["layers"]
+    pat = len(cfg.pattern)
+
+    def superblock(x, lo):
+        aux = _zero_aux(x)
+        for i in range(lo, lo + pat):
+            x, a = block_train(cfg, kinds[i], layers[i], x, tables, impl,
+                               enc_out)
+            aux = aux + a
+        return x, aux
+
+    aux = _zero_aux(x)
+    for lo in range(0, cfg.n_superblocks * pat, pat):
+        if remat:
+            x, a = checkpoint(superblock, x, lo, use_reentrant=False)
+        else:
+            x, a = superblock(x, lo)
+        aux = aux + a
+    for i in range(cfg.n_superblocks * pat, len(kinds)):
+        x, a = block_train(cfg, kinds[i], layers[i], x, tables, impl,
+                           enc_out)
+        aux = aux + a
+    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
+    if cfg.vlm is not None:  # predict only over text positions
+        x = x[:, -batch["tokens"].shape[1]:]
+    logits = unembed(cfg, params, x)
+    targets = batch["targets"].to(torch.int64)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = (targets >= 0).float()
+    nll = -torch.gather(logp, -1, torch.clamp_min(targets, 0)[..., None]
+                        )[..., 0]
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss.detach(), "aux_loss": aux.detach(),
+                   "ppl_proxy": torch.exp(torch.clamp(loss.detach(), 0.0,
+                                                      20.0))}

@@ -1138,6 +1138,14 @@ def _grad_case(name):
                               r(1, 1, 8, 16), r(1, 1, 8, 16)), {}
     if name == "rglru_scan":
         return ops.rglru_scan, (r(1, 8, 16), r(1, 8, 16)), {}
+    if name == "flash_attention_bwd":
+        lse = torch.zeros(1, 2, 8, device="cuda")
+        return ops.flash_attention_bwd, (r(1, 2, 8, 32), r(1, 2, 8, 32),
+                                         r(1, 2, 8, 32), r(1, 2, 8, 32), lse,
+                                         r(1, 2, 8, 32)), {}
+    if name == "rglru_scan_bwd":
+        return ops.rglru_scan_bwd, (r(1, 8, 16), r(1, 8, 16),
+                                    r(1, 8, 16)), {}
     if name == "modipick_probs":
         return ops.modipick_probs, (*pool(3)[:3], r(4), r(4),
                                     torch.ones(4, 3, **f)), {}
@@ -1152,11 +1160,14 @@ def _grad_case(name):
                                 i32(0, 1, 0, 1), r(4), r(4), r(4)), {}
 
 
-@pytest.mark.parametrize("name", [w.__name__ for w in ops.WRAPPERS])
+@pytest.mark.parametrize("name", [w.__name__ for w in ops.WRAPPERS
+                                  if w not in ops.DIFFERENTIABLE])
 def test_wrappers_refuse_inputs_that_require_grad(gen, name):
-    """A CUDA kernel has no backward: under grad mode an input that
-    requires grad raises (naming the wrapper) before anything launches;
-    under torch.no_grad() the same call runs."""
+    """A CUDA kernel without a backward kernel (every one but K2's and
+    K5's, and those two's backward kernels, which take no second
+    derivative): under grad mode an input that requires grad raises
+    (naming the wrapper) before anything launches; under
+    torch.no_grad() the same call runs."""
     fn, args, kw = _grad_case(name)
     before = ops.launch_counts()
     with pytest.raises(RuntimeError, match=name):
@@ -1233,3 +1244,179 @@ def test_reduced_models_kernel_path_matches_plain_path(gen, arch, int8):
     if cfg.encdec:
         want["decode_attention"] += 3 * n  # the cross decode
     assert launched == [want, dict.fromkeys(want, 0)]
+
+
+# ----------------------------------------------------------------------
+# The backward kernels (K2, K5).  Tolerance relative to max(max |want|,
+# 1): 1e-5 in float32 (summation order), 1e-2 in bfloat16 (one rounding
+# of the output; the kernels and the plain versions both accumulate in
+# fp32).
+# ----------------------------------------------------------------------
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _close_scaled(got, want, dtype):
+    scale = max(float(want.float().abs().max()), 1.0)
+    err = float((got.float() - want.float()).abs().max()) / scale
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (4, 12, 2, 1024, 1024, 128, True, 0),   # qwen2's training shape
+    (2, 10, 1, 1024, 1024, 256, True, 2048),  # recurrentgemma's local
+    (1, 6, 6, 1500, 1500, 64, False, 0),    # whisper's encoder
+    (2, 6, 6, 64, 1500, 64, False, 0),      # whisper's cross-attention
+    (1, 4, 2, 1024, 1024, 128, True, 256),  # a window inside S
+    (1, 4, 2, 1000, 1000, 128, True, 0),    # ragged S
+    (2, 8, 8, 200, 200, 128, True, 0),      # G = 1
+    (2, 4, 4, 77, 77, 32, True, 0), (1, 2, 1, 40, 40, 16, True, 0),
+    (1, 8, 4, 300, 300, 64, True, 50), (1, 4, 1, 300, 40, 256, False, 0)])
+def test_flash_bwd_kernel_matches_plain(gen, dtype, B, H, KV, Sq, Sk, hd,
+                                        causal, window):
+    q = _randn(gen, B, Sq, H, hd, dtype=dtype).transpose(1, 2)
+    k = _randn(gen, B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+    v = _randn(gen, B, Sk, KV, hd, dtype=dtype).transpose(1, 2)
+    dout = _randn(gen, B, H, Sq, hd, dtype=dtype)  # another layout than o
+    o, lse = _flash_with_lse(q, k, v, causal, window)
+    torch.testing.assert_close(
+        lse, ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                         window=window), rtol=2e-6,
+        atol=2e-6)
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
+                                  window=window)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
+                                       window=window)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)  # no atomics: the same bits every run
+        # the gradient has its input's memory order
+        assert sorted(range(4), key=lambda i: -g.stride(i)) == \
+            sorted(range(4), key=lambda i: -t.stride(i))
+        _close_scaled(g, w, dtype)
+
+
+def _flash_with_lse(q, k, v, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    with torch.no_grad():
+        return fa._forward(q, k, v, causal, window, with_lse=True)
+
+
+def test_flash_serve_call_writes_no_lse_and_grad_call_goes_through_bwd(gen):
+    """Under no_grad K2 launches once and nothing else; on inputs that
+    require grad it launches its forward once and, in backward, its
+    backward kernel once, and the gradients match autograd of the plain
+    version."""
+    q = _randn(gen, 2, 64, 4, 64, dtype=torch.float32).transpose(1, 2)
+    k = _randn(gen, 2, 64, 2, 64, dtype=torch.float32).transpose(1, 2)
+    v = _randn(gen, 2, 64, 2, 64, dtype=torch.float32).transpose(1, 2)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, window=20)
+    grads = torch.autograd.grad((out * out).sum(), leaves)
+    end = ops.launch_counts()
+    assert end["flash_attention"] == after["flash_attention"] + 1
+    assert end["flash_attention_bwd"] == after["flash_attention_bwd"] + 1
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    out_p = ref.flash_attention_ref(*plain, window=20)
+    want = torch.autograd.grad((out_p * out_p).sum(), plain)
+    for g, w in zip(grads, want):
+        _close_scaled(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [
+    (2, 1024, 2560),   # recurrentgemma-2b's training shape
+    (2, 1000, 2560),   # ragged S
+    (1, 600, 64),      # segments longer than kR: walked from memory
+    (1, 5000, 40), (1, 1, 7), (3, 77, 128), (4, 129, 2560)])
+def test_rglru_bwd_kernel_matches_plain(gen, dtype, B, S, W):
+    a = (torch.sigmoid(_randn(gen, B, S, W, dtype=torch.float32)) * 0.98
+         ).to(dtype)
+    b = (_randn(gen, B, S, W, dtype=torch.float32) * 0.1).to(dtype)
+    dh = _randn(gen, B, S, W, dtype=dtype)
+    with torch.no_grad():
+        h = ops.rglru_scan(a, b)
+    before = ops.rglru_scan_bwd.launches
+    got = ops.rglru_scan_bwd(a, h, dh)
+    again = ops.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan_bwd.launches == before + 2
+    want = ref.rglru_scan_bwd_ref(a, h, dh)
+    for g, x, w in zip(got, again, want):
+        assert torch.equal(g, x)
+        _close_scaled(g, w, dtype)
+
+
+def test_rglru_grad_call_goes_through_bwd(gen):
+    a = (torch.sigmoid(_randn(gen, 2, 300, 96, dtype=torch.float32)) * 0.9
+         ).requires_grad_()
+    b = _randn(gen, 2, 300, 96, dtype=torch.float32).requires_grad_()
+    before = ops.launch_counts()
+    h = ops.rglru_scan(a, b)
+    grads = torch.autograd.grad((h * h).sum(), (a, b))
+    after = ops.launch_counts()
+    assert after["rglru_scan"] == before["rglru_scan"] + 1
+    assert after["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 1
+    ap, bp = a.detach().requires_grad_(), b.detach().requires_grad_()
+    hp = ref.rglru_scan_ref(ap, bp)
+    want = torch.autograd.grad((hp * hp).sum(), (ap, bp))
+    for g, w in zip(grads, want):
+        _close_scaled(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-2b",
+                                  "whisper-tiny"])
+def test_reduced_train_step_kernel_path_matches_plain_path(gen, arch):
+    """A reduced model's loss and every gradient on the card, kernel
+    path against plain path, fp32, 1e-4 of each leaf's max |gradient|;
+    K2's and K5's backward kernels launch once per layer that runs
+    them; mamba2 (K4 has no backward) raises."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, gen, torch.float32)
+    batch = api.make_train_batch(cfg, ShapeConfig("t", 40, 2, "train"), gen)
+    runs = []
+    for impl in (ops.KERNELS, ops.PLAIN):
+        before = ops.launch_counts()
+        loss, _, grads = loss_and_grads(
+            api.make_forward_loss(cfg, remat=True, impl=impl), params, batch)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        runs.append((loss, grads, {k: after[k] - before[k] for k in after}))
+    (lk, gk, nk), (lp, gp, np_) = runs
+    assert float(lk) == pytest.approx(float(lp), rel=1e-5)
+    for path, g in gk.items():
+        scale = max(float(gp[path].abs().max()), 1e-12)
+        assert float((g - gp[path]).abs().max()) <= 1e-4 * scale, path
+    assert not any(np_.values())
+    attn_layers = sum(k in ("attn", "local") for k in cfg.block_kinds)
+    if cfg.encdec:
+        attn_layers = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    assert nk["flash_attention_bwd"] == attn_layers
+    assert nk["rglru_scan_bwd"] == sum(k == "rglru" for k in cfg.block_kinds)
+
+
+def test_mamba2_training_raises_on_the_card(gen):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models import model as M
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = M.init_params(cfg, gen, torch.float32)
+    batch = api.make_train_batch(cfg, ShapeConfig("t", 16, 2, "train"), gen)
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        loss_and_grads(api.make_forward_loss(cfg), params, batch)

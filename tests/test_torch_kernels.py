@@ -414,12 +414,21 @@ def test_cpu_path_launches_nothing():
                        torch.zeros(2), rows, rows, rows, rows)
     ops.stacked_select(torch.ones(2, 3), torch.ones(2, 3), pool, pool,
                        torch.zeros(4, dtype=torch.int32), rows, rows, rows)
+    ops.flash_attention_bwd(q, k, v, q, torch.zeros(1, 4, 8), q)
+    a = torch.zeros(1, 5, 8)
+    ops.rglru_scan_bwd(a, a, a)
+    # under grad the CPU path is the plain version's own autograd
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*leaves).sum().backward()
+    ops.rglru_scan(a.clone().requires_grad_(), a).sum().backward()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "decode_attention_int8": 0,
                                    "ssd_scan": 0, "rglru_scan": 0,
                                    "modipick_probs": 0, "fused_select": 0,
-                                   "charged_select": 0, "stacked_select": 0}
+                                   "charged_select": 0, "stacked_select": 0,
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan_bwd": 0}
 
 
 def test_plain_versions_are_the_reference_twins():
