@@ -240,12 +240,15 @@ FLASH_BWD = ((4, 12, 2, 1024, 1024, 128, True, 0),   # qwen2 training
              (1, 6, 6, 1500, 1500, 64, False, 0),    # whisper's encoder
              (1, 4, 2, 1024, 1024, 128, True, 256),  # a window inside S
              (1, 4, 2, 1000, 1000, 128, True, 0),    # ragged S
-             (2, 8, 8, 256, 256, 128, True, 0))      # G = 1
+             (2, 8, 8, 256, 256, 128, True, 0),      # G = 1
+             (1, 16, 1, 1024, 1024, 128, True, 0),   # a small grid, G 16
+             (1, 10, 1, 4096, 4096, 256, True, 2048))  # the window bites
 # K5's backward: (B, S, W, dtype); the first is recurrentgemma's
-# training shape (the kernels line's row); S 512 holds its segments in
-# registers, S > 32·kR = 512 walks them from memory.
+# training shape (the kernels line's row); S past 192 chains chunks of
+# up to 192 steps held in registers, 3000 ends on a short chunk.
 RGLRU_BWD = ((2, 1024, 2560, torch.float32), (2, 1000, 2560, torch.float32),
-             (2, 512, 2560, torch.float32), (2, 1000, 2560, torch.bfloat16))
+             (2, 512, 2560, torch.float32), (2, 1000, 2560, torch.bfloat16),
+             (2, 4096, 2560, torch.float32), (2, 3000, 2560, torch.bfloat16))
 # The training phase: full width, fp32 parameters and moments, remat
 # "full", on one repeated batch of B sequences of S tokens.  The first
 # step's loss and every gradient on the kernel path are held against
@@ -416,6 +419,51 @@ def bf16_ptxas(logs) -> None:
             if seen != want:
                 raise AssertionError(f"ptxas reported on {seen} bf16 {kern} "
                                      f"instantiations, not {want}")
+
+
+# Spill stores (bytes) that ptxas gives the backward kernels'
+# instantiations that spill at all, as built: the fp32 dK/dV body runs
+# at the 255-register cap from hd 128.  Any other spill, or a larger
+# one, fails `bwd_ptxas`.
+BWD_SPILLS = {("bwd_dq_kernel", "13__nv_bfloat16Li256"): 4,
+              ("bwd_dkdv_kernel", "fLi128"): 12,
+              ("bwd_dkdv_kernel", "fLi256"): 12,
+              ("rglru_bwd_kernel", "13__nv_bfloat16"): 8}
+
+
+def bwd_ptxas(logs) -> None:
+    """The registers and spills ptxas reports for the backward kernels'
+    instantiations (K2-bwd's dQ and dK/dV kernels at both types and five
+    head sizes, K5-bwd's at both types): every one must be reported and
+    spill no more than ``BWD_SPILLS`` allows."""
+    for lib, kern, want in (("flash_attention", "bwd_dq_kernel", 10),
+                            ("flash_attention", "bwd_dkdv_kernel", 10),
+                            ("rglru_scan", "rglru_bwd_kernel", 2)):
+        entry = spill = None
+        seen = 0
+        for line in logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1) if kern in m.group(1) else None
+                spill = None
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if entry and m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if entry and m:
+                args = re.search(rf"{kern}I(\w+?)E", entry)
+                tmpl = args.group(1) if args else "?"
+                log(f"[ptxas bwd] {kern} <{tmpl}>: registers={m.group(1)} "
+                    f"spill_stores={spill}")
+                if spill is None or spill > BWD_SPILLS.get((kern, tmpl), 0):
+                    raise AssertionError(f"{kern} <{tmpl}> spills {spill} "
+                                         "bytes")
+                seen += 1
+                entry = None
+        if seen != want:
+            raise AssertionError(f"ptxas reported on {seen} {kern} "
+                                 f"instantiations, not {want}")
 
 
 def phase_kernels(ops, ref, policy_select, gen):
@@ -654,25 +702,91 @@ def phase_kernels(ops, ref, policy_select, gen):
     return rows
 
 
+# The TF32 tensor-core rate (dense), what K2-bwd's fp32 body issues on.
+TF32_OPS = 495e12
+
+
 def flash_bwd_bound(q, k, causal, window) -> tuple:
     """K2's backward: q, k, v, o, dO and the lse read once, dq, dk, dv
     written once; the FA2 backward's five products (S, dP, dV, dK, dQ:
-    2·hd operations each) over the visible (query, key) pairs."""
+    2·hd operations each) over the visible (query, key) pairs.  The
+    bf16 body does them on the tensor cores at the bf16 rate; the fp32
+    body as 3xTF32, three TF32 products each, at the TF32 rate (so the
+    bound is the least time for what the body issues, and no run of it
+    can read faster than its bound)."""
     from repro_torch.kernels import ref
     B, H, Sq, hd = q.shape
     pairs = int(ref.attention_mask(Sq, k.shape[2], causal, window,
                                    q.device).sum())
-    return bound(q.element_size() * 4 * (q.numel() + k.numel())
-                 + 4 * B * H * Sq, 10 * hd * pairs * B * H, q.dtype)
+    nbytes = (q.element_size() * 4 * (q.numel() + k.numel())
+              + 4 * B * H * Sq)
+    ops = 10 * hd * pairs * B * H
+    if q.dtype == torch.float32:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * ops / TF32_OPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes, ops, q.dtype)
+
+
+def sdpa_bwd_ms(q, k, v, dout, causal, window, label) -> float:
+    """SDPA's backward on contiguous copies of q, k, v with K2's mask
+    (``is_causal``, or a boolean mask where the window bites): the
+    yardstick of K2-bwd."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    Sq, Sk = q.shape[2], k.shape[2]
+    mask = (ref.attention_mask(Sq, Sk, causal, window, q.device)
+            if window and window < Sk else None)
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    doc = dout.contiguous()
+    return time_ms(lambda: torch.autograd.grad(
+        out, (qc, kc, vc), doc, retain_graph=True), iters=10, label=label)
+
+
+def log_bwd_plans() -> None:
+    """K2-bwd's launch plan as the kernels report it against its Python
+    mirror, for both types and every head size; K5-bwd's chunk plan."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.rglru_scan import bwd_plan
+    fn = build.function("flash_attention", "flash_attention_bwd_plan",
+                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in fa.HEAD_DIMS:
+            out = (ctypes.c_int * 5)()
+            if fn(fa.DTYPES[dtype], hd, ctypes.cast(out, ctypes.c_void_p)):
+                raise AssertionError(f"no K2-bwd plan for {dtype} hd {hd}")
+            p = fa.bwd_plan(1, 1, 1, 1, 1, hd, dtype)
+            want = [p.rows, p.walk, p.cols, p.smem, p.threads]
+            if list(out) != want:
+                raise AssertionError(f"K2-bwd plan {dtype} hd {hd}: kernel "
+                                     f"{list(out)}, mirror {want}")
+            log(f"[plan] K2-bwd {dtype} hd={hd}: rows={p.rows} "
+                f"walk={p.walk} cols={p.cols} smem={p.smem} "
+                f"threads={p.threads} (kernel and mirror agree)")
+    for (B, S, W, _) in RGLRU_BWD[:1] + RGLRU_BWD[4:5]:
+        seg, n_seg, n_chunk = bwd_plan(S)
+        blocks = B * -(-W // 32) * n_chunk
+        log(f"[plan] K5-bwd B={B} S={S} W={W}: {n_chunk} chunks of "
+            f"{n_seg} segments of {seg} steps, {blocks} blocks of "
+            f"{32 * n_seg} threads")
 
 
 def backward_kernels(ops, ref, randn) -> dict:
     """K2's and K5's backward kernels against their plain versions at the
     training phase's shapes and edges, two calls each equal bit for bit
     (no atomics); their kernels-line rows (fp32, the training shapes),
-    K2's with SDPA's backward at the same shape as its yardstick."""
-    import torch.nn.functional as F
+    K2's with SDPA's backward at the same shape as its yardstick, and
+    ``[extra]`` lines for K2-bwd at recurrentgemma's training shape, in
+    bf16 at qwen2's and where recurrentgemma's window bites (S 4096),
+    and for K5-bwd at S 4096."""
     from repro_torch.kernels import flash_attention as fa
+    log_bwd_plans()
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, H, KV, Sq, Sk, hd, causal, window) in enumerate(FLASH_BWD):
@@ -696,22 +810,20 @@ def backward_kernels(ops, ref, randn) -> dict:
             err = max(check_scaled(f"flash_attention_bwd d{n} {dtype}", g, w,
                                    BWD_TOL[dtype])
                       for n, g, w in zip("qkv", got, want))
+            del got, again, want
             log(f"K2-bwd flash_attention_bwd B={B} H={H} KV={KV} Sq={Sq} "
                 f"Sk={Sk} hd={hd} causal={causal} window={window} {dtype}: "
                 f"max err of max|d| {err:.3g} (tol {BWD_TOL[dtype]}), lse "
                 f"max_abs_err {err_lse:.3g}; two calls equal")
-            if i > 1 or dtype != torch.float32:
+            # timed: both training shapes in fp32, qwen2's in bf16, and
+            # recurrentgemma's window where it bites
+            timed = (i in (0, 1) and dtype == torch.float32) or (
+                i == 0 and dtype == torch.bfloat16) or (
+                i == len(FLASH_BWD) - 1 and dtype == torch.float32)
+            if not timed:
                 continue
-            # the training phase's two shapes (qwen2's, recurrentgemma's,
-            # whose window covers S): the backward beside SDPA's, and the
-            # forward with its LSE beside the serve call without it
-            arch = ("qwen2", "recurrentgemma")[i]
-            qc, kc, vc = (t.detach().contiguous().requires_grad_()
-                          for t in (q, k, v))
-            with torch.enable_grad():
-                out = F.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=True, enable_gqa=True)
-            doc = dout.contiguous()
+            arch = ("qwen2", "recurrentgemma")[min(i, 1)]
+            tag = f"{arch} train {dtype}" if i < 2 else "S 4096 window"
             b = flash_bwd_bound(q, k, causal, window)
             row = dict(
                 name="flash_attention_bwd", route="cuda",
@@ -722,21 +834,25 @@ def backward_kernels(ops, ref, randn) -> dict:
                          "backward)",
                 max_abs_err=err,
                 ms=time_ms(lambda: ops.flash_attention_bwd(*args, **kw),
-                           iters=10, label=f"K2-bwd {arch} train kernel"),
+                           iters=10, label=f"K2-bwd {tag} kernel"),
                 plain_ms=time_ms(
                     lambda: ref.flash_attention_bwd_ref(*args, **kw),
                     iters=5),
                 bound_ms=b[0], bound_by=b[1],
-                library_ms=time_ms(lambda: torch.autograd.grad(
-                    out, (qc, kc, vc), doc, retain_graph=True), iters=10,
-                    label=f"K2-bwd {arch} train SDPA backward"))
-            del out, qc, kc, vc
-            if i == 0:
+                library_ms=sdpa_bwd_ms(q, k, v, dout, causal, window,
+                                       f"K2-bwd {tag} SDPA backward"))
+            log(f"[ratio] K2-bwd {tag}: kernel / SDPA backward "
+                f"{row['ms'] / row['library_ms']:.3f}, kernel / plain "
+                f"{row['ms'] / row['plain_ms']:.3f}, bound / kernel "
+                f"{row['bound_ms'] / row['ms']:.3f}")
+            if i == 0 and dtype == torch.float32:
                 rows["flash_attention_bwd"] = row
             else:
                 extra(f"flash_attention_bwd B={B} H={H} KV={KV} S={Sq} "
-                      f"hd={hd} window={window} fp32", row["ms"],
+                      f"hd={hd} window={window} {dtype}", row["ms"],
                       row["plain_ms"], b, row["library_ms"])
+            if i > 1 or dtype != torch.float32:
+                continue
             with torch.no_grad():
                 lse_ms = time_ms(lambda: fa._forward(q, k, v, causal, window,
                                                      with_lse=True), iters=10)
@@ -746,7 +862,6 @@ def backward_kernels(ops, ref, randn) -> dict:
                 f"shape fp32: with its lse {lse_ms:.5g} ms, without "
                 f"{serve_ms:.5g} ms")
     for i, (B, S, W, dtype) in enumerate(RGLRU_BWD):
-        log_segments(B, S, W)
         a = (torch.sigmoid(randn(B, S, W, dtype=torch.float32))
              * 0.98).to(dtype)
         b = (randn(B, S, W, dtype=torch.float32) * 0.1).to(dtype)
@@ -764,10 +879,10 @@ def backward_kernels(ops, ref, randn) -> dict:
                   for n, g, w in zip(("da", "db"), got, want))
         log(f"K5-bwd rglru_scan_bwd B={B} S={S} W={W} {dtype}: max err of "
             f"max|d| {err:.3g} (tol {BWD_TOL[dtype]}); two calls equal")
-        if i != 0:
+        if i not in (0, 4):
             continue
         bb = bound(a.element_size() * 5 * a.numel(), 4 * a.numel(), dtype)
-        rows["rglru_scan_bwd"] = dict(
+        row = dict(
             name="rglru_scan_bwd", route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu",
             replaces="src/repro/models/rglru.py:56 (XLA autodiff of "
@@ -775,10 +890,19 @@ def backward_kernels(ops, ref, randn) -> dict:
                      "src/repro/kernels/rglru_scan.py:21, has no backward)",
             max_abs_err=err,
             ms=time_ms(lambda: ops.rglru_scan_bwd(a, h, dh),
-                       label="K5-bwd kernel"),
+                       label=f"K5-bwd S {S} kernel"),
             plain_ms=time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh),
                              iters=3),
             bound_ms=bb[0], bound_by=bb[1], library_ms=None)
+        log(f"[ratio] K5-bwd S={S}: kernel / bound "
+            f"{row['ms'] / row['bound_ms']:.3f}")
+        if i == 0:
+            if row["ms"] > 2 * row["bound_ms"]:
+                raise AssertionError("K5-bwd takes more than twice its bound")
+            rows["rglru_scan_bwd"] = row
+        else:
+            extra(f"rglru_scan_bwd B={B} S={S} W={W} {dtype}", row["ms"],
+                  row["plain_ms"], bb)
     return rows
 
 
@@ -2055,7 +2179,8 @@ def model_phase(arch, gen) -> dict:
 
 def trace_step(label, step) -> None:
     """One training step under torch.profiler: its wall time, the
-    device's busy and idle share, the kernels launched, and the top
+    device's busy and idle share, the kernels launched, the device time
+    of the backward kernels (K2-bwd's four, K5-bwd's), and the top
     device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2071,6 +2196,12 @@ def trace_step(label, step) -> None:
     log(f"{label} [trace] step {ms:.1f} ms under the profiler, "
         f"{len(kernels)} device kernels, device busy {busy:.1f} ms (idle "
         f"share {1 - busy / ms:.3f})")
+    for name, pat in (("K2-bwd", r"\bbwd_(dot|dq|dkdv|reduce)_kernel\b"),
+                      ("K5-bwd", r"\brglru_bwd_kernel\b")):
+        mine = [e for e in kernels if re.search(pat, e.name)]
+        mine_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        log(f"{label} [trace] {name} kernels {mine_ms:.2f} ms x{len(mine)}, "
+            f"{mine_ms / busy:.4f} of device busy")
     top = sorted(prof.key_averages(),
                  key=lambda e: e.self_device_time_total, reverse=True)[:8]
     log(f"{label} [trace] top device self time: " + "; ".join(
@@ -3231,6 +3362,7 @@ def main() -> int:
             if "registers" in line or "spill" in line and "0 bytes spill stores" not in line:
                 log(f"[ptxas {name}] {line.strip()}")
     bf16_ptxas(build.BUILD_LOGS)
+    bwd_ptxas(build.BUILD_LOGS)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -3308,8 +3440,9 @@ def main() -> int:
              "rglru_scan_bwd")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}
-                                  for n in order]}))
+    print(json.dumps({"kernels": [
+        {k: rows[n][k] for k in keys}
+        for n in order]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

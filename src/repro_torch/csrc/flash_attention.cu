@@ -464,66 +464,300 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------
 // Backward (FlashAttention-2): recompute P = exp(S·scale − lse) tile by
-// tile from the forward's log-sum-exp, never the (Sq, Sk) matrix.
+// tile from the forward's log-sum-exp, never the (Sq, Sk) matrix.  It
+// differentiates what the reference leaves to XLA's autodiff (its
+// attention_full / attention_windowed; the Pallas _flash_kernel has no
+// backward).
 //
 // - `bwd_dot_kernel`: D = rowsum(dO ∘ O) in fp32, one warp a row.
-// - `bwd_dkdv_kernel`: one block a (batch, KV head, KV tile of kBK
-//   keys).  It walks the G query heads of its GQA group and, for each,
-//   the q tiles that can see its keys (the causal / window bounds of the
-//   forward give the range), and accumulates dV += Pᵀ dO and
-//   dK += dSᵀ Q · scale with dS = P ∘ (dO Vᵀ − D).  The group's sum stays
-//   inside the block: no atomics, so the gradients are the same bits
-//   from run to run.
-// - `bwd_dq_kernel`: one block a (batch, head, q tile) walks the KV tiles
-//   its rows see, dQ += dS K · scale.
-// Both bodies work in fp32 on the CUDA cores for either input type
-// (bf16 is widened as it is staged into shared memory).  The score tile
-// is computed with lane j on key j and a warp on 4 query rows; the
-// accumulation with 8 threads a row of the output tile, each on the
-// columns d ≡ t (mod 8).  Shared rows are padded by one float, so the 32
-// keys a warp reads fall in 32 banks.  At hd 256 a block holds 4 tiles
-// of 32 × 257 floats and two 32 × 33 ones: 140 KB, one block an SM.
-// What bounds it: shared-memory traffic of the CUDA-core products (about
-// one load an FMA); the tensor cores (`mma.sync` / `wgmma`) are the next
-// step.
+// - `bwd_dq_kernel`: one block a (batch, head, q tile of 64 rows), 16
+//   rows a warp; it walks the KV tiles its rows see and keeps
+//   dQ += dS K · scale in registers.
+// - `bwd_dkdv_kernel`: one block a (batch, query head, key tile of 64
+//   keys), 16 keys a warp; it walks the q tiles that see its keys with
+//   Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ and dSᵀ = Pᵀ ∘ (dPᵀ − D) come out
+//   as accumulator fragments with the keys as rows, and feed
+//   dV += Pᵀ dO and dK += dSᵀ Q from registers.  With G > 1 query heads
+//   a KV head, each block writes its head's fp32 partial dK, dV to
+//   scratch (B, H, Sk, hd), and `bwd_reduce_kernel` sums each group's G
+//   partials in head order into dK, dV; with G = 1 the block writes
+//   dK, dV itself.  One block a query head, not a GQA group, puts
+//   B·H·Sk/64 blocks in the grid (768 at qwen2's training shape, 320 at
+//   recurrentgemma's) and gives every block the same walk.
+//
+// What bounds it: the products, 10·hd operations a visible (query, key)
+// pair, 14·hd as done here: both kernels compute the score tile.  That
+// is the price of gradients with the same bits on every run without
+// atomics: no block adds into another's output.  So the products run on
+// the tensor cores:
+// - bf16: `mma.sync.m16n8k16` (fp32 accumulators), operands read from
+//   shared memory by `ldmatrix` (`.trans` for the [k][n] operands dO,
+//   Q and K of the second products), as in the forward's bf16 body;
+// - fp32: 3xTF32 on `mma.sync.m16n8k8.tf32`.  Each fp32 operand is
+//   split, as it is read into a fragment, into its TF32 rounding and the
+//   remainder (`split_tf32`), and a product is small·big + big·small +
+//   big·big: about fp32's accuracy (within 2e-6 of max |d| against
+//   the fp32 plain version on the H100, where fp32 FMAs on the CUDA
+//   cores gave 2.6e-6) at three TF32 products.  The tensor core truncates as it
+//   adds, so a partial of a few k-steps is summed there and added to
+//   the running sum in fp32.  The second products take Pᵀ / dSᵀ / dS
+//   from registers in the order the accumulator holds them (columns 2t,
+//   2t + 1 as the A fragment's k = t, t + 4) and read B's rows in the
+//   same order.  The fp32 body is bound by issue: about six instructions
+//   (loads, splits, adds) go with each mma.
+// The walked tiles (q and dO in the dK/dV kernel, K and V in the dQ
+// kernel) are double-buffered with 16-byte `cp.async`, so the next
+// tile's copy runs under this one's products.  Rows are padded (8 bf16
+// or 4 floats), so the fragment reads of a warp fall in distinct banks.
+// A walked tile has 16 rows in fp32 and at hd 256 (two blocks an SM up
+// to hd 128), 32 otherwise.  At hd 256 a thread could not hold a warp's
+// 16 × 256 accumulators, so two warps share each 16 rows, one on each
+// half of hd, and add each other's score partials through shared
+// memory (`add_partner`).  The heaviest blocks launch first (the first
+// key tiles; the last q tiles).  `flash_attention_bwd_plan` reports
+// these tiles, which the wrapper's `bwd_plan` mirrors; the grids and the
+// partials' scratch come from `bwd_plan`, and `launch_bwd` refuses ones
+// that do not cover the shapes.
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kBwdRows = kBQ / kBwdWarps;  // score rows a warp
-static_assert(kBQ == 32 && kBK == 32, "the backward maps a lane to a key");
+constexpr int kBwdWarps = 4;            // warps a block, 16 rows each
+constexpr int kBwdRows = 16 * kBwdWarps;  // keys (dK/dV) or q rows (dQ)
+constexpr int kDotWarps = 8;            // rows a block of bwd_dot_kernel
+
+// The walk's tile (q rows in dK/dV, keys in dQ), and the column groups
+// of a block: at hd 256 two warps share each 16 rows, one on each half
+// of hd (of the score's k and of the output's columns).
+template <typename T, int HD>
+__host__ __device__ constexpr int bwd_walk() {
+  return (sizeof(T) == 4 || HD == 256) ? 16 : 32;
+}
+template <int HD>
+__host__ __device__ constexpr int bwd_splits() { return HD == 256 ? 2 : 1; }
+template <typename T>
+__host__ __device__ constexpr int bwd_pad() { return sizeof(T) == 4 ? 4 : 8; }
+// the score partials two column groups exchange: [warp][2][NT][4][32]
+template <typename T, int HD>
+__host__ __device__ constexpr int bwd_xchg_floats() {
+  return bwd_splits<HD>() == 1
+             ? 0
+             : bwd_splits<HD>() * kBwdWarps * 2 * bwd_walk<T, HD>() / 8 * 4 * 32;
+}
+template <typename T, int HD>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return (int)sizeof(T) * (HD + bwd_pad<T>()) *
+             (2 * kBwdRows + 4 * bwd_walk<T, HD>()) +
+         4 * bwd_xchg_floats<T, HD>();
+}
 
 __device__ __forceinline__ float ld_f32(const float* p) { return *p; }
 __device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st_val(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st_val(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// c (16×8) += a (16×8, tf32) · b (8×8, tf32)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// k-steps of an fp32 score product the tensor core sums before the
+// partial is added to the running sum in fp32: a partial every k-step
+// is slower, none at all doubles the error (the three measured: PERF.md
+// §6).
+constexpr int kSsChunk = 4;
+
+// x = big + small: big is x rounded to TF32 (its 13 low bits cleared,
+// half away from zero) and small the exact remainder, a float whose 13
+// low bits the tensor core ignores: |x − big − tf32(small)| < 2^-21 |x|,
+// in three integer / float operations (two cvt.rna cost more: PERF.md
+// §6).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+// c += a · b by 3xTF32 (a: big ab, small as; b: big b0/b1, small s0/s1),
+// the small products first
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ab,
+                                           const uint32_t* as, uint32_t b0,
+                                           uint32_t b1, uint32_t s0,
+                                           uint32_t s1) {
+  mma_tf32(c, as, b0, b1);
+  mma_tf32(c, ab, s0, s1);
+  mma_tf32(c, ab, b0, b1);
 }
 
-template <int HD>
-__host__ __device__ constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * 32 * (HD + 1) + 2 * 32 * (32 + 1) + 2 * 32);
+// A warp's c[16 × 8·NT] += A[16 × KD] · Bᵀ, with A's rows at a and B's
+// (the n index) at b, both [row][k] with row pitch ld in shared memory.
+template <typename T, int KD, int NT>
+__device__ __forceinline__ void warp_ss(float (*c)[4], const T* a,
+                                        const T* b, int ld) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(NT % 2 == 0 && KD % 16 == 0, "bf16 tiles");
+    const int lr = lane & 7, mb0 = (lane >> 3) & 1, mb1 = lane >> 4;
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a + (lr + mb0 * 8) * ld + kk * 16 + mb1 * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, b + (np * 16 + lr + mb1 * 8) * ld + kk * 16 + mb0 * 8);
+        mma_bf16(c[2 * np], af, bf[0], bf[1]);
+        mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+  } else {
+    // partials of KC k-steps each, added to c in fp32
+    constexpr int KC = kSsChunk < KD / 8 ? kSsChunk : KD / 8;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+    for (int k0 = 0; k0 < KD / 8; k0 += KC) {
+      float p[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[n][e] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + KC; ++kk) {
+        const float* ar = a + g * ld + kk * 8 + t;
+        uint32_t ab[4], as[4];
+        split_tf32(ar[0], ab[0], as[0]);
+        split_tf32(ar[8 * ld], ab[1], as[1]);
+        split_tf32(ar[4], ab[2], as[2]);
+        split_tf32(ar[8 * ld + 4], ab[3], as[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* br = b + (n * 8 + g) * ld + kk * 8 + t;
+          uint32_t b0, b1, s0, s1;
+          split_tf32(br[0], b0, s0);
+          split_tf32(br[4], b1, s1);
+          mma_3xtf32(p[n], ab, as, b0, b1, s0, s1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] += p[n][e];
+    }
+  }
 }
 
-// Stage rows [r0, r0 + 32) of a (seq, hd) slice into a padded fp32 tile;
-// rows at or past n are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long ss, int r0, int n) {
-  for (int e = threadIdx.x; e < 32 * HD; e += kBwdThreads) {
-    const int r = e / HD, c = e % HD;
-    dst[r * (HD + 1) + c] = r0 + r < n ? ld_f32(src + (r0 + r) * ss + c) : 0.f;
+// A warp's c[16 × 8·NT] += P[16 × 8·NK] · B[8·NK × 8·NT]: P as NK
+// accumulator fragments in registers (the k index is their column), B
+// [k][n] with row pitch ld in shared memory.
+template <typename T, int NK, int NT>
+__device__ __forceinline__ void warp_rs(float (*c)[4], const float (*p)[4],
+                                        const T* b, int ld) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(NT % 2 == 0 && NK % 2 == 0, "bf16 tiles");
+    const int lr = lane & 7, mb0 = (lane >> 3) & 1, mb1 = lane >> 4;
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+      pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+      pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+      pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < NT / 2; ++dn) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, b + (kk * 16 + lr + mb0 * 8) * ld + dn * 16 + mb1 * 8);
+        mma_bf16(c[2 * dn], pa, bv[0], bv[1]);
+        mma_bf16(c[2 * dn + 1], pa, bv[2], bv[3]);
+      }
+    }
+  } else {
+    // The accumulator holds columns 2t, 2t+1 of each 8-column tile; they
+    // are the A fragment's k = t and t + 4, so B's rows are read in that
+    // order too (row 2t for b0, 2t + 1 for b1).  Each output tile sums
+    // this call's NK k-steps on the tensor core, then adds to c in fp32.
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t ab[NK][4], as[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      split_tf32(p[j][0], ab[j][0], as[j][0]);
+      split_tf32(p[j][2], ab[j][1], as[j][1]);
+      split_tf32(p[j][1], ab[j][2], as[j][2]);
+      split_tf32(p[j][3], ab[j][3], as[j][3]);
+    }
+    const float* br = b + 2 * t * ld + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t b0, b1, s0, s1;
+        split_tf32(br[j * 8 * ld + n * 8], b0, s0);
+        split_tf32(br[(j * 8 + 1) * ld + n * 8], b1, s1);
+        mma_3xtf32(q, ab[j], as[j], b0, b1, s0, s1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += q[e];
+    }
+  }
+}
+
+// Copy rows [r0, r0 + n) of a (seq, HD) slice into a padded tile with
+// 16-byte cp.async; rows at or past `limit` are zero-filled.
+template <typename T, int HD, int LD, int NTH>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long ss,
+                                           int r0, int n, int limit) {
+  constexpr int CH = 16 / sizeof(T), NV = HD / CH;
+  for (int e = threadIdx.x; e < n * NV; e += NTH) {
+    const int r = e / NV, c = e % NV;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * LD + c * CH, src + (ok ? r0 + r : 0) * ss + c * CH,
+               ok);
+  }
+}
+
+__device__ __forceinline__ void st_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// With two column groups, each warp of a pair has the score partials of
+// its half of hd: add the partner's (IEEE addition commutes, so both
+// warps hold the same sums).  Ends with the block's barrier.
+template <int NS, int NT>
+__device__ __forceinline__ void add_partner(float (*s)[4], float (*dp)[4],
+                                            float* sx) {
+  if constexpr (NS == 2) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* mine = sx + warp * 2 * NT * 4 * 32;
+    const float* other = sx + (warp ^ kBwdWarps) * 2 * NT * 4 * 32;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[((0 * NT + n) * 4 + e) * 32 + lane] = s[n][e];
+        mine[((1 * NT + n) * 4 + e) * 32 + lane] = dp[n][e];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] += other[((0 * NT + n) * 4 + e) * 32 + lane];
+        dp[n][e] += other[((1 * NT + n) * 4 + e) * 32 + lane];
+      }
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kDotWarps * 32)
 bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                float* __restrict__ dsum, int H, int Sq, int hd, Strides os,
                Strides ds) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kBwdWarps + warp;
+  const int qi = blockIdx.x * kDotWarps + warp;
   const int h = blockIdx.y, b = blockIdx.z;
   if (qi >= Sq) return;
   const T* orow = o + b * os.b + h * os.h + qi * os.s;
@@ -534,230 +768,357 @@ bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) dsum[((long long)b * H + h) * Sq + qi] = acc;
 }
 
-// The score tile's entries of this thread: rows warp + 8 r (r < 4) and
-// key lane; P and dS = P (dP − D) into sP, sdS ([32][33]).
-template <int HD>
-__device__ __forceinline__ void bwd_scores(
-    const float* sQ, const float* sdO, const float* sK, const float* sV,
-    const float* sL, const float* sD, float* sP, float* sdS, int q0, int k0,
-    int Sq, int Sk, int causal, int window, float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float s[kBwdRows], dp[kBwdRows];
-#pragma unroll
-  for (int r = 0; r < kBwdRows; ++r) s[r] = dp[r] = 0.f;
-  const float* krow = sK + lane * (HD + 1);
-  const float* vrow = sV + lane * (HD + 1);
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    const float kd = krow[d], vd = vrow[d];
-#pragma unroll
-    for (int r = 0; r < kBwdRows; ++r) {
-      const int i = warp + kBwdWarps * r;
-      s[r] = fmaf(sQ[i * (HD + 1) + d], kd, s[r]);
-      dp[r] = fmaf(sdO[i * (HD + 1) + d], vd, dp[r]);
-    }
-  }
-  const int kj = k0 + lane;
-#pragma unroll
-  for (int r = 0; r < kBwdRows; ++r) {
-    const int i = warp + kBwdWarps * r;
-    const int qi = q0 + i;
-    const bool vis = qi < Sq && visible(qi, kj, Sk, causal, window);
-    const float p = vis ? expf(s[r] * scale - sL[i]) : 0.f;
-    sP[i * 33 + lane] = p;
-    sdS[i * 33 + lane] = p * (dp[r] - sD[i]);
-  }
-}
-
+// grid (B·H, ceil(Sk / 64)), NS·4 warps; part: fp32 (2, B, H, Sk, HD)
+// scratch for G > 1, else null and dk / dv are written directly.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdWarps * 32 * bwd_splits<HD>())
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Sq,
-                int Sk, Strides qs, Strides ks, Strides vs, Strides ds,
-                Strides dks, Strides dvs, int causal, int window,
-                float scale) {
-  constexpr int LD = HD + 1, CPT = HD / 8;  // columns a thread
-  extern __shared__ float bsm[];
-  float* sK = bsm;
-  float* sV = sK + 32 * LD;
-  float* sQ = sV + 32 * LD;
-  float* sdO = sQ + 32 * LD;
-  float* sP = sdO + 32 * LD;
-  float* sdS = sP + 32 * 33;
-  float* sL = sdS + 32 * 33;
-  float* sD = sL + 32;
+                float* __restrict__ part, T* __restrict__ dk,
+                T* __restrict__ dv, int B, int H, int KV, int Sq, int Sk,
+                Strides qs, Strides ks, Strides vs, Strides ds, Strides dks,
+                Strides dvs, int causal, int window, float scale) {
+  constexpr int LD = HD + bwd_pad<T>();
+  constexpr int BQ = bwd_walk<T, HD>();
+  constexpr int NS = bwd_splits<HD>();
+  constexpr int NTH = kBwdWarps * 32 * NS;
+  constexpr int HO = HD / NS;   // a warp's columns (and its score's k)
+  constexpr int NT = BQ / 8;    // score n-tiles: q columns
+  constexpr int ON = HO / 8;    // output n-tiles
+  extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
+  T* sK = reinterpret_cast<T*>(bwd_smem_raw);  // [64][LD]
+  T* sV = sK + kBwdRows * LD;                   // [64][LD]
+  T* sQ = sV + kBwdRows * LD;                   // [2][BQ][LD]
+  T* sdO = sQ + 2 * BQ * LD;                    // [2][BQ][LD]
+  float* sX = reinterpret_cast<float*>(sdO + 2 * BQ * LD);
 
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int tid = threadIdx.x, row = tid >> 3, col = tid & 7;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * kBwdRows;  // the first key tiles are heaviest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % kBwdWarps, cg = warp / kBwdWarps;  // rows, columns
+  const int t4 = lane & 3;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* db = dout + b * ds.b + h * ds.h;
+  const float* lb = lse + ((long long)b * H + h) * Sq;
+  const float* Db = dsum + ((long long)b * H + h) * Sq;
 
-  stage_rows<T, HD>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, Sk);
-  stage_rows<T, HD>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, Sk);
-  float adk[CPT], adv[CPT];
+  // the q rows that can see keys [k0, k0 + 64)
+  const int q_lo = causal ? (k0 / BQ) * BQ : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kBwdRows - 1 + window) : Sq;
+  const int n_qt = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+
+  stage_rows<T, HD, LD, NTH>(sK, k + b * ks.b + kvh * ks.h, ks.s, k0, kBwdRows, Sk);
+  stage_rows<T, HD, LD, NTH>(sV, v + b * vs.b + kvh * vs.h, vs.s, k0, kBwdRows, Sk);
+  if (n_qt > 0) {
+    stage_rows<T, HD, LD, NTH>(sQ, qb, qs.s, q_lo, BQ, Sq);
+    stage_rows<T, HD, LD, NTH>(sdO, db, ds.s, q_lo, BQ, Sq);
+  }
+  cp_async_commit();
+
+  float adk[ON][4], adv[ON][4];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) adk[c] = adv[c] = 0.f;
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+  const int kj0 = k0 + rw * 16 + (lane >> 2), kj1 = kj0 + 8;
+  const int c0 = cg * HO;  // this warp's half of hd
+  const T* aK = sK + rw * 16 * LD + c0;
+  const T* aV = sV + rw * 16 * LD + c0;
 
-  // the q rows that can see keys [k0, k0 + kBK)
-  const int q_lo = causal ? (k0 / kBQ) * kBQ : 0;
-  const int q_hi = window > 0 ? min(Sq, k0 + kBK - 1 + window) : Sq;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* db = dout + b * ds.b + h * ds.h;
-    const float* lb = lse + ((long long)b * H + h) * Sq;
-    const float* Db = dsum + ((long long)b * H + h) * Sq;
-    for (int q0 = q_lo; q0 < q_hi; q0 += kBQ) {
-      __syncthreads();  // the previous tile's readers are done
-      stage_rows<T, HD>(sQ, qb, qs.s, q0, Sq);
-      stage_rows<T, HD>(sdO, db, ds.s, q0, Sq);
-      if (tid < 32) {
-        sL[tid] = q0 + tid < Sq ? lb[q0 + tid] : 0.f;
-        sD[tid] = q0 + tid < Sq ? Db[q0 + tid] : 0.f;
+  for (int it = 0; it < n_qt; ++it) {
+    const int q0 = q_lo + it * BQ, buf = it & 1;
+    if (it + 1 < n_qt) {
+      stage_rows<T, HD, LD, NTH>(sQ + (buf ^ 1) * BQ * LD, qb, qs.s, q0 + BQ, BQ, Sq);
+      stage_rows<T, HD, LD, NTH>(sdO + (buf ^ 1) * BQ * LD, db, ds.s, q0 + BQ, BQ, Sq);
+    }
+    cp_async_commit();
+    float lc[NT][2], dc[NT][2];  // lse and D of this thread's q columns
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0 + n * 8 + 2 * t4 + e;
+        lc[n][e] = qi < Sq ? lb[qi] : 0.f;
+        dc[n][e] = qi < Sq ? Db[qi] : 0.f;
       }
-      __syncthreads();
-      bwd_scores<HD>(sQ, sdO, sK, sV, sL, sD, sP, sdS, q0, k0, Sq, Sk, causal,
-                     window, scale);
-      __syncthreads();
-      // dV[row] += Σ_i P[i][row] dO[i];  dK[row] += Σ_i dS[i][row] Q[i]
-      for (int i = 0; i < kBQ; ++i) {
-        const float p = sP[i * 33 + row], dsv = sdS[i * 33 + row];
-        const float* qr = sQ + i * LD + col;
-        const float* dr = sdO + i * LD + col;
+    cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();
+    const T* tQ = sQ + buf * BQ * LD + c0;
+    const T* tdO = sdO + buf * BQ * LD + c0;
+
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          adv[c] = fmaf(p, dr[8 * c], adv[c]);
-          adk[c] = fmaf(dsv, qr[8 * c], adk[c]);
-        }
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    warp_ss<T, HO, NT>(s, aK, tQ, LD);    // Sᵀ = K Qᵀ
+    warp_ss<T, HO, NT>(dp, aV, tdO, LD);  // dPᵀ = V dOᵀ
+    add_partner<NS, NT>(s, dp, sX);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + n * 8 + 2 * t4 + (e & 1);
+        const int kj = e < 2 ? kj0 : kj1;
+        const bool vis = qi < Sq && visible(qi, kj, Sk, causal, window);
+        const float p = vis ? expf(s[n][e] * scale - lc[n][e & 1]) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dc[n][e & 1]);
+      }
+    warp_rs<T, NT, ON>(adv, s, tdO, LD);  // dV += Pᵀ dO
+    warp_rs<T, NT, ON>(adk, dp, tQ, LD);  // dK += dSᵀ Q
+    __syncthreads();  // buffer `buf` and the partials are free again
+  }
+  cp_async_wait<0>();  // a block with no q tile still copied K and V
+
+  // rows kj0 (e 0, 1) and kj1 (e 2, 3); columns c0 + 8n + 2·t4 + {0, 1}
+  if (part != nullptr) {
+    float* pk = part + ((long long)b * H + h) * Sk * HD;
+    float* pv = pk + (long long)B * H * Sk * HD;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int col = c0 + n * 8 + 2 * t4;
+      if (kj0 < Sk) {
+        st_pair(pk + (long long)kj0 * HD + col, adk[n][0] * scale, adk[n][1] * scale);
+        st_pair(pv + (long long)kj0 * HD + col, adv[n][0], adv[n][1]);
+      }
+      if (kj1 < Sk) {
+        st_pair(pk + (long long)kj1 * HD + col, adk[n][2] * scale, adk[n][3] * scale);
+        st_pair(pv + (long long)kj1 * HD + col, adv[n][2], adv[n][3]);
+      }
+    }
+  } else {
+    T* dkb = dk + b * dks.b + kvh * dks.h;
+    T* dvb = dv + b * dvs.b + kvh * dvs.h;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int col = c0 + n * 8 + 2 * t4;
+      if (kj0 < Sk) {
+        st_pair(dkb + kj0 * dks.s + col, adk[n][0] * scale, adk[n][1] * scale);
+        st_pair(dvb + kj0 * dvs.s + col, adv[n][0], adv[n][1]);
+      }
+      if (kj1 < Sk) {
+        st_pair(dkb + kj1 * dks.s + col, adk[n][2] * scale, adk[n][3] * scale);
+        st_pair(dvb + kj1 * dvs.s + col, adv[n][2], adv[n][3]);
       }
     }
   }
-  const int kj = k0 + row;
-  if (kj >= Sk) return;
-  T* dkr = dk + b * dks.b + kvh * dks.h + kj * dks.s;
-  T* dvr = dv + b * dvs.b + kvh * dvs.h + kj * dvs.s;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    st_val(dkr + col + 8 * c, adk[c] * scale);
-    st_val(dvr + col + 8 * c, adv[c]);
-  }
 }
 
+// grid (ceil(B·KV·Sk·hd / 4 / 256), 2): y = 0 sums the dK partials, 1 the
+// dV partials; each thread four columns of one key, its group's G heads
+// added in head order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                  T* __restrict__ dv, int B, int H, int KV, int Sk, int hd,
+                  Strides dks, Strides dvs) {
+  const long long n4 = (long long)B * KV * Sk * hd / 4;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const int hd4 = hd / 4, G = H / KV;
+  const int c = (int)(i % hd4) * 4;
+  const int kj = (int)((i / hd4) % Sk);
+  const int kvh = (int)((i / ((long long)hd4 * Sk)) % KV);
+  const int b = (int)(i / ((long long)hd4 * Sk * KV));
+  const float* src = part + (long long)blockIdx.y * B * H * Sk * hd +
+                     (((long long)b * H + kvh * G) * Sk + kj) * hd + c;
+  const long long hstep = (long long)Sk * hd;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * hstep);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const Strides os = blockIdx.y ? dvs : dks;
+  T* dst = (blockIdx.y ? dv : dk) + b * os.b + kvh * os.h + kj * os.s + c;
+  st_pair(dst, acc.x, acc.y);
+  st_pair(dst + 2, acc.z, acc.w);
+}
+
+// grid (B·H, ceil(Sq / 64)), NS·4 warps.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdWarps * 32 * bwd_splits<HD>())
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dsum,
               T* __restrict__ dq, int H, int KV, int Sq, int Sk, Strides qs,
               Strides ks, Strides vs, Strides ds, Strides dqs, int causal,
               int window, float scale) {
-  constexpr int LD = HD + 1, CPT = HD / 8;
-  extern __shared__ float bsm[];
-  float* sQ = bsm;
-  float* sdO = sQ + 32 * LD;
-  float* sK = sdO + 32 * LD;
-  float* sV = sK + 32 * LD;
-  float* sP = sV + 32 * LD;
-  float* sdS = sP + 32 * 33;
-  float* sL = sdS + 32 * 33;
-  float* sD = sL + 32;
+  constexpr int LD = HD + bwd_pad<T>();
+  constexpr int BK = bwd_walk<T, HD>();
+  constexpr int NS = bwd_splits<HD>();
+  constexpr int NTH = kBwdWarps * 32 * NS;
+  constexpr int HO = HD / NS;  // a warp's columns (and its score's k)
+  constexpr int NT = BK / 8;   // score n-tiles: keys
+  constexpr int ON = HO / 8;   // output n-tiles
+  extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
+  T* sQ = reinterpret_cast<T*>(bwd_smem_raw);  // [64][LD]
+  T* sdO = sQ + kBwdRows * LD;                  // [64][LD]
+  T* sK = sdO + kBwdRows * LD;                  // [2][BK][LD]
+  T* sV = sK + 2 * BK * LD;                     // [2][BK][LD]
+  float* sX = reinterpret_cast<float*>(sV + 2 * BK * LD);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, row = tid >> 3, col = tid & 7;
-
-  stage_rows<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
-  stage_rows<T, HD>(sdO, dout + b * ds.b + h * ds.h, ds.s, q0, Sq);
-  if (tid < 32) {
-    const long long base = ((long long)b * H + h) * Sq;
-    sL[tid] = q0 + tid < Sq ? lse[base + q0 + tid] : 0.f;
-    sD[tid] = q0 + tid < Sq ? dsum[base + q0 + tid] : 0.f;
-  }
-  float adq[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) adq[c] = 0.f;
-
-  int k_lo, k_hi;
-  kv_range(q0, Sq, Sk, causal, window, k_lo, k_hi);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % kBwdWarps, cg = warp / kBwdWarps;  // rows, columns
+  const int t4 = lane & 3;
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    __syncthreads();
-    stage_rows<T, HD>(sK, kb, ks.s, k0, Sk);
-    stage_rows<T, HD>(sV, vb, vs.s, k0, Sk);
-    __syncthreads();
-    bwd_scores<HD>(sQ, sdO, sK, sV, sL, sD, sP, sdS, q0, k0, Sq, Sk, causal,
-                   window, scale);
-    __syncthreads();
-    // dQ[row] += Σ_j dS[row][j] K[j]
-    for (int j = 0; j < kBK; ++j) {
-      const float dsv = sdS[row * 33 + j];
-      const float* kr = sK + j * LD + col;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) adq[c] = fmaf(dsv, kr[8 * c], adq[c]);
-    }
+
+  // the keys any row of the tile sees, from a tile boundary
+  const int q_last = min(q0 + kBwdRows, Sq) - 1;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = ((window > 0 ? max(0, q0 - window + 1) : 0) / BK) * BK;
+  const int n_kt = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
+  stage_rows<T, HD, LD, NTH>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, kBwdRows, Sq);
+  stage_rows<T, HD, LD, NTH>(sdO, dout + b * ds.b + h * ds.h, ds.s, q0, kBwdRows, Sq);
+  if (n_kt > 0) {
+    stage_rows<T, HD, LD, NTH>(sK, kb, ks.s, k_lo, BK, Sk);
+    stage_rows<T, HD, LD, NTH>(sV, vb, vs.s, k_lo, BK, Sk);
   }
-  const int qi = q0 + row;
-  if (qi >= Sq) return;
-  T* dqr = dq + b * dqs.b + h * dqs.h + qi * dqs.s;
+  cp_async_commit();
+
+  const int r0 = q0 + rw * 16 + (lane >> 2), r1 = r0 + 8;
+  const long long base = ((long long)blockIdx.x) * Sq;
+  const float l0 = r0 < Sq ? lse[base + r0] : 0.f;
+  const float l1 = r1 < Sq ? lse[base + r1] : 0.f;
+  const float d0 = r0 < Sq ? dsum[base + r0] : 0.f;
+  const float d1 = r1 < Sq ? dsum[base + r1] : 0.f;
+  float adq[ON][4];
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) st_val(dqr + col + 8 * c, adq[c] * scale);
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[n][e] = 0.f;
+  const int c0 = cg * HO;  // this warp's half of hd
+  const T* aQ = sQ + rw * 16 * LD + c0;
+  const T* adO = sdO + rw * 16 * LD + c0;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt0 = k_lo + it * BK, buf = it & 1;
+    if (it + 1 < n_kt) {
+      stage_rows<T, HD, LD, NTH>(sK + (buf ^ 1) * BK * LD, kb, ks.s, kt0 + BK, BK, Sk);
+      stage_rows<T, HD, LD, NTH>(sV + (buf ^ 1) * BK * LD, vb, vs.s, kt0 + BK, BK, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* tK = sK + buf * BK * LD + c0;
+    const T* tV = sV + buf * BK * LD + c0;
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    warp_ss<T, HO, NT>(s, aQ, tK, LD);    // S = Q Kᵀ
+    warp_ss<T, HO, NT>(dp, adO, tV, LD);  // dP = dO Vᵀ
+    add_partner<NS, NT>(s, dp, sX);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = kt0 + n * 8 + 2 * t4 + (e & 1);
+        const int qi = e < 2 ? r0 : r1;
+        const bool vis = qi < Sq && visible(qi, kj, Sk, causal, window);
+        const float p = vis ? expf(s[n][e] * scale - (e < 2 ? l0 : l1)) : 0.f;
+        dp[n][e] = p * (dp[n][e] - (e < 2 ? d0 : d1));
+      }
+    warp_rs<T, NT, ON>(adq, dp, tK, LD);  // dQ += dS K
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  T* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int n = 0; n < ON; ++n) {
+    const int col = c0 + n * 8 + 2 * t4;
+    if (r0 < Sq) st_pair(dqb + r0 * dqs.s + col, adq[n][0] * scale, adq[n][1] * scale);
+    if (r1 < Sq) st_pair(dqb + r1 * dqs.s + col, adq[n][2] * scale, adq[n][3] * scale);
+  }
 }
 
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* dsum, void* dq,
-               void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
+               const void* dout, const float* lse, float* dsum, float* part,
+               long long part_floats, void* dq, void* dk, void* dv, int B,
+               int H, int KV, int Sq, int Sk, const int* grids,
                const Strides* st, int causal, int window, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<HD>();
+  constexpr int smem = bwd_smem_bytes<T, HD>();
   auto kdkdv = bwd_dkdv_kernel<T, HD>;
   auto kdq = bwd_dq_kernel<T, HD>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(
-        kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
+  // The caller's plan (the wrapper's `bwd_plan`): a dQ block for each
+  // (batch, head) and q tile, a dK/dV block for each (batch, head) and
+  // key tile, and the partials' floats when a KV head serves G > 1 heads.
+  const long long want_part =
+      H / KV > 1 ? 2LL * B * H * Sk * HD : 0;
+  if (grids[0] != B * H || grids[2] != B * H ||
+      (long long)grids[1] * kBwdRows < Sq ||
+      (long long)(grids[1] - 1) * kBwdRows >= Sq ||
+      (long long)grids[3] * kBwdRows < Sk ||
+      (long long)(grids[3] - 1) * kBwdRows >= Sk ||
+      part_floats != want_part || (part != nullptr) != (want_part > 0))
+    return -1;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dp = static_cast<const T*>(dout);
+  T* dkp = static_cast<T*>(dk);
+  T* dvp = static_cast<T*>(dv);
   // st: q, k, v, o, dout, dq, dk, dv
-  bwd_dot_kernel<T><<<dim3((Sq + kBwdWarps - 1) / kBwdWarps, H, B),
-                      kBwdThreads, 0, stream>>>(
+  bwd_dot_kernel<T><<<dim3((Sq + kDotWarps - 1) / kDotWarps, H, B),
+                      kDotWarps * 32, 0, stream>>>(
       static_cast<const T*>(o), dp, dsum, H, Sq, HD, st[3], st[4]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kdkdv<<<dim3((Sk + kBK - 1) / kBK, KV, B), kBwdThreads, smem, stream>>>(
-      qp, kp, vp, dp, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      KV, Sq, Sk, st[0], st[1], st[2], st[4], st[6], st[7], causal, window,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  kdq<<<dim3((Sq + kBQ - 1) / kBQ, H, B), kBwdThreads, smem, stream>>>(
+  constexpr int nth = kBwdWarps * 32 * bwd_splits<HD>();
+  kdq<<<dim3(grids[0], grids[1]), nth, smem, stream>>>(
       qp, kp, vp, dp, lse, dsum, static_cast<T*>(dq), H, KV, Sq, Sk, st[0],
       st[1], st[2], st[4], st[5], causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kdkdv<<<dim3(grids[2], grids[3]), nth, smem, stream>>>(
+      qp, kp, vp, dp, lse, dsum, part, dkp, dvp, B, H, KV, Sq, Sk, st[0],
+      st[1], st[2], st[4], st[6], st[7], causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return (int)err;
+  const long long n4 = (long long)B * KV * Sk * HD / 4;
+  bwd_reduce_kernel<T><<<dim3((unsigned)((n4 + 255) / 256), 2), 256, 0,
+                         stream>>>(part, dkp, dvp, B, H, KV, Sk, HD, st[6],
+                                   st[7]);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_bwd(int hd, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const float* lse,
-                 float* dsum, void* dq, void* dk, void* dv, int B, int H,
-                 int KV, int Sq, int Sk, const Strides* st, int causal,
+                 float* dsum, float* part, long long part_floats, void* dq,
+                 void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
+                 const int* grids, const Strides* st, int causal,
                  int window, float scale, cudaStream_t s) {
-#define BWD_CASE(HD)                                                        \
-  case HD:                                                                  \
-    return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H, \
-                             KV, Sq, Sk, st, causal, window, scale, s);
+#define BWD_CASE(HD)                                                       \
+  case HD:                                                                 \
+    return launch_bwd<T, HD>(q, k, v, o, dout, lse, dsum, part,            \
+                             part_floats, dq, dk, dv, B, H, KV, Sq, Sk,    \
+                             grids, st, causal, window, scale, s);
   switch (hd) {
     BWD_CASE(16)
     BWD_CASE(32)
@@ -768,6 +1129,15 @@ int dispatch_bwd(int hd, const void* q, const void* k, const void* v,
       return -1;
   }
 #undef BWD_CASE
+}
+
+template <typename T, int HD>
+void bwd_plan_of(int* out) {
+  out[0] = kBwdRows;             // keys a dK/dV block, q rows a dQ block
+  out[1] = bwd_walk<T, HD>();    // rows of a walked tile
+  out[2] = HD / bwd_splits<HD>();  // hd columns a warp
+  out[3] = bwd_smem_bytes<T, HD>();
+  out[4] = kBwdWarps * 32 * bwd_splits<HD>();  // threads a block
 }
 
 // ---------------------------------------------------------------------
@@ -849,29 +1219,61 @@ extern "C" int flash_attention_fwd(
 
 // The backward of flash_attention_fwd (same dtype, hd, mask and scale).
 // lse (B, H, Sq) fp32 is the forward's log-sum-exp; dsum (B, H, Sq) fp32
-// is scratch for D.  strides: 24 (batch, head, seq) element strides, of
-// q, k, v, o, dout, dq, dk, dv in that order, hd contiguous in each.
-// dq, dk and dv are written whole (no accumulation into them).  Returns
-// cudaGetLastError() after the last launch, or -1 for an unsupported
-// dtype / head size.
+// is scratch for D; part is fp32 scratch of part_floats = 2·B·H·Sk·hd
+// floats for the per-head partial dK, dV when H > KV, and null (0 floats)
+// when H == KV.  grids: the (x, y) blocks of the dQ kernel, then of the
+// dK/dV kernel, from the wrapper's plan: B·H by the q tiles, B·H by the
+// key tiles of kBwdRows rows.  strides:
+// 24 (batch, head, seq) element strides, of q, k, v, o, dout, dq, dk, dv
+// in that order, hd contiguous in each; q, k, v and dout rows start on
+// 16 bytes, and dq, dk, dv rows on 8.  dq, dk and dv are written whole
+// (no accumulation into them).  Returns cudaGetLastError() after the
+// last launch, or -1 for an unsupported dtype / head size, or grids or
+// a part that do not match the shapes.
 extern "C" int flash_attention_bwd(
     int dtype, int hd, const void* q, const void* k, const void* v,
-    const void* o, const void* dout, const void* lse, void* dsum, void* dq,
-    void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
-    const long long* strides, int causal, int window, float scale,
-    void* stream) {
+    const void* o, const void* dout, const void* lse, void* dsum, void* part,
+    long long part_floats, void* dq, void* dk, void* dv, int B, int H,
+    int KV, int Sq, int Sk, const int* grids, const long long* strides,
+    int causal, int window, float scale, void* stream) {
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* D = static_cast<float*>(dsum);
+  float* P = static_cast<float*>(part);
   if (dtype == 0)
-    return dispatch_bwd<float>(hd, q, k, v, o, dout, l, D, dq, dk, dv, B, H,
-                               KV, Sq, Sk, st, causal, window, scale, s);
+    return dispatch_bwd<float>(hd, q, k, v, o, dout, l, D, P, part_floats,
+                               dq, dk, dv, B, H, KV, Sq, Sk, grids, st,
+                               causal, window, scale, s);
   if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16>(hd, q, k, v, o, dout, l, D, dq, dk, dv,
-                                       B, H, KV, Sq, Sk, st, causal, window,
-                                       scale, s);
+    return dispatch_bwd<__nv_bfloat16>(hd, q, k, v, o, dout, l, D, P,
+                                       part_floats, dq, dk, dv, B, H, KV, Sq,
+                                       Sk, grids, st, causal, window, scale,
+                                       s);
+  return -1;
+}
+
+// The backward's launch plan for (dtype, hd), into out[5]: rows a block
+// (keys of a dK/dV block, q rows of a dQ block), rows of a walked tile,
+// dK/dV columns a block, dynamic shared memory bytes a block (both
+// kernels), threads a block.  Returns 0, or -1 for an unsupported dtype /
+// head size.  The wrapper's `bwd_plan` mirrors it.
+extern "C" int flash_attention_bwd_plan(int dtype, int hd, int* out) {
+#define PLAN_CASE(T, HD) \
+  case HD:               \
+    bwd_plan_of<T, HD>(out); \
+    return 0;
+  if (dtype == 0) switch (hd) {
+      PLAN_CASE(float, 16) PLAN_CASE(float, 32) PLAN_CASE(float, 64)
+      PLAN_CASE(float, 128) PLAN_CASE(float, 256)
+    }
+  if (dtype == 1) switch (hd) {
+      PLAN_CASE(__nv_bfloat16, 16) PLAN_CASE(__nv_bfloat16, 32)
+      PLAN_CASE(__nv_bfloat16, 64) PLAN_CASE(__nv_bfloat16, 128)
+      PLAN_CASE(__nv_bfloat16, 256)
+    }
+#undef PLAN_CASE
   return -1;
 }

@@ -19,8 +19,10 @@ Training: on a CUDA tensor under grad mode with an input that requires
 grad, :func:`rglru_scan` runs through :class:`RGLRUScan`, whose forward
 launches the same kernel and saves a and h, and whose backward launches
 the backward kernel (:func:`rglru_scan_bwd`): g_t = dh_t + a_{t+1}
-g_{t+1}, da_t = g_t h_{t−1}, db_t = g_t, the same segments walked from
-the end.
+g_{t+1}, da_t = g_t h_{t−1}, db_t = g_t, walked from the end.  Its
+plan is its own (:func:`bwd_plan`): S cut into chunks that a block
+holds in registers, the chunks of a channel group chained right to left
+through carries the blocks publish in zeroed scratch.
 """
 from __future__ import annotations
 
@@ -34,12 +36,15 @@ from repro_torch.kernels.flash_attention import DTYPES
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_I, _P, _P, _P, _I, _I, _I, _I] + [_L] * 6 + [_P]
-_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 10 + [_P]
+_BWD_ARGTYPES = ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+                 + [_L] * 10 + [_P])
 
 CHANNELS = 32      # channels a block (kCh in the kernel)
 MAX_SEGMENTS = 32  # segments a block (kMaxSeg)
 REG_STEPS = 16     # steps a thread holds in registers (kR)
 WARPS_PER_SM = 16  # the occupancy segment_plan aims for
+BWD_SEGMENTS = 16  # segments a backward block (kBwdSeg)
+BWD_STEPS = 12     # steps a backward thread holds in registers (kBwdR)
 
 
 def segment_plan(B: int, S: int, W: int, sms: int = H100_SMS):
@@ -53,6 +58,26 @@ def segment_plan(B: int, S: int, W: int, sms: int = H100_SMS):
     want = max(1, min(want, MAX_SEGMENTS, S))
     seg = max(S // want, -(-S // MAX_SEGMENTS))
     return seg, -(-S // seg)
+
+
+def bwd_plan(S: int):
+    """(seg, n_seg, n_chunk) of the backward kernel: S cut into n_chunk
+    chunks of n_seg segments of seg steps (the last chunk may be
+    shorter, none is empty); a segment is held in registers (seg <=
+    ``BWD_STEPS``) and a chunk is one block (n_seg <= ``BWD_SEGMENTS``).
+    Chunks are as long as a block can hold, so the chain that carries
+    between them is as short as it can be."""
+    n_chunk = -(-S // (BWD_SEGMENTS * BWD_STEPS))
+    seg = -(-S // (n_chunk * BWD_SEGMENTS))
+    n_seg = -(-(-(-S // n_chunk)) // seg)
+    return seg, n_seg, -(-S // (seg * n_seg))
+
+
+def bwd_scratch_words(B: int, S: int, W: int) -> int:
+    """32-bit words of the backward's zeroed scratch: a ticket counter,
+    then a flag and CHANNELS carries a (channel group, chunk)."""
+    n_grp = B * -(-W // CHANNELS)
+    return 1 + n_grp * bwd_plan(S)[2] * (1 + CHANNELS)
 
 
 def _check(a, b) -> None:
@@ -140,12 +165,15 @@ def rglru_scan_bwd(a, h, dh):
         dh = dh.contiguous()
     fn = build.function("rglru_scan", "rglru_scan_bwd", _BWD_ARGTYPES)
     B, S, W = a.shape
-    seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))
+    seg, n_seg, n_chunk = bwd_plan(S)
     da = torch.empty((B, S, W), dtype=a.dtype, device=a.device)
     db = torch.empty_like(da)
+    scratch = torch.zeros(bwd_scratch_words(B, S, W), dtype=torch.int32,
+                          device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(DTYPES[a.dtype], a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-             da.data_ptr(), db.data_ptr(), B, S, W, seg,
+             da.data_ptr(), db.data_ptr(), B, S, W, seg, n_seg, n_chunk,
+             scratch.data_ptr(),
              *(s for t in (a, h, dh, da, db) for s in t.stride()[:2]),
              stream)
     if err != 0:

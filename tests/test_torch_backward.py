@@ -143,3 +143,83 @@ def test_cpu_autograd_of_the_wrappers_equals_the_plain_backward():
     plain = ops.rglru_scan_bwd(a.detach(), h.detach(), dh)
     for x, y in zip(auto, plain):
         torch.testing.assert_close(x, y, rtol=2e-6, atol=2e-6)
+
+
+# ----------------------------------------------------------------------
+# K2-bwd's launch plan (``flash_attention.bwd_plan``): the launch takes
+# its grids and scratch, and its tiles equal the kernels' own report
+# (``flash_attention_bwd_plan``) on the card.
+# ----------------------------------------------------------------------
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+H100_SMS = 132
+TRAINING = {"qwen2": (4, 12, 2, 1024, 1024, 128),
+            "recurrentgemma": (2, 10, 1, 1024, 1024, 256)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
+    (4, 12, 2, 1024, 1024, 128), (2, 10, 1, 1024, 1024, 256),
+    (1, 16, 1, 1024, 1024, 128), (1, 10, 1, 4096, 4096, 256),
+    (2, 6, 6, 64, 1500, 64), (1, 4, 2, 1000, 1000, 128),
+    (2, 4, 4, 77, 77, 32), (1, 2, 1, 40, 40, 16), (1, 4, 1, 300, 40, 256)])
+def test_flash_bwd_plan_covers_keys_rows_and_heads_once(dtype, B, H, KV, Sq,
+                                                        Sk, hd):
+    """The dK/dV blocks cover every (batch, query head, key) once and the
+    dQ blocks every (batch, head, q row) once, their warps' column groups
+    every hd column once; the partials are (B, H, Sk, hd) fp32 for dK
+    and dV when a KV head serves several query heads, and none
+    otherwise."""
+    p = fa.bwd_plan(B, H, KV, Sq, Sk, hd, dtype)
+    assert p.splits * p.cols == hd and p.cols % 16 == 0
+    assert p.threads == 32 * p.rows // 16 * p.splits
+    seen = np.zeros((B, H, Sk), dtype=np.int64)
+    for x in range(p.dkdv_grid[0]):
+        b, h = divmod(x, H)
+        for y in range(p.dkdv_grid[1]):
+            seen[b, h, y * p.rows:min(Sk, (y + 1) * p.rows)] += 1
+    assert (seen == 1).all()
+    assert (p.dkdv_grid[1] - 1) * p.rows < Sk  # no empty key tile
+    rows = np.zeros((B, H, Sq), dtype=np.int64)
+    for x in range(p.dq_grid[0]):
+        b, h = divmod(x, H)
+        for y in range(p.dq_grid[1]):
+            rows[b, h, y * p.rows:min(Sq, (y + 1) * p.rows)] += 1
+    assert (rows == 1).all()
+    assert p.scratch == (0 if H == KV else 2 * B * H * Sk * hd * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_bwd_plan_fits_shared_memory(dtype, hd):
+    """A block of either kernel fits the SM's shared memory (two blocks an
+    SM up to hd 128, where the fp32 walk is 16 rows); the walked tiles
+    split into whole mma tiles (16 rows: a bf16 k-step, two fp32 ones).
+    Registers and spills are ptxas's to report: ``chip_smoke.py`` holds
+    them to its ``BWD_SPILLS`` on the card."""
+    p = fa.bwd_plan(1, 1, 1, 64, 64, hd, dtype)
+    assert p.smem <= fa.SMEM_LIMIT
+    if hd <= 128:
+        assert 2 * p.smem <= fa.SMEM_LIMIT
+    assert p.rows == 16 * fa.BWD_WARPS
+    assert p.threads == 32 * fa.BWD_WARPS * p.splits
+    assert p.walk % 16 == 0 and p.cols % 16 == 0
+    esize, pad = (4, 4) if dtype == torch.float32 else (2, 8)
+    # a padded row starts on 16 bytes (cp.async) and is not a multiple
+    # of 128 bytes (a warp's fragment reads fall in distinct banks)
+    assert (hd + pad) * esize % 16 == 0 and (hd + pad) * esize % 128
+
+
+@pytest.mark.parametrize("arch", sorted(TRAINING))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plan_fills_the_card_at_the_training_shapes(arch, dtype):
+    """At both training shapes each kernel's grid holds at least two
+    blocks an SM of the H100; qwen2's partials take about 50 MB."""
+    B, H, KV, Sq, Sk, hd = TRAINING[arch]
+    p = fa.bwd_plan(B, H, KV, Sq, Sk, hd, dtype)
+    for grid in (p.dkdv_grid, p.dq_grid):
+        assert grid[0] * grid[1] >= 2 * H100_SMS
+    if arch == "qwen2":
+        assert p.dkdv_grid == (48, 16) and p.scratch == 50331648
+    else:  # hd 256: two warps of a block on each 16 rows
+        assert p.dkdv_grid == p.dq_grid == (20, 16) and p.threads == 256

@@ -16,6 +16,7 @@ pass's outputs exactly (same operations in the same order), and the
 stacked selection's picks and has_base flags exactly, in its classed
 (premodel) and fleet forms.
 """
+import math
 from dataclasses import replace
 
 import numpy as np
@@ -1272,7 +1273,10 @@ def _close_scaled(got, want, dtype):
     (1, 4, 2, 1000, 1000, 128, True, 0),    # ragged S
     (2, 8, 8, 200, 200, 128, True, 0),      # G = 1
     (2, 4, 4, 77, 77, 32, True, 0), (1, 2, 1, 40, 40, 16, True, 0),
-    (1, 8, 4, 300, 300, 64, True, 50), (1, 4, 1, 300, 40, 256, False, 0)])
+    (1, 8, 4, 300, 300, 64, True, 50), (1, 4, 1, 300, 40, 256, False, 0),
+    (1, 16, 1, 1024, 1024, 128, True, 0),    # a small grid the blocks fill
+    (1, 10, 1, 4096, 4096, 256, True, 2048),  # recurrentgemma's window bites
+])
 def test_flash_bwd_kernel_matches_plain(gen, dtype, B, H, KV, Sq, Sk, hd,
                                         causal, window):
     q = _randn(gen, B, Sq, H, hd, dtype=dtype).transpose(1, 2)
@@ -1299,6 +1303,61 @@ def test_flash_bwd_kernel_matches_plain(gen, dtype, B, H, KV, Sq, Sk, hd,
         assert sorted(range(4), key=lambda i: -g.stride(i)) == \
             sorted(range(4), key=lambda i: -t.stride(i))
         _close_scaled(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_takes_rows_off_16_bytes(gen, dtype):
+    """The backward kernels copy rows 16 bytes at a time: q, k, v and
+    dout whose rows start off 16 bytes (views one element into a larger
+    buffer) are copied first, and the gradients match the plain
+    version."""
+    B, H, KV, S, hd = 1, 4, 2, 96, 64
+
+    def shifted(*shape):
+        flat = _randn(gen, math.prod(shape) + 1, dtype=dtype)
+        return flat[1:].view(*shape)
+
+    q = shifted(B, S, H, hd).transpose(1, 2)
+    k = shifted(B, S, KV, hd).transpose(1, 2)
+    v = shifted(B, S, KV, hd).transpose(1, 2)
+    dout = shifted(B, H, S, hd)
+    assert q.data_ptr() % 16 and dout.data_ptr() % 16
+    o, lse = _flash_with_lse(q.contiguous(), k.contiguous(), v.contiguous(),
+                             True, 0)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+    for g, w in zip(got, want):
+        _close_scaled(g, w, dtype)
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("dq_grid", lambda g: (g[0], g[1] - 1)),    # a q tile left out
+    ("dkdv_grid", lambda g: (g[0], g[1] + 1)),  # an empty key tile
+    ("dkdv_grid", lambda g: (g[0] - 1, g[1])),  # a head left out
+    ("scratch", lambda n: n - 4)])              # partials too small
+def test_flash_bwd_launch_refuses_a_plan_that_does_not_cover(
+        gen, monkeypatch, field, bad):
+    """The launch takes its grids and scratch from ``bwd_plan`` and
+    refuses ones that do not cover the shapes, launching nothing."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KV, S, hd = 1, 4, 2, 200, 64
+    q = _randn(gen, B, H, S, hd, dtype=torch.float32)
+    k = _randn(gen, B, KV, S, hd, dtype=torch.float32)
+    v = _randn(gen, B, KV, S, hd, dtype=torch.float32)
+    dout = _randn(gen, B, H, S, hd, dtype=torch.float32)
+    o, lse = _flash_with_lse(q, k, v, True, 0)
+    plan = fa.bwd_plan
+
+    def wrong(*args):
+        p = plan(*args)
+        return p._replace(**{field: bad(getattr(p, field))})
+
+    monkeypatch.setattr(fa, "bwd_plan", wrong)
+    before = ops.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.flash_attention_bwd(q, k, v, o, lse, dout)
+    assert ops.flash_attention_bwd.launches == before
 
 
 def _flash_with_lse(q, k, v, causal, window):
@@ -1338,8 +1397,10 @@ def test_flash_serve_call_writes_no_lse_and_grad_call_goes_through_bwd(gen):
 @pytest.mark.parametrize("B,S,W", [
     (2, 1024, 2560),   # recurrentgemma-2b's training shape
     (2, 1000, 2560),   # ragged S
-    (1, 600, 64),      # segments longer than kR: walked from memory
-    (1, 5000, 40), (1, 1, 7), (3, 77, 128), (4, 129, 2560)])
+    (1, 600, 64),      # several chunks at a narrow width
+    (1, 5000, 40), (1, 1, 7), (3, 77, 128), (4, 129, 2560),
+    (2, 2048, 2560), (2, 4096, 2560),  # 11 and 22 chained chunks
+    (2, 3000, 2560)])  # ragged: the last chunk is short
 def test_rglru_bwd_kernel_matches_plain(gen, dtype, B, S, W):
     a = (torch.sigmoid(_randn(gen, B, S, W, dtype=torch.float32)) * 0.98
          ).to(dtype)

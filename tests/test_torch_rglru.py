@@ -229,3 +229,45 @@ def test_new_families_serve_on_cpu(arch, capsys):
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "2",
                 "--widths", "0.5", "--batch", "1", "--seq", "8"])
     assert '"n": 2' in capsys.readouterr().out
+
+
+# ----------------------------------------------------------------------
+# K5-bwd's chunk plan (``rglru_scan.bwd_plan``)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 7, 16, 17, 77, 255, 256, 257, 1000, 1024,
+                               2048, 3000, 4096, 5000, 16384])
+def test_rglru_bwd_plan_covers_s_once_in_registers(S):
+    """The backward's segments cover [0, S) once, in chunks none of which
+    is empty; a segment fits the registers a thread holds (``BWD_STEPS``
+    steps) and a chunk is one block (``BWD_SEGMENTS`` segments); the
+    forward's plan is untouched."""
+    from repro_torch.kernels.rglru_scan import (BWD_SEGMENTS, BWD_STEPS,
+                                                bwd_plan)
+    seg, n_seg, n_chunk = bwd_plan(S)
+    assert 1 <= seg <= BWD_STEPS and 1 <= n_seg <= BWD_SEGMENTS
+    hit = np.zeros(S, dtype=np.int64)
+    for c in range(n_chunk):
+        lo = c * n_seg * seg
+        assert lo < S  # no empty chunk
+        for sg in range(n_seg):
+            s0 = lo + sg * seg
+            hit[s0:min(S, s0 + seg)] += 1
+    assert (hit == 1).all()
+    # as long as a block holds: a chain of ceil(S / 192) chunks
+    assert n_chunk == -(-S // (BWD_SEGMENTS * BWD_STEPS))
+    assert segment_plan(4, 128, 2560) == (16, 8)
+
+
+def test_rglru_bwd_plan_fills_the_card_at_the_training_shape():
+    """recurrentgemma-2b's training shape (B 2, S 1024, W 2560): 160
+    channel groups × 6 chunks of 176 steps (16 segments of 11) = 960
+    blocks of 512 threads, more than 2 an SM; the scratch is a ticket,
+    then a flag and 32 carries a block."""
+    from repro_torch.kernels.rglru_scan import (BWD_SEGMENTS, CHANNELS,
+                                                bwd_plan, bwd_scratch_words)
+    seg, n_seg, n_chunk = bwd_plan(1024)
+    assert (seg, n_seg, n_chunk) == (11, 16, 6)
+    blocks = 2 * 2560 // CHANNELS * n_chunk
+    assert blocks == 960 and blocks >= 2 * 132
+    assert CHANNELS * BWD_SEGMENTS == 512
+    assert bwd_scratch_words(2, 1024, 2560) == 1 + 960 * 33
