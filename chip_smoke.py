@@ -41,10 +41,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (``flash_attention_bwd_ref``, from the forward's log-sum-exp, itself
    held against ``flash_attention_lse_ref``) at the training phase's
    shapes and edges (hd 256, whisper's unmasked encoder, a window inside
-   S, a ragged S, G = 1) in both types, and K5's
+   S, a ragged S, G = 1) in both types, K5's
    (``rglru_scan_bwd_ref``) at recurrentgemma's training shape, a
-   ragged S, segments held in registers and walked from memory; two
-   calls of each give the same bits;
+   ragged S, segments held in registers and walked from memory, and
+   K4's (``ssd_scan_bwd_ref``, from the chunk states K4 writes when
+   asked, held against ``ssd_chunk_states_ref``) at mamba2-1.3b's
+   training shape, a ragged S, one short chunk, groups, hd 32 and a
+   16-chunk chain (``SSD_BWD``); two calls of each give the same bits;
 3. serve, for each of qwen2-1.5b, mamba2-1.3b and recurrentgemma-2b: a
    pool of the published config at widths 0.5 and 1.0 (full depth, bf16,
    random weights from a seed) behind PoolExecutor → Router → ModiPick,
@@ -83,13 +86,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    max |logit| against the request run alone, teacher-forced on its
    tokens (``[batcher ...]`` lines);
 4b. training at full width (``[train <arch>]`` lines): qwen2-1.5b at
-   B 4, S 1024 and recurrentgemma-2b at B 2, S 1024, fp32 parameters
-   and moments, remat "full", through ``make_train_step``: the first
-   step's loss and every gradient on the kernel path held against the
-   plain path on the card, with the peak memory of that step with and
-   without remat; 5 steps on one repeated batch (the loss must fall),
-   the launch counters zeroed just before and read just after (K2's and
-   K5's backward kernels once per attention / RG-LRU layer a step);
+   B 4, S 1024, recurrentgemma-2b at B 2, S 1024 and mamba2-1.3b at B 2,
+   S 1024, fp32 parameters and moments, remat "full", through
+   ``make_train_step``: the first step's loss and every gradient on the
+   kernel path held against the plain path on the card (mamba2's over
+   its first 2 layers at full width: at 48 layers its random-weight
+   gradient moves by as much when the embedding moves by one ulp), with
+   the peak memory of that step with and without remat; 5 steps on one
+   repeated batch (the loss must fall), the launch counters zeroed just
+   before and read just after (K2's, K4's and K5's backward kernels
+   once per attention / SSD / RG-LRU layer a step, no other kernel);
    a checkpoint restored onto fresh templates whose next step equals
    the un-restored one bit for bit; one more step under torch.profiler
    (``[trace]``); step ms, tokens/s and peak memory;
@@ -256,12 +262,30 @@ RGLRU_BWD = ((2, 1024, 2560, torch.float32), (2, 1000, 2560, torch.float32),
 # TRAIN_LOSS_RTOL and to TRAIN_GRAD_TOL of each leaf's max |gradient|;
 # both run fp32 throughout, so only summation orders differ (PERF.md
 # states them with their reason).
-TRAIN = {"qwen2-1.5b": dict(B=4, S=1024), "recurrentgemma-2b": dict(B=2, S=1024)}
+# mamba2-1.3b's loss and gradients are held over a copy of its config cut
+# to ``check_layers`` layers at full width (its steps run at full depth):
+# the random-weight 48-layer stack's gradient moves by as much as the two
+# paths differ when its embedding moves by one ulp (15% of max |g| at full
+# depth, 0.2% at 4 layers: ``tools/train_grad_depth.py``, PERF.md).
+TRAIN = {"qwen2-1.5b": dict(B=4, S=1024),
+         "recurrentgemma-2b": dict(B=2, S=1024),
+         "mamba2-1.3b": dict(B=2, S=1024, check_layers=2)}
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STEPS = 1e-4, 2e-3, 5
 # The SSD scan relative to max |y| (the chunked kernel and the sequential
 # plain version sum in different orders; tests/test_kernels.py's bounds).
 SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# K4's backward against its plain version, each gradient relative to
+# max(max |want|, 1): float32 to SSD_TOL, bfloat16 to BWD_TOL.  (B, H, G,
+# S, hd, N, chunk, dtype); the first is mamba2-1.3b's training shape
+# (the kernels line's row), then a ragged S, one short chunk, groups in
+# bf16, four groups at hd 32, and a chain of 16 chunks.
+SSD_BWD = ((2, 64, 1, 1024, 64, 128, 256, torch.float32),
+           (2, 64, 1, 1000, 64, 128, 256, torch.float32),
+           (2, 64, 1, 128, 64, 128, 256, torch.float32),
+           (1, 8, 2, 600, 64, 128, 256, torch.bfloat16),
+           (2, 16, 4, 512, 32, 64, 128, torch.float32),
+           (1, 64, 1, 4096, 64, 128, 256, torch.float32))
 
 
 def log(*a):
@@ -434,11 +458,16 @@ BWD_SPILLS = {("bwd_dq_kernel", "13__nv_bfloat16Li256"): 4,
 def bwd_ptxas(logs) -> None:
     """The registers and spills ptxas reports for the backward kernels'
     instantiations (K2-bwd's dQ and dK/dV kernels at both types and five
-    head sizes, K5-bwd's at both types): every one must be reported and
-    spill no more than ``BWD_SPILLS`` allows."""
+    head sizes, K5-bwd's at both types, K4-bwd's chain and chunk kernels
+    at both types and four head sizes and its reduce kernel at both
+    types): every one must be reported and spill no more than
+    ``BWD_SPILLS`` allows."""
     for lib, kern, want in (("flash_attention", "bwd_dq_kernel", 10),
                             ("flash_attention", "bwd_dkdv_kernel", 10),
-                            ("rglru_scan", "rglru_bwd_kernel", 2)):
+                            ("rglru_scan", "rglru_bwd_kernel", 2),
+                            ("ssd_scan", "ssd_bwd_chain_kernel", 8),
+                            ("ssd_scan", "ssd_bwd_chunk_kernel", 8),
+                            ("ssd_scan", "ssd_bwd_reduce_kernel", 2)):
         entry = spill = None
         seen = 0
         for line in logs.get(lib, "").splitlines():
@@ -619,25 +648,14 @@ def phase_kernels(ops, ref, policy_select, gen):
     rows["decode_attention_int8"] = int8_decode(ops, ref, randn, gen)
 
     # K4: the SSD scan at mamba2-1.3b's full width (H 64, hd 64, N 128,
-    # G 1, chunk 256), inputs as the model hands them: transposed views
-    # of its (B, S, H, hd), (B, S, H) and (B, S, G, N) activations.  At
+    # G 1, chunk 256), inputs as the model hands them (``ssd_args``).  At
     # S = 128 and 600 (chunks 256 + 256 + 88) in both types, y and final
     # state.
-    def ssd_args(B, S, H, hd, N, G, dtype):
-        x = (randn(B, S, H, hd, dtype=torch.float32) * 0.5).to(dtype)
-        dt = F.softplus(randn(B, S, H, dtype=torch.float32) - 2.0)
-        A = -torch.exp(randn(H, dtype=torch.float32) * 0.3)
-        bc = (randn(B, S, 2 * G * N, dtype=torch.float32) * 0.3).to(dtype)
-        Bm = bc[..., :G * N].view(B, S, G, N)
-        Cm = bc[..., G * N:].view(B, S, G, N)
-        return (x.transpose(1, 2), dt.transpose(1, 2), A,
-                Bm.transpose(1, 2), Cm.transpose(1, 2))
-
     H, hd, N, G, chunk = 64, 64, 128, 1, 256
     log_ssd_occupancy(hd, N, chunk)
     for S, dtype in ((SEQ, torch.bfloat16), (600, torch.bfloat16),
                      (SEQ, torch.float32), (600, torch.float32)):
-        args = ssd_args(BATCH, S, H, hd, N, G, dtype)
+        args = ssd_args(randn, BATCH, S, H, hd, N, G, dtype)
         y, st = ops.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         y_ref, st_ref = ref.ssd_scan_ref(*args, chunk=chunk)
@@ -663,7 +681,7 @@ def phase_kernels(ops, ref, policy_select, gen):
 
     # K4 over S at mamba2's heads: 1 to 8 chunks, the state carried
     for S in (128, 256, 600, 1024, 2048):
-        args = ssd_args(BATCH, S, H, hd, N, G, torch.bfloat16)
+        args = ssd_args(randn, BATCH, S, H, hd, N, G, torch.bfloat16)
         ms = time_ms(lambda: ops.ssd_scan(*args, chunk=chunk))
         b = ssd_bound(BATCH, H, G, S, hd, N, chunk, torch.bfloat16)
         log(f"[scaling] K4 B={BATCH} H={H} S={S} hd={hd} N={N} chunk={chunk} "
@@ -700,6 +718,21 @@ def phase_kernels(ops, ref, policy_select, gen):
     selection_kernels(ops, ref, policy_select, gen)
     log_timing()
     return rows
+
+
+def ssd_args(randn, B, S, H, hd, N, G, dtype):
+    """K4's inputs as the model hands them: transposed views of its (B,
+    S, H, hd), (B, S, H) and (B, S, G, N) activations (B_ and C_ side by
+    side in one row, as in its projection)."""
+    import torch.nn.functional as F
+    x = (randn(B, S, H, hd, dtype=torch.float32) * 0.5).to(dtype)
+    dt = F.softplus(randn(B, S, H, dtype=torch.float32) - 2.0)
+    A = -torch.exp(randn(H, dtype=torch.float32) * 0.3)
+    bc = (randn(B, S, 2 * G * N, dtype=torch.float32) * 0.3).to(dtype)
+    Bm = bc[..., :G * N].view(B, S, G, N)
+    Cm = bc[..., G * N:].view(B, S, G, N)
+    return (x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2),
+            Cm.transpose(1, 2))
 
 
 # The TF32 tensor-core rate (dense), what K2-bwd's fp32 body issues on.
@@ -775,16 +808,34 @@ def log_bwd_plans() -> None:
         log(f"[plan] K5-bwd B={B} S={S} W={W}: {n_chunk} chunks of "
             f"{n_seg} segments of {seg} steps, {blocks} blocks of "
             f"{32 * n_seg} threads")
+    from repro_torch.kernels import ssd_scan as ssd
+    fn = build.function("ssd_scan", "ssd_scan_bwd_plan",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for (B, H, G, S, hd, N, chunk, _) in SSD_BWD:
+        p = ssd.bwd_plan(B, H, G, S, hd, N, chunk)
+        out = (ctypes.c_longlong * 2)()
+        if fn(hd, N, p.cs, ctypes.cast(out, ctypes.c_void_p)) or list(
+                out) != [p.chain_smem, p.chunk_smem]:
+            raise AssertionError(f"K4-bwd shared memory at hd {hd} N {N} "
+                                 f"chunk {p.cs}: kernel {list(out)}, mirror "
+                                 f"{[p.chain_smem, p.chunk_smem]}")
+        log(f"[plan] K4-bwd B={B} H={H} G={G} S={S} hd={hd} N={N} "
+            f"chunk={p.cs}: {p.n_chunks} chunks; chain {p.chain_grid} x "
+            f"{p.threads} threads, {p.chain_smem} bytes; chunk "
+            f"{p.chunk_grid}, {p.chunk_smem} bytes; reduce "
+            f"{p.reduce_grid}; scratch {p.scratch} bytes (kernel and "
+            f"mirror agree)")
 
 
 def backward_kernels(ops, ref, randn) -> dict:
-    """K2's and K5's backward kernels against their plain versions at the
-    training phase's shapes and edges, two calls each equal bit for bit
-    (no atomics); their kernels-line rows (fp32, the training shapes),
-    K2's with SDPA's backward at the same shape as its yardstick, and
-    ``[extra]`` lines for K2-bwd at recurrentgemma's training shape, in
-    bf16 at qwen2's and where recurrentgemma's window bites (S 4096),
-    and for K5-bwd at S 4096."""
+    """K2's, K4's and K5's backward kernels against their plain versions
+    at the training phase's shapes and edges, two calls each equal bit
+    for bit (no atomics); their kernels-line rows (fp32, the training
+    shapes), K2's with SDPA's backward at the same shape as its
+    yardstick, and ``[extra]`` lines for K2-bwd at recurrentgemma's
+    training shape, in bf16 at qwen2's and where recurrentgemma's window
+    bites (S 4096), for K5-bwd at S 4096, and for K4-bwd
+    (``ssd_backward``)."""
     from repro_torch.kernels import flash_attention as fa
     log_bwd_plans()
     rows = {}
@@ -903,6 +954,107 @@ def backward_kernels(ops, ref, randn) -> dict:
         else:
             extra(f"rglru_scan_bwd B={B} S={S} W={W} {dtype}", row["ms"],
                   row["plain_ms"], bb)
+    rows.update(ssd_backward(ops, ref, randn))
+    return rows
+
+
+def ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, dstate=False) -> tuple:
+    """K4's backward: x, dy, dt, A, B_, C_, the forward's chunk states
+    (and dstate) read once, dx, ddt, dA, dB_ and dC_ written once; per
+    chunk the scores C·Bᵀ once per (batch, group) over the causal pairs,
+    and per head dy·xᵀ, Mᵀ·dy, dscores·B and dscoresᵀ·C over the pairs,
+    the state update's G·B and Gᵀ·x over the rows, and on every chunk
+    but the first the inter-chunk dy·S_in and the chain's dyᵀ·C."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    cs = min(chunk, S)
+    nc = -(-S // cs)
+    nbytes = (esize * (3 * B * H * S * hd + 4 * B * G * S * N)
+              + 4 * (2 * B * H * S + 2 * H + B * H * nc * hd * N
+                     + (B * H * hd * N if dstate else 0)))
+    ops_ = 0
+    for s0 in range(0, S, cs):
+        ln = min(cs, S - s0)
+        pairs = ln * (ln + 1) // 2
+        ops_ += 2 * B * G * pairs * N + 2 * B * H * (
+            2 * pairs * hd + 2 * pairs * N + ln * hd * N * (4 if s0 else 2))
+    return bound(nbytes, ops_, dtype)
+
+
+def ssd_backward(ops, ref, randn) -> dict:
+    """K4-bwd against ``ref.ssd_scan_bwd_ref`` at every ``SSD_BWD`` shape
+    (each with a nonzero final-state gradient, the training shape also
+    without one, as training calls it), the forward's chunk states
+    against ``ref.ssd_chunk_states_ref``, two calls equal bit for bit;
+    its kernels-line row at the training shape in fp32; ``[extra]``
+    lines for K4 forward at the training shape with and without the
+    chunk-state write, K4-bwd in bf16 at the training shape and at S
+    4096."""
+    from repro_torch.kernels import ssd_scan as ssd
+    rows = {}
+
+    cases = [(shape, True) for shape in SSD_BWD]
+    cases.insert(0, (SSD_BWD[0], False))
+    cases.append(((2, 64, 1, 1024, 64, 128, 256, torch.bfloat16), False))
+    for (B, H, G, S, hd, N, chunk, dtype), with_dstate in cases:
+        args = ssd_args(randn, B, S, H, hd, N, G, dtype)
+        dy = randn(B, S, H, hd, dtype=dtype).transpose(1, 2)
+        dstate = (randn(B, H, hd, N, dtype=torch.float32) if with_dstate
+                  else None)
+        with torch.no_grad():
+            _, _, states = ssd._forward(*args, chunk, with_states=True)
+        err_st = check_scaled(f"ssd_scan chunk states {dtype}", states,
+                              ref.ssd_chunk_states_ref(*args, chunk=chunk),
+                              SSD_TOL[dtype])
+        kw = dict(chunk=chunk, states=states)
+        got = ops.ssd_scan_bwd(*args, dy, dstate, **kw)
+        again = ops.ssd_scan_bwd(*args, dy, dstate, **kw)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_bwd_ref(*args, dy, dstate, chunk=chunk)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("ssd_scan_bwd: two calls differ")
+        tol = SSD_TOL[torch.float32] if dtype == torch.float32 else \
+            BWD_TOL[dtype]
+        err = max(check_scaled(f"ssd_scan_bwd {n} {dtype}", g, w, tol)
+                  for n, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                     want))
+        del got, again, want
+        tag = (f"B={B} H={H} G={G} S={S} hd={hd} N={N} chunk={chunk} "
+               f"{dtype}")
+        log(f"K4-bwd ssd_scan_bwd {tag} dstate={with_dstate}: max err of "
+            f"max|d| {err:.3g} (tol {tol}), chunk states {err_st:.3g}; two "
+            "calls equal")
+        training = (B, H, G, S, hd, N, chunk) == SSD_BWD[0][:7]
+        if not ((training and not with_dstate) or S == 4096):
+            continue
+        b = ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, with_dstate)
+        ms = time_ms(lambda: ops.ssd_scan_bwd(*args, dy, dstate, **kw),
+                     iters=10, label=f"K4-bwd {tag} kernel")
+        plain_ms = time_ms(lambda: ref.ssd_scan_bwd_ref(
+            *args, dy, dstate, chunk=chunk), iters=2, warmup=1)
+        log(f"[ratio] K4-bwd {tag}: kernel / plain {ms / plain_ms:.4f}, "
+            f"bound / kernel {b[0] / ms:.3f} ({b[1]})")
+        if training and dtype == torch.float32:
+            rows["ssd_scan_bwd"] = dict(
+                name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/models/ssm.py:64 (XLA autodiff of "
+                         "ssd_chunked; the Pallas _ssd_kernel, "
+                         "src/repro/kernels/ssd_scan.py:21, has no "
+                         "backward)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=None)
+            with torch.no_grad():
+                fwd = [time_ms(lambda: ssd._forward(
+                    *args, chunk, with_states=w), iters=10)
+                    for w in (True, False)]
+            fb = ssd_bound(B, H, G, S, hd, N, chunk, dtype)
+            log(f"[extra] ssd_scan forward at mamba2's training shape "
+                f"{tag}: with its chunk states {fwd[0]:.5g} ms, without "
+                f"{fwd[1]:.5g} ms (bound without {fb[0]:.4g} ms, {fb[1]})")
+        else:
+            extra(f"ssd_scan_bwd {tag} dstate={with_dstate}", ms, plain_ms,
+                  b)
+        del args, dy, states
     return rows
 
 
@@ -2180,7 +2332,8 @@ def model_phase(arch, gen) -> dict:
 def trace_step(label, step) -> None:
     """One training step under torch.profiler: its wall time, the
     device's busy and idle share, the kernels launched, the device time
-    of the backward kernels (K2-bwd's four, K5-bwd's), and the top
+    of the backward kernels (K2-bwd's four, K4-bwd's three, K5-bwd's),
+    and the top
     device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2197,8 +2350,11 @@ def trace_step(label, step) -> None:
         f"{len(kernels)} device kernels, device busy {busy:.1f} ms (idle "
         f"share {1 - busy / ms:.3f})")
     for name, pat in (("K2-bwd", r"\bbwd_(dot|dq|dkdv|reduce)_kernel\b"),
+                      ("K4-bwd", r"\bssd_bwd_(chain|chunk|reduce)_kernel\b"),
                       ("K5-bwd", r"\brglru_bwd_kernel\b")):
         mine = [e for e in kernels if re.search(pat, e.name)]
+        if not mine:
+            continue
         mine_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
         log(f"{label} [trace] {name} kernels {mine_ms:.2f} ms x{len(mine)}, "
             f"{mine_ms / busy:.4f} of device busy")
@@ -2213,15 +2369,18 @@ def train_phase(arch, ops) -> dict:
     """``TRAIN[arch]`` at the published width and depth: fp32 parameters
     and moments, remat "full", through ``make_train_step``.  Before any
     step: the first step's loss and every leaf's gradient on the kernel
-    path against the plain path (``ops.PLAIN``) on the card, and the
-    peak memory of that step with and without remat.  Then
+    path against the plain path (``ops.PLAIN``) on the card (over the
+    first ``check_layers`` layers at full width where TRAIN names
+    them), and the peak memory of that step with and without remat.  Then
     ``TRAIN_STEPS`` steps on one repeated batch (the loss must fall), a
     checkpoint, one more step, and the same step again from the
     checkpoint restored onto fresh templates (loss and every parameter
     equal bit for bit).  The launch counters are zeroed just before the
-    steps and read just after: K2's and K5's backward kernels launch
-    once per attention / RG-LRU layer a step.  Returns the counts."""
+    steps and read just after: K2's, K4's and K5's backward kernels
+    launch once per attention / SSD / RG-LRU layer a step, and no other
+    kernel launches.  Returns the counts."""
     import shutil
+    from dataclasses import replace
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import TokenStream, to_device
@@ -2247,9 +2406,10 @@ def train_phase(arch, ops) -> dict:
     batch = to_device(stream.batch_at(0), "cuda")
     n_attn = sum(k in ("attn", "local") for k in cfg.block_kinds)
     n_rglru = sum(k == "rglru" for k in cfg.block_kinds)
+    n_ssd = sum(k == "ssd" for k in cfg.block_kinds)
     log(f"{label} {cfg.param_count() / 1e9:.4g} B parameters fp32 "
         f"({torch.cuda.memory_allocated() / 1e9:.3f} GB); B={B} S={S}; "
-        f"{n_attn} attention and {n_rglru} RG-LRU layers")
+        f"{n_attn} attention, {n_ssd} SSD and {n_rglru} RG-LRU layers")
 
     # the first step's gradients, kernel path against plain path, and
     # the peak memory with and without remat
@@ -2267,28 +2427,40 @@ def train_phase(arch, ops) -> dict:
     log(f"{label} peak memory of one forward and backward above the "
         f"parameters: remat none {peak[False]:.3f} GB, remat full "
         f"{peak[True]:.3f} GB")
+    check_cfg, check_params = cfg, params
+    cut = TRAIN[arch].get("check_layers")
+    if cut:
+        del grads_k
+        check_cfg = replace(cfg, n_layers=cut)
+        check_params = M.init_params(check_cfg, gen, torch.float32)
+        loss_k, _, grads_k = loss_and_grads(
+            api.make_forward_loss(check_cfg, remat=True), check_params, batch)
+        label_check = f"{label} (first {cut} of {cfg.n_layers} layers)"
+    else:
+        label_check = label
     loss_p, _, grads_p = loss_and_grads(
-        api.make_forward_loss(cfg, remat=True, impl=ops.PLAIN), params,
-        batch)
+        api.make_forward_loss(check_cfg, remat=True, impl=ops.PLAIN),
+        check_params, batch)
     err_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     if not err_loss <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"{label} first-step loss {float(loss_k)} on "
-                             f"the kernel path, {float(loss_p)} on the "
-                             f"plain path")
+        raise AssertionError(f"{label_check} first-step loss "
+                             f"{float(loss_k)} on the kernel path, "
+                             f"{float(loss_p)} on the plain path")
     worst = (0.0, "")
     for path, g in grads_k.items():
         want = grads_p[path]
         err = float((g - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
         if not err <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"{label} gradient of {path}: kernel path "
-                                 f"off by {err} of its max |gradient|")
+            raise AssertionError(f"{label_check} gradient of {path}: "
+                                 f"kernel path off by {err} of its max "
+                                 "|gradient|")
         worst = max(worst, (err, path))
-    log(f"{label} first step, kernel path against plain path: loss "
+    log(f"{label_check} first step, kernel path against plain path: loss "
         f"{float(loss_k):.6f} (rel err {err_loss:.3g}, tol "
         f"{TRAIN_LOSS_RTOL}); {len(grads_k)} gradients, worst "
         f"{worst[0]:.3g} of max |g| at {worst[1]} (tol {TRAIN_GRAD_TOL})")
-    del grads_k, grads_p
+    del grads_k, grads_p, check_params
 
     # steps on one repeated batch, with the counters zeroed around them
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=0, schedule="constant",
@@ -2311,13 +2483,15 @@ def train_phase(arch, ops) -> dict:
     # remat: a superblock's forward runs again in backward, the tail's not
     stacked = cfg.block_kinds[:cfg.n_superblocks * len(cfg.pattern)]
     want = {"flash_attention_bwd": n_attn * TRAIN_STEPS,
+            "ssd_scan_bwd": n_ssd * TRAIN_STEPS,
             "rglru_scan_bwd": n_rglru * TRAIN_STEPS,
             "flash_attention": (n_attn + sum(
                 k in ("attn", "local") for k in stacked)) * TRAIN_STEPS,
+            "ssd_scan": (n_ssd + stacked.count("ssd")) * TRAIN_STEPS,
             "rglru_scan": (n_rglru + stacked.count("rglru")) * TRAIN_STEPS}
     got = {k: counts[k] for k in want}
-    if got != want or not counts["flash_attention_bwd"] > 0 or (
-            n_rglru and not counts["rglru_scan_bwd"] > 0):
+    if got != want or not any(got[k] for k in (
+            "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")):
         raise AssertionError(f"{label} launches {got} != {want}")
     if any(counts[k] for k in counts if k not in want):
         raise AssertionError(f"{label} launched other kernels: {counts}")
@@ -2328,6 +2502,7 @@ def train_phase(arch, ops) -> dict:
         + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
         f"first {times[0] * 1e3:.1f} ms), {B * S / step_s:.1f} tokens/s; "
         f"per step K2-bwd {counts['flash_attention_bwd'] // TRAIN_STEPS}, "
+        f"K4-bwd {counts['ssd_scan_bwd'] // TRAIN_STEPS}, "
         f"K5-bwd {counts['rglru_scan_bwd'] // TRAIN_STEPS} launches; peak "
         f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
@@ -3437,7 +3612,7 @@ def main() -> int:
     order = ("flash_attention", "decode_attention", "decode_attention_int8",
              "ssd_scan", "rglru_scan", "modipick_probs", "fused_select",
              "charged_select", "stacked_select", "flash_attention_bwd",
-             "rglru_scan_bwd")
+             "rglru_scan_bwd", "ssd_scan_bwd")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -107,9 +107,23 @@ struct Args {
   const void* Cm;
   void* y;
   float* state;
+  float* states;  // (B, H, n_chunks, hd, N) chunk-entry states, or null
   int H, G, S, N, cs;
   Strides xs, ds, bs, cs_, ys;
 };
+
+// The (P x N) state held in shared memory (row pitch ld) into the
+// contiguous out.
+__device__ __forceinline__ void store_state(float* out, const float* s, int ld, int P,
+                                            int N, int tid, int nthreads) {
+  for (int idx = tid; idx < P * N; idx += nthreads) out[idx] = s[(idx / N) * ld + idx % N];
+}
+
+// Where chunk s0 / cs of block (b, h) writes its entry state.
+__device__ __forceinline__ float* entry_state(const Args& a, int b, int h, int s0, int P) {
+  const int nc = (a.S + a.cs - 1) / a.cs;
+  return a.states + (((long long)b * a.H + h) * nc + s0 / a.cs) * P * a.N;
+}
 
 // Shared memory of one block, in floats (`kernels/ssd_scan.py`
 // `smem_bytes` mirrors it and refuses shapes above the card's 227 KB).
@@ -147,6 +161,7 @@ __global__ void __launch_bounds__(kThreads) ssd_f32_kernel(Args a) {
   for (int s0 = 0; s0 < a.S; s0 += cs) {
     const int len = min(cs, a.S - s0);
     __syncthreads();  // the previous chunk is done with sDt, sCum, sB, sX
+    if (a.states) store_state(entry_state(a, b, h, s0, P), sState, NP, P, N, t, kThreads);
     for (int i = t; i < len; i += kThreads) sDt[i] = db[(s0 + i) * a.ds.s];
     __syncthreads();
     if (t < 32) {  // inclusive scan of dt * A: each lane a run, then the warp
@@ -321,9 +336,7 @@ __global__ void __launch_bounds__(kThreads) ssd_f32_kernel(Args a) {
     }
   }
   __syncthreads();
-  float* so = a.state + ((long long)b * a.H + h) * P * N;
-  for (int idx = t; idx < P * N; idx += kThreads)
-    so[idx] = sState[(idx / N) * NP + idx % N];
+  store_state(a.state + ((long long)b * a.H + h) * P * N, sState, NP, P, N, t, kThreads);
 }
 
 // ---------------------------------------------------------------------
@@ -486,6 +499,8 @@ __global__ void __launch_bounds__(kTcThreads) ssd_bf16_kernel(Args a) {
     const ChunkRows rows{s0, len, tid};
 
     __syncthreads();  // the previous chunk is done with every buffer
+    if (a.states)
+      store_state(entry_state(a, b, h, s0, P), sState, L.lds, P, N, tid, kTcThreads);
     rows.copy(sC, L.ldn, Cb, a.cs_.s, 0, kRows, NV, NVP);
     cp_async_commit();
     for (int r = tid; r < L.csp; r += kTcThreads)
@@ -723,9 +738,8 @@ __global__ void __launch_bounds__(kTcThreads) ssd_bf16_kernel(Args a) {
     }
   }
   __syncthreads();
-  float* so = a.state + ((long long)b * a.H + h) * P * N;
-  for (int idx = tid; idx < P * N; idx += kTcThreads)
-    so[idx] = sState[(idx / N) * L.lds + idx % N];
+  store_state(a.state + ((long long)b * a.H + h) * P * N, sState, L.lds, P, N, tid,
+              kTcThreads);
 }
 
 // ---------------------------------------------------------------------
@@ -781,24 +795,557 @@ int plan(int dtype, int hd, int N, int cs, Plan& p) {
   }
 }
 
+// ---------------------------------------------------------------------
+// Backward (K4-bwd): dx, ddt, dA, dB_ and dC_ of the scan for dy and the
+// final state's gradient, in three passes, all fp32 CUDA-core math as the
+// fp32 forward body (x, B_, C_ and dy may be bf16: they are read as T and
+// widened).  Per chunk, with dS_out the gradient of the chunk's exit state
+// and S_in its entry state (written by the forward):
+//
+//   (a) chain, one block a (b, h), right to left:
+//       dS_in = exp(total) dS_out + sum_i exp(cum_i) dy_i (x) C_i,
+//       which is the previous chunk's dS_out (the last one's is dstate).
+//   (b) chunk, one block a (b, h, chunk), all chunks independent:
+//       dC_i  = exp(cum_i) dy_i S_in + sum_{j<=i} dscores_ij B_j
+//       dx_j  = w_j G B_j + sum_{i>=j} M_ij dy_i,   G = dS_out,
+//       dB_j  = w_j G^T x_j + sum_{i>=j} dscores_ij C_i,
+//       with M = scores L dt_j, dscores = (dy_i . x_j) L dt_j,
+//       w_j = exp(total - cum_j) dt_j, and d(cum) from every exponent,
+//       turned into d(dt A) by a reverse running sum within the chunk:
+//       ddt = its direct terms + A d(dt A).  The dA partial is
+//       sum_i d(cum_i) cum_i / A with each term of d(cum) paired with the
+//       one it cancels (+q at i, -q at j: q (cum_i - cum_j) / A), so that
+//       no running sum's rounding accumulates into it.
+//       The i tiles at or below a j tile are walked with dx_j in
+//       registers and dB_j in shared memory; dC_i is added into its
+//       fp32 per-head partial in device memory, each element by one
+//       thread, in a fixed order.
+//   (c) reduce: dB_ and dC_ summed over the heads of each group, and dA
+//       over (batch, chunk), in a fixed order: two calls give the same
+//       bits (no atomics).
+//
+// What bounds it: at mamba2-1.3b's training shape (B 2, H 64, G 1, S 1024,
+// hd 64, N 128, chunk 256) about 20 GFLOP against about 0.45 GB moved,
+// so fp32 operations (0.3 ms at 67 TFLOP/s).  This first version stages
+// 64-row tiles in shared memory and runs 4 x 4 register tiles of FMAs,
+// one block of 256 threads an SM (PERF.md).
+
+// Sums over the 16 lanes of a half warp (one tile row's threads), and
+// over the warp: every lane gets the same bits.
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[ra][cb] += sum_{k < K} A[(ty + 16 ra) ars + k aks] Bv[k bks + (tx + 16 cb) bcs],
+// a column tx + 16 cb >= ncol read as 0: a RA x CB register tile of a
+// product of two fp32 tiles in shared memory.
+template <int RA, int CB>
+__device__ __forceinline__ void mm(float (&acc)[RA][CB], const float* A, int ars, int aks,
+                                   const float* Bv, int bks, int bcs, int K, int ncol,
+                                   int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[RA], bv[CB];
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra) av[ra] = A[(ty + 16 * ra) * ars + k * aks];
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {
+      const int col = tx + 16 * cb;
+      bv[cb] = col < ncol ? Bv[k * bks + col * bcs] : 0.f;
+    }
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) acc[ra][cb] += av[ra] * bv[cb];
+  }
+}
+
+// kT rows of width w (rows >= rows read as 0) from src rows row0 + r
+// (stride st elements) into dst (pitch ld), as fp32.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, long long st,
+                                          int row0, int rows, int w, int t) {
+  for (int idx = t; idx < kT * w; idx += kThreads) {
+    const int r = idx / w, k = idx % w;
+    dst[r * ld + k] = r < rows ? to_f32(src[(long long)(row0 + r) * st + k]) : 0.f;
+  }
+}
+
+// sDt = dt over the chunk [s0, s0 + len) and sCum its inclusive running
+// sum of dt A, as the forward computes it.  Ends synchronised.
+__device__ void chunk_cum(const float* db, long long st, int s0, int len, float A,
+                          float* sDt, float* sCum, int t) {
+  for (int i = t; i < len; i += kThreads) sDt[i] = db[(long long)(s0 + i) * st];
+  __syncthreads();
+  if (t < 32) {
+    const int per = (len + 31) / 32;
+    const int lo = t * per, hi = min(lo + per, len);
+    float run = 0.f;
+    for (int i = lo; i < hi; ++i) {
+      run += sDt[i] * A;
+      sCum[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (t >= o) incl += v;
+    }
+    for (int i = lo; i < hi; ++i) sCum[i] += incl - run;
+  }
+  __syncthreads();
+}
+
+struct BwdArgs {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* Bm;
+  const void* Cm;
+  const void* dy;
+  const float* states;  // (B, H, nc, hd, N) entry states from the forward
+  const float* dstate;  // (B, H, hd, N), or null for a zero gradient
+  float* dSo;           // (B, H, nc, hd, N) each chunk's dS_out, (a) -> (b)
+  void* dx;
+  float* ddt;  // (B, H, S)
+  float* dBp;  // (B, H, S, N) per-head partials of dB_ and dC_
+  float* dCp;
+  float* dAp;  // (B, H, nc)
+  void* dB;
+  void* dC;
+  float* dA;
+  int H, G, S, N, cs, nc;
+  Strides xs, ds, bs, cs_, dys, dxs, dbs, dcs;
+};
+
+// Shared memory of the backward kernels, in floats (`kernels/ssd_scan.py`
+// `bwd_plan` mirrors them).  The chunk kernel's union holds S_in or G
+// (hd x N), or the i tile's C and dy with the M, dscores and column
+// partial tiles.
+__host__ __device__ inline int bwd_union_floats(int P, int N) {
+  const int tiles = kT * (N + 1) + kT * (P + 1) + 2 * kT * (kT + 1) + 16 * kT;
+  return P * (N + 1) > tiles ? P * (N + 1) : tiles;
+}
+size_t chain_smem_floats(int P, int N, int cs) {
+  return (size_t)P * (N + 1) + kT * (N + 1) + kT * (P + 1) + 2 * cs;
+}
+size_t chunk_smem_floats(int P, int N, int cs) {
+  return (size_t)2 * kT * (N + 1) + kT * (P + 1) + bwd_union_floats(P, N) + 5 * cs + 16;
+}
+
+// (a) One block a (b, h): the chunks right to left, dS (hd x N) carried
+// in shared memory; writes each chunk's dS_out.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_chain_kernel(BwdArgs a) {
+  constexpr int PX = P + 1, PA = P / 16;
+  const int N = a.N, NP = N + 1, cs = a.cs;
+  extern __shared__ float smem[];
+  float* sG = smem;           // [P][NP] the carry
+  float* sC = sG + P * NP;    // [kT][NP]
+  float* sDy = sC + kT * NP;  // [kT][PX] dy_i exp(cum_i)
+  float* sDt = sDy + kT * PX; // [cs]
+  float* sCum = sDt + cs;     // [cs]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int grp = h / (a.H / a.G);
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
+  const float A = a.A[h];
+  const long long bh = (long long)b * a.H + h;
+  const float* db = a.dt + b * a.ds.b + h * a.ds.h;
+  const T* Cb = static_cast<const T*>(a.Cm) + b * a.cs_.b + grp * a.cs_.h;
+  const T* dyb = static_cast<const T*>(a.dy) + b * a.dys.b + h * a.dys.h;
+
+  const float* ds0 = a.dstate ? a.dstate + bh * P * N : nullptr;
+  for (int idx = t; idx < P * N; idx += kThreads)
+    sG[(idx / N) * NP + idx % N] = ds0 ? ds0[idx] : 0.f;
+  for (int c = a.nc - 1; c >= 0; --c) {
+    __syncthreads();  // the carry is complete
+    store_state(a.dSo + (bh * a.nc + c) * P * N, sG, NP, P, N, t, kThreads);
+    if (c == 0) break;
+    const int s0 = c * cs, len = min(cs, a.S - s0);
+    chunk_cum(db, a.ds.s, s0, len, A, sDt, sCum, t);
+    const float total = sCum[len - 1];
+    for (int i0 = 0; i0 < len; i0 += kT) {
+      if (i0 > 0) __syncthreads();  // the previous tile's readers are done
+      const int rows = min(kT, len - i0);
+      load_rows<T>(sC, NP, Cb, a.cs_.s, s0 + i0, rows, N, t);
+      for (int idx = t; idx < kT * P; idx += kThreads) {
+        const int r = idx / P, p = idx % P;
+        sDy[r * PX + p] = r < rows ? to_f32(dyb[(long long)(s0 + i0 + r) * a.dys.s + p]) *
+                                         clip_exp(sCum[i0 + r])
+                                   : 0.f;
+      }
+      __syncthreads();
+      // carry = exp(total) carry + dy'^T C over this tile, each thread its
+      // own (p, n) elements
+      const float f = i0 == 0 ? clip_exp(total) : 1.f;
+      for (int n0 = 0; n0 < N; n0 += 64) {
+        float up[PA][4] = {};
+        mm<PA, 4>(up, sDy, 1, PX, sC + n0, NP, 1, kT, N - n0, ty, tx);
+#pragma unroll
+        for (int pa = 0; pa < PA; ++pa)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int n = n0 + tx + 16 * nb;
+            if (n < N) {
+              float* g = sG + (ty + 16 * pa) * NP + n;
+              *g = *g * f + up[pa][nb];
+            }
+          }
+      }
+    }
+  }
+}
+
+// (b) One block a (b, h, chunk).  Its shared memory holds one block an
+// SM, so it may take every register a thread can have.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_kernel(BwdArgs a) {
+  constexpr int PX = P + 1, PB = P / 16, kTP = kT + 1;
+  const int N = a.N, NP = N + 1, cs = a.cs;
+  extern __shared__ float smem[];
+  float* sB = smem;                           // [kT][NP] B_j
+  float* sX = sB + kT * NP;                   // [kT][PX] x_j
+  float* sDB = sX + kT * PX;                  // [kT][NP] dB_j
+  float* sSt = sDB + kT * NP;                 // union: [P][NP] S_in, then G
+  float* sC = sSt;                            //   [kT][NP] C_i
+  float* sDy = sC + kT * NP;                  //   [kT][PX] dy_i
+  float* sM = sDy + kT * PX;                  //   [kT][kTP] M
+  float* sdS = sM + kT * kTP;                 //   [kT][kTP] dscores
+  float* sCol = sdS + kT * kTP;               //   [16][kT] column partials
+  float* sDt = sSt + bwd_union_floats(P, N);  // [cs]
+  float* sCum = sDt + cs;                     // [cs]
+  float* sDcum = sCum + cs;                   // [cs] d(cum) but the w dw terms
+  float* sDdt = sDcum + cs;                   // [cs] ddt's direct terms
+  float* sWd = sDdt + cs;                     // [cs] w_j dw_j
+  float* sRed = sWd + cs;                     // [2][kThreads / 32]
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (a.H / a.G);
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16, lane = t & 31, warp = t >> 5;
+  const int s0 = c * cs, len = min(cs, a.S - s0);
+  const float A = a.A[h];
+  const long long bh = (long long)b * a.H + h;
+  const T* xb = static_cast<const T*>(a.x) + b * a.xs.b + h * a.xs.h;
+  const float* db = a.dt + b * a.ds.b + h * a.ds.h;
+  const T* Bb = static_cast<const T*>(a.Bm) + b * a.bs.b + grp * a.bs.h;
+  const T* Cb = static_cast<const T*>(a.Cm) + b * a.cs_.b + grp * a.cs_.h;
+  const T* dyb = static_cast<const T*>(a.dy) + b * a.dys.b + h * a.dys.h;
+  T* dxb = static_cast<T*>(a.dx) + b * a.dxs.b + h * a.dxs.h;
+  const float* gS = a.states + (bh * a.nc + c) * P * N;  // S_in
+  const float* gG = a.dSo + (bh * a.nc + c) * P * N;     // G = dS_out
+  float* dCp = a.dCp + (bh * a.S + s0) * N;              // this chunk's rows
+  float* dBp = a.dBp + (bh * a.S + s0) * N;
+
+  for (int i = t; i < cs; i += kThreads) {
+    sDcum[i] = 0.f;
+    sDdt[i] = 0.f;
+    sWd[i] = 0.f;
+  }
+  if (c > 0)
+    for (int idx = t; idx < P * N; idx += kThreads) sSt[(idx / N) * NP + idx % N] = gS[idx];
+  chunk_cum(db, a.ds.s, s0, len, A, sDt, sCum, t);
+  const float total = sCum[len - 1];
+
+  // A times this thread's share of the dA partial
+  float dAs = 0.f;
+  // 1. Inter-chunk: dC_i = exp(cum_i) dy_i S_in (zero in the first
+  //    chunk), d(cum_i) += <C_i, dC_i>; C_i and dy_i staged in sB and sX.
+  for (int i0 = 0; i0 < len; i0 += kT) {
+    if (i0 > 0) __syncthreads();
+    load_rows<T>(sB, NP, Cb, a.cs_.s, s0 + i0, min(kT, len - i0), N, t);
+    load_rows<T>(sX, PX, dyb, a.dys.s, s0 + i0, min(kT, len - i0), P, t);
+    __syncthreads();
+    float dot[kRA] = {};
+    for (int n0 = 0; n0 < N; n0 += 64) {
+      float acc[kRA][4] = {};
+      if (c > 0) mm<kRA, 4>(acc, sX, PX, 1, sSt + n0, NP, 1, P, N - n0, ty, tx);
+#pragma unroll
+      for (int ra = 0; ra < kRA; ++ra) {
+        const int i = i0 + ty + 16 * ra;
+        const float e = i < len ? clip_exp(sCum[i]) : 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int n = n0 + tx + 16 * nb;
+          if (i < len && n < N) {
+            const float v = acc[ra][nb] * e;
+            dCp[(long long)i * N + n] = v;
+            dot[ra] += v * sB[(ty + 16 * ra) * NP + n];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ra = 0; ra < kRA; ++ra) {
+      const float v = sum16(dot[ra]);
+      const int i = i0 + ty + 16 * ra;
+      if (tx == 0 && i < len) {
+        sDcum[i] += v;
+        dAs += v * sCum[i];
+      }
+    }
+  }
+
+  float gs = 0.f;  // this thread's share of <G, S_in>
+  for (int j0 = 0; j0 < len; j0 += kT) {
+    const int jrows = min(kT, len - j0);
+    __syncthreads();  // every reader of the union, sB and sX is done
+    for (int idx = t; idx < P * N; idx += kThreads) {
+      const float g = gG[idx];
+      sSt[(idx / N) * NP + idx % N] = g;
+      if (j0 == 0 && c > 0) gs += g * gS[idx];
+    }
+    load_rows<T>(sB, NP, Bb, a.bs.s, s0 + j0, jrows, N, t);
+    load_rows<T>(sX, PX, xb, a.xs.s, s0 + j0, jrows, P, t);
+    __syncthreads();
+
+    // 2. The state update's terms: dx_j = w_j G B_j, dw_j = <x_j, G B_j>,
+    //    dB_j = w_j G^T x_j.
+    float dxa[kRA][PB] = {};
+    mm<kRA, PB>(dxa, sB, NP, 1, sSt, 1, NP, N, P, ty, tx);
+    float wj[kRA];
+#pragma unroll
+    for (int ra = 0; ra < kRA; ++ra) {
+      const int r = ty + 16 * ra, j = j0 + r;
+      const float e = j < len ? clip_exp(total - sCum[j]) : 0.f;
+      wj[ra] = j < len ? e * sDt[j] : 0.f;
+      float dw = 0.f;
+#pragma unroll
+      for (int pb = 0; pb < PB; ++pb) {
+        dw += sX[r * PX + tx + 16 * pb] * dxa[ra][pb];
+        dxa[ra][pb] *= wj[ra];
+      }
+      dw = sum16(dw);
+      if (tx == 0 && j < len) {
+        sDdt[j] += e * dw;
+        sWd[j] = wj[ra] * dw;
+        dAs += wj[ra] * dw * (total - sCum[j]);
+      }
+    }
+    for (int n0 = 0; n0 < N; n0 += 64) {
+      float acc[kRA][4] = {};
+      mm<kRA, 4>(acc, sX, PX, 1, sSt + n0, NP, 1, P, N - n0, ty, tx);
+#pragma unroll
+      for (int ra = 0; ra < kRA; ++ra)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int n = n0 + tx + 16 * nb;
+          if (n < N) sDB[(ty + 16 * ra) * NP + n] = wj[ra] * acc[ra][nb];
+        }
+    }
+
+    // 3. Intra-chunk, over the i tiles at or below this j tile.
+    for (int i0 = j0; i0 < len; i0 += kT) {
+      const int irows = min(kT, len - i0);
+      __syncthreads();  // G, or the previous i tile, is free
+      load_rows<T>(sC, NP, Cb, a.cs_.s, s0 + i0, irows, N, t);
+      load_rows<T>(sDy, PX, dyb, a.dys.s, s0 + i0, irows, P, t);
+      __syncthreads();
+      float sc[kRA][kRA] = {}, dm[kRA][kRA] = {};
+      mm<kRA, kRA>(sc, sC, NP, 1, sB, 1, NP, N, kT, ty, tx);   // C_i . B_j
+      mm<kRA, kRA>(dm, sDy, PX, 1, sX, 1, PX, P, kT, ty, tx);  // dy_i . x_j
+      // M = sc L dt_j, dscores = dm L dt_j; R = dm sc L feeds ddt_j
+      // (column sums) and d(cum): + sum_j dt_j R at i, - dt_j sum_i R at j
+      float rq[kRA] = {}, colr[kRA] = {};
+#pragma unroll
+      for (int ra = 0; ra < kRA; ++ra) {
+        const int ii = ty + 16 * ra, i = i0 + ii;
+        const float ci = i < len ? sCum[i] : 0.f;
+#pragma unroll
+        for (int jb = 0; jb < kRA; ++jb) {
+          const int jj = tx + 16 * jb, j = j0 + jj;
+          const bool ok = j <= i && i < len;
+          const float dc = ok ? ci - sCum[j] : 0.f;
+          const float L = ok ? clip_exp(dc) : 0.f;
+          const float dtj = ok ? sDt[j] : 0.f;
+          const float R = dm[ra][jb] * sc[ra][jb] * L;
+          sM[ii * kTP + jj] = sc[ra][jb] * L * dtj;
+          sdS[ii * kTP + jj] = dm[ra][jb] * L * dtj;
+          rq[ra] += dtj * R;
+          colr[jb] += R;
+          dAs += dtj * R * dc;
+        }
+      }
+#pragma unroll
+      for (int ra = 0; ra < kRA; ++ra) {
+        const float v = sum16(rq[ra]);
+        const int i = i0 + ty + 16 * ra;
+        if (tx == 0 && i < len) sDcum[i] += v;
+      }
+#pragma unroll
+      for (int jb = 0; jb < kRA; ++jb) sCol[ty * kT + tx + 16 * jb] = colr[jb];
+      __syncthreads();
+      if (t < kT && j0 + t < len) {
+        float s = 0.f;
+        for (int y = 0; y < 16; ++y) s += sCol[y * kT + t];
+        sDdt[j0 + t] += s;
+        sDcum[j0 + t] -= sDt[j0 + t] * s;
+      }
+      // dx_j += M^T dy_i
+      mm<kRA, PB>(dxa, sM, 1, kTP, sDy, PX, 1, kT, P, ty, tx);
+      for (int n0 = 0; n0 < N; n0 += 64) {
+        // dB_j += dscores^T C_i
+        float acc[kRA][4] = {};
+        mm<kRA, 4>(acc, sdS, 1, kTP, sC + n0, NP, 1, kT, N - n0, ty, tx);
+#pragma unroll
+        for (int ra = 0; ra < kRA; ++ra)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int n = n0 + tx + 16 * nb;
+            if (n < N) sDB[(ty + 16 * ra) * NP + n] += acc[ra][nb];
+          }
+        // dC_i += dscores B_j
+        float acd[kRA][4] = {};
+        mm<kRA, 4>(acd, sdS, kTP, 1, sB + n0, NP, 1, kT, N - n0, ty, tx);
+#pragma unroll
+        for (int ra = 0; ra < kRA; ++ra) {
+          const int i = i0 + ty + 16 * ra;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int n = n0 + tx + 16 * nb;
+            if (i < len && n < N) dCp[(long long)i * N + n] += acd[ra][nb];
+          }
+        }
+      }
+    }
+
+    // dx_j and dB_j are complete
+#pragma unroll
+    for (int ra = 0; ra < kRA; ++ra) {
+      const int r = ty + 16 * ra, j = j0 + r;
+      if (j >= len) continue;
+#pragma unroll
+      for (int pb = 0; pb < PB; ++pb)
+        dxb[(long long)(s0 + j) * a.dxs.s + tx + 16 * pb] = from_f32<T>(dxa[ra][pb]);
+      for (int n = tx; n < N; n += 16) dBp[(long long)j * N + n] = sDB[r * NP + n];
+    }
+  }
+
+  // d(total) = sum_j w_j dw_j + exp(total) <G, S_in>; then the reverse
+  // running sum of d(cum) gives d(dt A) at every row
+  gs = warp_sum(gs);
+  dAs = warp_sum(dAs);
+  if (lane == 0) {
+    sRed[warp] = gs;
+    sRed[kThreads / 32 + warp] = dAs;
+  }
+  __syncthreads();  // every update of sDcum, sDdt and sWd is done too
+  if (warp == 0) {
+    float u = 0.f;
+    for (int j = lane; j < len; j += 32) u += sWd[j];
+    u = warp_sum(u);
+    const float g8 = warp_sum(lane < kThreads / 32 ? sRed[lane] : 0.f);
+    const float a8 = warp_sum(lane < kThreads / 32 ? sRed[kThreads / 32 + lane] : 0.f);
+    const float dtot = u + clip_exp(total) * g8;
+    const int per = (len + 31) / 32, lo = lane * per, hi = min(lo + per, len);
+    float run = 0.f;
+    for (int k = hi - 1; k >= lo; --k) {
+      run += sDcum[k] - sWd[k] + (k == len - 1 ? dtot : 0.f);
+      sDcum[k] = run;
+    }
+    float incl = run;  // the runs of this lane and the lanes after it
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += v;
+    }
+    const float after = incl - run;
+    float* ddt = a.ddt + bh * a.S + s0;
+    for (int k = lo; k < hi; ++k) ddt[k] = sDdt[k] + A * (sDcum[k] + after);
+    // d(total) pairs with nothing: its term is d(total) total / A
+    if (lane == 0) a.dAp[bh * a.nc + c] = (a8 + clip_exp(total) * g8 * total) / A;
+  }
+}
+
+// (c) dB_, dC_ (B, G, S, N): the per-head partials summed over each
+// group's heads in head order; dA (H,): the partials summed over batch
+// and chunk in order.  One thread an element of (S, N).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_reduce_kernel(BwdArgs a) {
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int hg = a.H / a.G;
+  if (blockIdx.x == 0 && g == 0 && b == 0)
+    for (int h = threadIdx.x; h < a.H; h += kThreads) {
+      float s = 0.f;
+      for (int bb = 0; bb < (int)gridDim.z; ++bb)
+        for (int c = 0; c < a.nc; ++c) s += a.dAp[((long long)bb * a.H + h) * a.nc + c];
+      a.dA[h] = s;
+    }
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= a.S * a.N) return;
+  const int s = e / a.N, n = e % a.N;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < hg; ++k) {
+    const long long off = ((long long)b * a.H + g * hg + k) * a.S * a.N + e;
+    sb += a.dBp[off];
+    sc += a.dCp[off];
+  }
+  static_cast<T*>(a.dB)[b * a.dbs.b + g * a.dbs.h + s * a.dbs.s + n] = from_f32<T>(sb);
+  static_cast<T*>(a.dC)[b * a.dcs.b + g * a.dcs.h + s * a.dcs.s + n] = from_f32<T>(sc);
+}
+
+template <typename T, int P>
+int launch_bwd(const BwdArgs& a, const int* grid, cudaStream_t stream) {
+  static size_t done_chain = 0, done_chunk = 0;
+  const size_t chain = sizeof(float) * chain_smem_floats(P, a.N, a.cs);
+  const size_t chunk = sizeof(float) * chunk_smem_floats(P, a.N, a.cs);
+  int err = configure(ssd_bwd_chain_kernel<T, P>, chain, done_chain);
+  if (err != 0) return err;
+  err = configure(ssd_bwd_chunk_kernel<T, P>, chunk, done_chunk);
+  if (err != 0) return err;
+  BwdArgs args = a;
+  void* params[] = {&args};
+  cudaError_t e = cudaLaunchKernel((const void*)ssd_bwd_chain_kernel<T, P>,
+                                   dim3(grid[0], grid[1], grid[2]), dim3(kThreads), params,
+                                   chain, stream);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernel((const void*)ssd_bwd_chunk_kernel<T, P>, dim3(grid[3], grid[4], grid[5]),
+                       dim3(kThreads), params, chunk, stream);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernel((const void*)ssd_bwd_reduce_kernel<T>, dim3(grid[6], grid[7], grid[8]),
+                       dim3(kThreads), params, 0, stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_hd(int hd, const BwdArgs& a, const int* grid, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_bwd<T, 16>(a, grid, stream);
+    case 32: return launch_bwd<T, 32>(a, grid, stream);
+    case 64: return launch_bwd<T, 64>(a, grid, stream);
+    case 128: return launch_bwd<T, 128>(a, grid, stream);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B_, C_ and y; dt, A and the state
 // are float32).  Strides are in elements: (batch, head, seq) of x, dt,
 // B_, C_ and y, in that order ("head" is the group axis of B_ and C_).
-// cs is the chunk length, 1 <= cs <= S.  Returns cudaGetLastError()
-// after the launch, or -1 for an unsupported dtype / head size.
+// cs is the chunk length, 1 <= cs <= S.  states, when not null, receives
+// each chunk's entry state (B, H, ceil(S / cs), hd, N) fp32 contiguous,
+// the first one zero (the backward's input; null when serving).
+// Returns cudaGetLastError() after the launch, or -1 for an unsupported
+// dtype / head size.
 extern "C" int ssd_scan_fwd(int dtype, int hd, const void* x,
                             const void* dt, const void* A, const void* Bm,
-                            const void* Cm, void* y, void* state, int B, int H,
-                            int G, int S, int N, int cs,
+                            const void* Cm, void* y, void* state, void* states,
+                            int B, int H, int G, int S, int N, int cs,
                             const long long* strides, void* stream) {
   Plan p;
   const int err = plan(dtype, hd, N, cs, p);
   if (err != 0) return err;
   const long long* st = strides;
   Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm,
-         Cm, y, static_cast<float*>(state), H, G, S, N, cs,
+         Cm, y, static_cast<float*>(state), static_cast<float*>(states), H, G, S, N, cs,
          Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
          Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
          Strides{st[12], st[13], st[14]}};
@@ -820,4 +1367,52 @@ extern "C" int ssd_scan_occupancy(int dtype, int hd, int N, int cs,
   *smem = (long long)p.smem;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p.kern, p.threads,
                                                              p.smem);
+}
+
+// The backward of ssd_scan_fwd (K4-bwd) for dy (B, H, S, hd) and the final
+// state's gradient dstate (B, H, hd, N) fp32 contiguous, or null: dx
+// (x's dtype), ddt (B, H, S) fp32 contiguous, dB and dC (B, G, S, N) in
+// x's dtype, dA (H,) fp32.  states: the forward's chunk-entry states;
+// dSo (B, H, nc, hd, N), dBp and dCp (B, H, S, N) and dAp (B, H, nc): fp32
+// scratch, written before it is read.  grid: the chain, chunk and reduce
+// grids (x, y, z each), which must be (H, B, 1), (nc, H, B) and
+// (ceil(S N / 256), G, B) with nc = ceil(S / cs).  Strides as for
+// ssd_scan_fwd, of x, dt, B_, C_, dy, dx, dB, dC.  Returns
+// cudaGetLastError() after the three launches, or -1 for what it does
+// not take.
+extern "C" int ssd_scan_bwd(int dtype, int hd, const void* x, const void* dt,
+                            const void* A, const void* Bm, const void* Cm,
+                            const void* dy, const void* states, const void* dstate,
+                            void* dSo, void* dBp, void* dCp, void* dAp, void* dx,
+                            void* ddt, void* dB, void* dC, void* dA, int B, int H,
+                            int G, int S, int N, int cs, int nc, const int* grid,
+                            const long long* strides, void* stream) {
+  if (cs < 1 || G < 1 || H % G || nc != (S + cs - 1) / cs) return -1;
+  const int want[9] = {H, B, 1, nc, H, B, (S * N + kThreads - 1) / kThreads, G, B};
+  for (int i = 0; i < 9; ++i)
+    if (grid[i] != want[i]) return -1;
+  const long long* st = strides;
+  const BwdArgs a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm, Cm,
+                  dy, static_cast<const float*>(states), static_cast<const float*>(dstate),
+                  static_cast<float*>(dSo), dx, static_cast<float*>(ddt),
+                  static_cast<float*>(dBp), static_cast<float*>(dCp),
+                  static_cast<float*>(dAp), dB, dC, static_cast<float*>(dA), H, G, S, N,
+                  cs, nc, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+                  Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+                  Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]},
+                  Strides{st[18], st[19], st[20]}, Strides{st[21], st[22], st[23]}};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd_hd<float>(hd, a, grid, s);
+  if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(hd, a, grid, s);
+  return -1;
+}
+
+// The shared memory of a chain and of a chunk block of the backward at
+// (hd, N, cs), in bytes, into smem[0] and smem[1] (`bwd_plan` mirrors
+// them).  Returns 0, or -1 for an unsupported head size.
+extern "C" int ssd_scan_bwd_plan(int hd, int N, int cs, long long* smem) {
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return -1;
+  smem[0] = (long long)(sizeof(float) * chain_smem_floats(hd, N, cs));
+  smem[1] = (long long)(sizeof(float) * chunk_smem_floats(hd, N, cs));
+  return 0;
 }

@@ -80,9 +80,9 @@ def refuse_grad(name: str, *tensors) -> None:
     floating tensor of ``tensors`` requires grad.  Every wrapper whose
     kernel has no backward calls this on its CUDA path: its kernel fills
     a fresh output through ``ctypes``, so the gradient would be lost
-    without a word (``flash_attention`` and ``rglru_scan`` go through
-    their autograd Functions instead; their backward wrappers refuse a
-    second derivative).  The CPU path (the differentiable plain
+    without a word (``flash_attention``, ``ssd_scan`` and
+    ``rglru_scan`` go through their autograd Functions instead; their
+    backward wrappers refuse a second derivative).  The CPU path (the differentiable plain
     version) does not call it."""
     import torch
     if not torch.is_grad_enabled():

@@ -3,10 +3,11 @@
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its hand-written kernel for a tensor on the card (or raises);
 it adds one to its ``launches`` count each time it launches the kernel,
-and nowhere else.  ``flash_attention`` and ``rglru_scan`` have backward
-kernels (``flash_attention_bwd``, ``rglru_scan_bwd``, counted on their
-own), which autograd launches on the card; every other wrapper raises
-under grad mode on an input that requires grad (``build.refuse_grad``).
+and nowhere else.  ``flash_attention``, ``ssd_scan`` and ``rglru_scan``
+have backward kernels (``flash_attention_bwd``, ``ssd_scan_bwd``,
+``rglru_scan_bwd``, counted on their own), which autograd launches on
+the card; every other wrapper raises under grad mode on an input that
+requires grad (``build.refuse_grad``), the backward wrappers too.
 All kernels are CUDA C++ for ``sm_90a``, one source each under
 ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
 (``kernels/build.py``); the four selection kernels share one source, and
@@ -19,6 +20,7 @@ each backward kernel its forward's.
 | ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
 | ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode step (``models/attention.py``: quantize and write the new token, dequantize, einsums) |
 | ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
+| ``ssd_scan_bwd``     | ``csrc/ssd_scan.cu``          | the reference's XLA autodiff of ``ssd_chunked`` (``models/ssm.py``) |
 | ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
 | ``rglru_scan_bwd``   | ``csrc/rglru_scan.cu``        | the reference's XLA autodiff of ``rglru_scan_xla`` (``models/rglru.py``) |
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |
@@ -38,14 +40,15 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.policy_select import (charged_select, fused_select,
                                                modipick_probs, stacked_select)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
 WRAPPERS = (flash_attention, decode_attention, decode_attention_int8,
             ssd_scan, rglru_scan, modipick_probs, fused_select,
             charged_select, stacked_select, flash_attention_bwd,
-            rglru_scan_bwd)
-# The wrappers whose kernel has a backward kernel on the card.
-DIFFERENTIABLE = (flash_attention, rglru_scan)
+            rglru_scan_bwd, ssd_scan_bwd)
+# The wrappers whose kernel has a backward kernel on the card: under grad
+# mode they run their autograd Functions, and refuse_grad never sees them.
+DIFFERENTIABLE = (flash_attention, ssd_scan, rglru_scan)
 
 
 class ModelKernels(NamedTuple):

@@ -368,6 +368,79 @@ def ssd_scan_ref(x, dt, A, B_, C_, *, chunk: int = 256):
     return torch.stack(ys, dim=2).to(x.dtype), h
 
 
+def _ssd_operands(x, dt, A, B_, C_):
+    """fp32 x, dt, B_ and C_ with B_ and C_ repeated over the heads of
+    each group, and the per-step decay exp(dt·A) (B,H,S)."""
+    group = x.shape[1] // B_.shape[1]
+    Bx = B_.repeat_interleave(group, dim=1).float()
+    Cx = C_.repeat_interleave(group, dim=1).float()
+    dtf = dt.float()
+    return x.float(), dtf, Bx, Cx, torch.exp(dtf * A.float()[None, :, None])
+
+
+def ssd_chunk_states_ref(x, dt, A, B_, C_, *, chunk: int):
+    """The state on entry to each chunk of ``chunk`` steps (B,H,n_chunks,
+    hd,N) fp32, the first one zero: what K4 writes for its backward when
+    asked."""
+    xf, dtf, Bx, _, decay = _ssd_operands(x, dt, A, B_, C_)
+    Bb, H, S, hd = x.shape
+    h = torch.zeros((Bb, H, hd, Bx.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    out = []
+    for t in range(S):
+        if t % chunk == 0:
+            out.append(h)
+        h = h * decay[:, :, t, None, None] + (
+            dtf[:, :, t, None, None] * xf[:, :, t, :, None]
+            * Bx[:, :, t, None, :])
+    return torch.stack(out, dim=2)
+
+
+def ssd_scan_bwd_ref(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int):
+    """The backward of ``ssd_scan_ref`` as a reverse loop in fp32, for
+    the output gradient dy (B,H,S,hd) and the final state's gradient
+    ``dstate`` (B,H,hd,N), or none.  Each chunk's h_t are recomputed from
+    its entry state (:func:`ssd_chunk_states_ref`), then walked back:
+    g_t = decay_{t+1}·g_{t+1} + dy_t ⊗ C_t from g = dstate, dx_t =
+    dt_t·g_t·B_t, dB_t = dt_t·g_tᵀ·x_t, dC_t = h_tᵀ·dy_t, ddt_t =
+    ⟨g_t, x_t ⊗ B_t⟩ + A·decay_t·⟨g_t, h_{t−1}⟩ and dA = Σ dt_t·decay_t·
+    ⟨g_t, h_{t−1}⟩; dB_ and dC_ are summed over the heads of each group.
+    Returns (dx, ddt, dA, dB_, dC_), each in its input's dtype."""
+    xf, dtf, Bx, Cx, decay = _ssd_operands(x, dt, A, B_, C_)
+    Af, dyf = A.float(), dy.float()
+    Bb, H, S, hd = x.shape
+    G, N = B_.shape[1], B_.shape[3]
+    starts = ssd_chunk_states_ref(x, dt, A, B_, C_, chunk=chunk)
+    g = (torch.zeros((Bb, H, hd, N), dtype=torch.float32, device=x.device)
+         if dstate is None else dstate.float())
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xf, dtf, Bx, Cx))
+    dA = torch.zeros_like(Af)
+    for c in range(starts.shape[2] - 1, -1, -1):
+        s0 = c * chunk
+        hs = [starts[:, :, c]]
+        for t in range(s0, min(s0 + chunk, S)):
+            hs.append(hs[-1] * decay[:, :, t, None, None] + (
+                dtf[:, :, t, None, None] * xf[:, :, t, :, None]
+                * Bx[:, :, t, None, :]))
+        for t in range(min(s0 + chunk, S) - 1, s0 - 1, -1):
+            h, h_prev = hs[t - s0 + 1], hs[t - s0]
+            g = g + dyf[:, :, t, :, None] * Cx[:, :, t, None, :]
+            gB = torch.einsum("bhpn,bhn->bhp", g, Bx[:, :, t])
+            gh = (g * h_prev).sum(dim=(2, 3))
+            dx[:, :, t] = dtf[:, :, t, None] * gB
+            dB[:, :, t] = dtf[:, :, t, None] * torch.einsum(
+                "bhpn,bhp->bhn", g, xf[:, :, t])
+            dC[:, :, t] = torch.einsum("bhpn,bhp->bhn", h, dyf[:, :, t])
+            ddt[:, :, t] = ((gB * xf[:, :, t]).sum(-1)
+                            + Af[None, :] * decay[:, :, t] * gh)
+            dA += (dtf[:, :, t] * decay[:, :, t] * gh).sum(0)
+            g = g * decay[:, :, t, None, None]
+    dB = dB.view(Bb, G, H // G, S, N).sum(2)
+    dC = dC.view(Bb, G, H // G, S, N).sum(2)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B_.dtype), dC.to(C_.dtype))
+
+
 def rglru_scan_ref(a, b):
     """Sequential linear recurrence h_t = a_t h_{t-1} + b_t over axis 1,
     in fp32.  a, b: (B,S,W) → h (B,S,W) in a.dtype."""

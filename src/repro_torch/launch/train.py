@@ -5,9 +5,8 @@
 
 ``--device cpu`` runs the plain PyTorch path on the CPU; the default
 ``cuda`` raises without a card.  Parameters are fp32, as in the
-reference's launcher.  On the card the attention and RG-LRU layers run
-their kernels forward and backward; an SSD (mamba2) layer's kernel has
-no backward yet, so mamba2 trains only on the CPU.
+reference's launcher.  On the card the attention, SSD and RG-LRU layers
+run their kernels forward and backward.
 """
 from __future__ import annotations
 

@@ -451,8 +451,8 @@ def forward_train(cfg: ModelConfig, params, batch, remat: bool = False,
     layers run as they are, as in the reference) in
     ``torch.utils.checkpoint`` without re-entry, so the backward pass
     recomputes it from its input: the numbers are the same, the
-    activations held are fewer.  On the card the attention and RG-LRU
-    layers launch their kernels forward and backward."""
+    activations held are fewer.  On the card the attention, SSD and
+    RG-LRU layers launch their kernels forward and backward."""
     from torch.utils.checkpoint import checkpoint
     x, positions, enc_out = assemble_input(cfg, params, batch, impl)
     tables = rope_for(cfg, positions)

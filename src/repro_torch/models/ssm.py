@@ -2,10 +2,12 @@
 
 Prefill runs the hand-written SSD scan (``ops.ssd_scan``: the chunked
 intra- plus inter-chunk computation, with the final state as a second
-output) in place of the reference's XLA ``ssd_chunked``; the D-skip and
-the gated RMSNorm stay in the block, as in the reference.  Decode keeps
-O(1) state: the conv history and the (H, hd, N) SSM state, advanced by
-one plain-PyTorch recurrence step.
+output) in place of the reference's XLA ``ssd_chunked``; under autograd
+on the card its backward is the hand-written K4-bwd
+(``ops.ssd_scan_bwd``).  The D-skip and the gated RMSNorm stay in the
+block, as in the reference.  Decode keeps O(1) state: the conv history
+and the (H, hd, N) SSM state, advanced by one plain-PyTorch recurrence
+step.
 
 Parameters, with the reference's five input projections side by side
 as one matmul and its three depthwise convs (x, B, C) as one:

@@ -4,7 +4,8 @@ over ``grad_accum`` microbatches: each microbatch's gradients are added
 to fp32 accumulators divided by k, and its loss summed divided by k.
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves;
-on the card the attention and RG-LRU layers run their backward kernels.
+on the card the attention, SSD and RG-LRU layers run their backward
+kernels.
 """
 from __future__ import annotations
 

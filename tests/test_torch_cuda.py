@@ -1134,9 +1134,6 @@ def _grad_case(name):
         return ops.decode_attention_int8, (r(1, 2, 2, 32), k8, k8.clone(),
                                            sc, sc.clone(), i32(5)), \
             dict(k_new=r(1, 2, 32), v_new=r(1, 2, 32), slot=i32(5))
-    if name == "ssd_scan":
-        return ops.ssd_scan, (r(1, 2, 8, 16), r(1, 2, 8), -r(2),
-                              r(1, 1, 8, 16), r(1, 1, 8, 16)), {}
     if name == "rglru_scan":
         return ops.rglru_scan, (r(1, 8, 16), r(1, 8, 16)), {}
     if name == "flash_attention_bwd":
@@ -1147,6 +1144,11 @@ def _grad_case(name):
     if name == "rglru_scan_bwd":
         return ops.rglru_scan_bwd, (r(1, 8, 16), r(1, 8, 16),
                                     r(1, 8, 16)), {}
+    if name == "ssd_scan_bwd":
+        return ops.ssd_scan_bwd, (r(1, 2, 8, 16), r(1, 2, 8), -r(2),
+                                  r(1, 1, 8, 16), r(1, 1, 8, 16),
+                                  r(1, 2, 8, 16), r(1, 2, 16, 16)), \
+            dict(chunk=4, states=r(1, 2, 2, 16, 16))
     if name == "modipick_probs":
         return ops.modipick_probs, (*pool(3)[:3], r(4), r(4),
                                     torch.ones(4, 3, **f)), {}
@@ -1164,8 +1166,8 @@ def _grad_case(name):
 @pytest.mark.parametrize("name", [w.__name__ for w in ops.WRAPPERS
                                   if w not in ops.DIFFERENTIABLE])
 def test_wrappers_refuse_inputs_that_require_grad(gen, name):
-    """A CUDA kernel without a backward kernel (every one but K2's and
-    K5's, and those two's backward kernels, which take no second
+    """A CUDA kernel without a backward kernel (every one but K2's, K4's
+    and K5's, and those three's backward kernels, which take no second
     derivative): under grad mode an input that requires grad raises
     (naming the wrapper) before anything launches; under
     torch.no_grad() the same call runs."""
@@ -1437,12 +1439,12 @@ def test_rglru_grad_call_goes_through_bwd(gen):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-2b",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "mamba2-1.3b"])
 def test_reduced_train_step_kernel_path_matches_plain_path(gen, arch):
     """A reduced model's loss and every gradient on the card, kernel
     path against plain path, fp32, 1e-4 of each leaf's max |gradient|;
-    K2's and K5's backward kernels launch once per layer that runs
-    them; mamba2 (K4 has no backward) raises."""
+    K2's, K4's and K5's backward kernels launch once per layer that runs
+    them (mamba2's S 40 over chunks of 32: a ragged second chunk)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import api
     from repro_torch.models import model as M
@@ -1469,15 +1471,126 @@ def test_reduced_train_step_kernel_path_matches_plain_path(gen, arch):
         attn_layers = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
     assert nk["flash_attention_bwd"] == attn_layers
     assert nk["rglru_scan_bwd"] == sum(k == "rglru" for k in cfg.block_kinds)
+    assert nk["ssd_scan_bwd"] == sum(k == "ssd" for k in cfg.block_kinds)
 
 
-def test_mamba2_training_raises_on_the_card(gen):
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models import api
-    from repro_torch.models import model as M
-    from repro_torch.training.train_step import loss_and_grads
-    cfg = get_config("mamba2-1.3b").reduced()
-    params = M.init_params(cfg, gen, torch.float32)
-    batch = api.make_train_batch(cfg, ShapeConfig("t", 16, 2, "train"), gen)
-    with pytest.raises(RuntimeError, match="ssd_scan"):
-        loss_and_grads(api.make_forward_loss(cfg), params, batch)
+# (B, H, G, S, hd, N, chunk) of K4-bwd against its plain version
+SSD_BWD_SHAPES = [
+    (2, 8, 1, 1024, 64, 128, 256),   # mamba2's training shape, 8 heads
+    (1, 8, 2, 600, 64, 128, 256),    # groups, the last chunk ragged
+    (2, 4, 1, 128, 64, 128, 256),    # one short chunk
+    (1, 4, 2, 130, 128, 64, 64),     # hd 128, a two-row last chunk
+    (2, 4, 2, 96, 16, 16, 32),       # hd 16, three chunks
+    (1, 2, 1, 600, 128, 24, 128),    # N 24
+    (1, 4, 1, 40, 16, 16, 32),       # the reduced config
+    (1, 8, 4, 512, 32, 64, 128),     # four groups
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,hd,N,chunk", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(gen, dtype, B, H, G, S, hd, N, chunk):
+    """dx, ddt, dA, dB_ and dC_ against ``ref.ssd_scan_bwd_ref``, each
+    relative to max(max |value|, 1): in float32 to ``SSD_TOL`` (the
+    chunked and the sequential forms sum in different orders), in
+    bfloat16 to 1e-2 (one rounding of the output; the forward's bf16
+    chunk states are themselves within ``SSD_TOL``'s 2e-2), with and
+    without a final-state gradient; the forward's chunk states against
+    ``ref.ssd_chunk_states_ref``; two calls equal bit for bit."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_inputs(gen, B, H, G, S, hd, N, dtype)
+    dy = _randn(gen, B, H, S, hd, dtype=dtype)
+    dstate = _randn(gen, B, H, hd, N, dtype=torch.float32)
+    with torch.no_grad():
+        _, _, states = ssd._forward(*args, chunk, with_states=True)
+    want_states = ref.ssd_chunk_states_ref(*args, chunk=chunk)
+    scale = max(float(want_states.abs().max()), 1.0)
+    torch.testing.assert_close(states / scale, want_states / scale,
+                               **SSD_TOL[dtype])
+    tol = {torch.float32: SSD_TOL[torch.float32],
+           torch.bfloat16: dict(atol=1e-2, rtol=0.0)}[dtype]
+    for ds in (None, dstate):
+        before = ops.ssd_scan_bwd.launches
+        got = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk, states=states)
+        again = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk, states=states)
+        torch.cuda.synchronize()
+        assert ops.ssd_scan_bwd.launches == before + 2
+        want = ref.ssd_scan_bwd_ref(*args, dy, ds, chunk=chunk)
+        for g, a, w, t in zip(got, again, want, args):
+            assert torch.equal(g, a)
+            assert g.dtype == t.dtype and g.shape == t.shape
+            scale = max(float(w.float().abs().max()), 1.0)
+            torch.testing.assert_close(g.float() / scale, w.float() / scale,
+                                       **tol)
+
+
+def test_ssd_grad_call_goes_through_bwd(gen):
+    """Under no_grad K4 launches once and nothing else; on inputs that
+    require grad it launches its forward once and, in backward, its
+    backward kernels once, and the gradients match autograd of the plain
+    version, with and without the final state's gradient."""
+    args = _ssd_inputs(gen, 2, 4, 2, 300, 32, 64, torch.float32)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        ops.ssd_scan(*args, chunk=128)
+    after = ops.launch_counts()
+    assert after["ssd_scan"] == before["ssd_scan"] + 1
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"]
+    for use_state in (False, True):
+        leaves = [t.detach().requires_grad_() for t in args]
+        start = ops.launch_counts()
+        y, st = ops.ssd_scan(*leaves, chunk=128)
+        loss = (y * y).sum() + ((st * st).sum() if use_state else 0.0)
+        grads = torch.autograd.grad(loss, leaves)
+        end = ops.launch_counts()
+        assert end["ssd_scan"] == start["ssd_scan"] + 1
+        assert end["ssd_scan_bwd"] == start["ssd_scan_bwd"] + 1
+        plain = [t.detach().requires_grad_() for t in args]
+        yp, sp = ref.ssd_scan_ref(*plain)
+        lp = (yp * yp).sum() + ((sp * sp).sum() if use_state else 0.0)
+        want = torch.autograd.grad(lp, plain)
+        for g, w in zip(grads, want):
+            _close_scaled(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("chunk_grid", lambda g: (g[0] - 1, g[1], g[2])),  # a chunk left out
+    ("chain_grid", lambda g: (g[0], g[1] + 1, g[2])),  # an empty batch row
+    ("reduce_grid", lambda g: (g[0] - 1, g[1], g[2])),  # columns left out
+    ("n_chunks", lambda n: n + 1)])
+def test_ssd_bwd_launch_refuses_a_plan_that_does_not_cover(
+        gen, monkeypatch, field, bad):
+    """The launch takes its grids from ``bwd_plan`` and refuses ones that
+    do not cover the shapes, launching nothing."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_inputs(gen, 1, 4, 1, 200, 32, 32, torch.float32)
+    dy = _randn(gen, 1, 4, 200, 32, dtype=torch.float32)
+    with torch.no_grad():
+        _, _, states = ssd._forward(*args, 64, with_states=True)
+    plan = ssd.bwd_plan
+
+    def wrong(*a):
+        p = plan(*a)
+        return p._replace(**{field: bad(getattr(p, field))})
+
+    monkeypatch.setattr(ssd, "bwd_plan", wrong)
+    before = ops.ssd_scan_bwd.launches
+    with pytest.raises((RuntimeError, ValueError)):
+        ops.ssd_scan_bwd(*args, dy, chunk=64, states=states)
+    assert ops.ssd_scan_bwd.launches == before
+
+
+def test_ssd_bwd_plan_mirrors_the_kernel(gen):
+    """The shared memory the backward kernels take, as they report it,
+    equals ``bwd_plan``'s at every head size."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd
+    fn = build.function("ssd_scan", "ssd_scan_bwd_plan",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for hd in ssd.HEAD_DIMS:
+        for N, cs in ((128, 256), (24, 100), (64, 64)):
+            out = (ctypes.c_longlong * 2)()
+            assert fn(hd, N, cs, ctypes.cast(out, ctypes.c_void_p)) == 0
+            p = ssd.bwd_plan(1, 1, 1, cs, hd, N, cs)
+            assert list(out) == [p.chain_smem, p.chunk_smem]

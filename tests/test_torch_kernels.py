@@ -417,10 +417,15 @@ def test_cpu_path_launches_nothing():
     ops.flash_attention_bwd(q, k, v, q, torch.zeros(1, 4, 8), q)
     a = torch.zeros(1, 5, 8)
     ops.rglru_scan_bwd(a, a, a)
+    ssd = (torch.zeros(1, 2, 5, 16), torch.zeros(1, 2, 5), torch.zeros(2),
+           torch.zeros(1, 1, 5, 8), torch.zeros(1, 1, 5, 8))
+    ops.ssd_scan_bwd(*ssd, torch.zeros(1, 2, 5, 16), chunk=4)
     # under grad the CPU path is the plain version's own autograd
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.flash_attention(*leaves).sum().backward()
     ops.rglru_scan(a.clone().requires_grad_(), a).sum().backward()
+    ops.ssd_scan(*(t.clone().requires_grad_() for t in ssd))[0].sum(
+        ).backward()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0,
                                    "decode_attention_int8": 0,
@@ -428,7 +433,7 @@ def test_cpu_path_launches_nothing():
                                    "modipick_probs": 0, "fused_select": 0,
                                    "charged_select": 0, "stacked_select": 0,
                                    "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def test_plain_versions_are_the_reference_twins():
