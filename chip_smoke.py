@@ -24,9 +24,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on a wrapped ring and over 32768 slots (the written cache held
    exactly, the output to TOL), and beside bf16 K3 over a 32768-slot
    cache, where it must be the faster;
-   K4's occupancy (two blocks an SM at the serve shape) and its time
-   over S; K5's segment plan; the selection kernels (K1 bit for bit at
-   gamma 1, the fused selection's picks, all five of the charged pass's
+   K4's occupancy (two blocks an SM at the serve shape; the fp32
+   training path's passes) and its time over S; K5's segment plan; the
+   selection kernels (K1 bit for bit at gamma 1, the fused selection's
+   picks, all five of the charged pass's
    outputs) on synthetic pools with rows that have no base, degenerate
    rows, SLA-aware admission that sheds, replica speeds and a replica
    that is down, and at the engine's pool, at 33, 64 and 128 models
@@ -455,19 +456,28 @@ BWD_SPILLS = {("bwd_dq_kernel", "13__nv_bfloat16Li256"): 4,
               ("rglru_bwd_kernel", "13__nv_bfloat16"): 8}
 
 
+# K4's fp32 training path: (kernel, instantiations).  The forward's
+# passes run fp32 only (four head sizes where templated), the
+# backward's both types (four head sizes where templated).
+SSD_TRAIN_KERNELS = (("ssd_fwd_scores_kernel", 1), ("ssd_fwd_state_kernel", 4),
+                     ("ssd_fwd_chain_kernel", 1), ("ssd_fwd_out_kernel", 4),
+                     ("ssd_bwd_scores_kernel", 2), ("ssd_bwd_local_kernel", 8),
+                     ("ssd_bwd_ds_kernel", 8), ("ssd_bwd_chain_kernel", 1),
+                     ("ssd_bwd_dx_kernel", 8), ("ssd_bwd_dbdc_kernel", 8),
+                     ("ssd_bwd_dt_kernel", 1), ("ssd_bwd_da_kernel", 1))
+
+
 def bwd_ptxas(logs) -> None:
     """The registers and spills ptxas reports for the backward kernels'
     instantiations (K2-bwd's dQ and dK/dV kernels at both types and five
-    head sizes, K5-bwd's at both types, K4-bwd's chain and chunk kernels
-    at both types and four head sizes and its reduce kernel at both
-    types): every one must be reported and spill no more than
-    ``BWD_SPILLS`` allows."""
+    head sizes, K5-bwd's at both types) and for every instantiation of
+    K4's fp32 training path, forward and backward
+    (``SSD_TRAIN_KERNELS``): every one must be reported and spill no more
+    than ``BWD_SPILLS`` allows."""
     for lib, kern, want in (("flash_attention", "bwd_dq_kernel", 10),
                             ("flash_attention", "bwd_dkdv_kernel", 10),
-                            ("rglru_scan", "rglru_bwd_kernel", 2),
-                            ("ssd_scan", "ssd_bwd_chain_kernel", 8),
-                            ("ssd_scan", "ssd_bwd_chunk_kernel", 8),
-                            ("ssd_scan", "ssd_bwd_reduce_kernel", 2)):
+                            ("rglru_scan", "rglru_bwd_kernel", 2)) + tuple(
+            ("ssd_scan", k, n) for k, n in SSD_TRAIN_KERNELS):
         entry = spill = None
         seen = 0
         for line in logs.get(lib, "").splitlines():
@@ -666,6 +676,15 @@ def phase_kernels(ops, ref, policy_select, gen):
         log(f"K4 ssd_scan B={BATCH} H={H} S={S} hd={hd} N={N} G={G} "
             f"chunk={chunk} {dtype}: max err of max|y| y={err:.3g} "
             f"state={err_st:.3g} tol={SSD_TOL[dtype]}")
+        if dtype == torch.float32:
+            b = ssd_bound(BATCH, H, G, S, hd, N, chunk, dtype)
+            bc = ssd_bound(BATCH, H, G, S, hd, N, chunk, dtype,
+                           cuda_cores=True)
+            log(f"[extra] ssd_scan fp32 forward B={BATCH} H={H} S={S} "
+                f"hd={hd} N={N} chunk={chunk}: ms="
+                f"{time_ms(lambda: ops.ssd_scan(*args, chunk=chunk)):.5g} "
+                f"bound_ms={b[0]:.4g} ({b[1]}, 3xTF32); fp32 CUDA-core "
+                f"bound {bc[0]:.4g} ms")
         if (S, dtype) != (SEQ, torch.bfloat16):
             continue
         b = ssd_bound(BATCH, H, G, S, hd, N, chunk, dtype)
@@ -755,10 +774,16 @@ def flash_bwd_bound(q, k, causal, window) -> tuple:
               + 4 * B * H * Sq)
     ops = 10 * hd * pairs * B * H
     if q.dtype == torch.float32:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 3 * ops / TF32_OPS * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return tf32x3_bound(nbytes, ops)
     return bound(nbytes, ops, q.dtype)
+
+
+def tf32x3_bound(nbytes: float, ops: float) -> tuple:
+    """The bound of an fp32 body that runs its products as 3xTF32: three
+    TF32 products a product at the TF32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * ops / TF32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sdpa_bwd_ms(q, k, v, dout, causal, window, label) -> float:
@@ -782,7 +807,8 @@ def sdpa_bwd_ms(q, k, v, dout, causal, window, label) -> float:
 
 def log_bwd_plans() -> None:
     """K2-bwd's launch plan as the kernels report it against its Python
-    mirror, for both types and every head size; K5-bwd's chunk plan."""
+    mirror, for both types and every head size; K5-bwd's chunk plan;
+    K4's fp32 training path (``log_ssd_plans``)."""
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -808,23 +834,46 @@ def log_bwd_plans() -> None:
         log(f"[plan] K5-bwd B={B} S={S} W={W}: {n_chunk} chunks of "
             f"{n_seg} segments of {seg} steps, {blocks} blocks of "
             f"{32 * n_seg} threads")
+    log_ssd_plans()
+
+
+def log_ssd_plans() -> None:
+    """K4's fp32 training path: the shared memory its blocks take, as the
+    kernels report it (``ssd_scan_train_smem``), against the wrapper's
+    mirror at every head size, and the forward's and backward's plans at
+    the ``SSD_BWD`` shapes."""
+    import ctypes
+    from repro_torch.kernels import build
     from repro_torch.kernels import ssd_scan as ssd
-    fn = build.function("ssd_scan", "ssd_scan_bwd_plan",
+    fn = build.function("ssd_scan", "ssd_scan_train_smem",
                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    shapes = {(hd, N, min(chunk, S))
+              for (_, _, _, S, hd, N, chunk, _) in SSD_BWD}
+    shapes |= {(hd, N, cs) for hd in ssd.HEAD_DIMS
+               for N, cs in ((128, 256), (24, 100), (136, 128))}
+    for hd, N, cs in sorted(shapes):
+        out = (ctypes.c_longlong * 8)()
+        want = list(ssd.train_smem(hd, N, cs))
+        if fn(hd, N, cs, ctypes.cast(out, ctypes.c_void_p)) or list(
+                out) != want:
+            raise AssertionError(f"K4 fp32 path shared memory at hd {hd} N "
+                                 f"{N} chunk {cs}: kernel {list(out)}, "
+                                 f"mirror {want}")
+    log(f"[plan] K4 fp32 path: shared memory of {len(shapes)} (hd, N, "
+        "chunk) shapes, kernel and mirror agree")
     for (B, H, G, S, hd, N, chunk, _) in SSD_BWD:
+        f = ssd.fwd_plan(B, H, G, S, hd, N, chunk)
         p = ssd.bwd_plan(B, H, G, S, hd, N, chunk)
-        out = (ctypes.c_longlong * 2)()
-        if fn(hd, N, p.cs, ctypes.cast(out, ctypes.c_void_p)) or list(
-                out) != [p.chain_smem, p.chunk_smem]:
-            raise AssertionError(f"K4-bwd shared memory at hd {hd} N {N} "
-                                 f"chunk {p.cs}: kernel {list(out)}, mirror "
-                                 f"{[p.chain_smem, p.chunk_smem]}")
+        log(f"[plan] K4 fp32 forward B={B} H={H} G={G} S={S} hd={hd} N={N} "
+            f"chunk={f.cs}: {f.n_chunks} chunks of {f.tiles} tiles; "
+            + ", ".join(f"{n} {g} x {t} threads {m} bytes" for n, g, t, m in
+                        zip(ssd.FWD_PASSES, f.grids, f.threads, f.smem))
+            + f"; scratch {f.scratch} bytes")
         log(f"[plan] K4-bwd B={B} H={H} G={G} S={S} hd={hd} N={N} "
-            f"chunk={p.cs}: {p.n_chunks} chunks; chain {p.chain_grid} x "
-            f"{p.threads} threads, {p.chain_smem} bytes; chunk "
-            f"{p.chunk_grid}, {p.chunk_smem} bytes; reduce "
-            f"{p.reduce_grid}; scratch {p.scratch} bytes (kernel and "
-            f"mirror agree)")
+            f"chunk={p.cs}: heads in {p.nsplit} splits; "
+            + ", ".join(f"{n} {g} x {t} threads {m} bytes" for n, g, t, m in
+                        zip(ssd.BWD_PASSES, p.grids, p.threads, p.smem))
+            + f"; scratch {p.scratch} bytes")
 
 
 def backward_kernels(ops, ref, randn) -> dict:
@@ -958,13 +1007,17 @@ def backward_kernels(ops, ref, randn) -> dict:
     return rows
 
 
-def ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, dstate=False) -> tuple:
+def ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, dstate=False,
+                  cuda_cores=False) -> tuple:
     """K4's backward: x, dy, dt, A, B_, C_, the forward's chunk states
     (and dstate) read once, dx, ddt, dA, dB_ and dC_ written once; per
     chunk the scores C·Bᵀ once per (batch, group) over the causal pairs,
     and per head dy·xᵀ, Mᵀ·dy, dscores·B and dscoresᵀ·C over the pairs,
     the state update's G·B and Gᵀ·x over the rows, and on every chunk
-    but the first the inter-chunk dy·S_in and the chain's dyᵀ·C."""
+    but the first the inter-chunk dy·S_in and the chain's dyᵀ·C.  In
+    fp32 the products run as 3xTF32 (``tf32x3_bound``); with
+    ``cuda_cores``, as fp32 FMAs at the CUDA cores' rate (the first
+    version's bound)."""
     esize = 2 if dtype == torch.bfloat16 else 4
     cs = min(chunk, S)
     nc = -(-S // cs)
@@ -977,6 +1030,8 @@ def ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, dstate=False) -> tuple:
         pairs = ln * (ln + 1) // 2
         ops_ += 2 * B * G * pairs * N + 2 * B * H * (
             2 * pairs * hd + 2 * pairs * N + ln * hd * N * (4 if s0 else 2))
+    if dtype == torch.float32 and not cuda_cores:
+        return tf32x3_bound(nbytes, ops_)
     return bound(nbytes, ops_, dtype)
 
 
@@ -1033,6 +1088,13 @@ def ssd_backward(ops, ref, randn) -> dict:
             *args, dy, dstate, chunk=chunk), iters=2, warmup=1)
         log(f"[ratio] K4-bwd {tag}: kernel / plain {ms / plain_ms:.4f}, "
             f"bound / kernel {b[0] / ms:.3f} ({b[1]})")
+        if dtype == torch.float32:
+            bc = ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, with_dstate,
+                               cuda_cores=True)
+            log(f"[bound] K4-bwd {tag}: 3xTF32 bound {b[0]:.4g} ms "
+                f"({b[1]}); fp32 CUDA-core bound {bc[0]:.4g} ms ({bc[1]})")
+        log_passes(f"K4-bwd {tag} dstate={with_dstate}",
+                   lambda: ops.ssd_scan_bwd(*args, dy, dstate, **kw))
         if training and dtype == torch.float32:
             rows["ssd_scan_bwd"] = dict(
                 name="ssd_scan_bwd", route="cuda",
@@ -1048,14 +1110,44 @@ def ssd_backward(ops, ref, randn) -> dict:
                     *args, chunk, with_states=w), iters=10)
                     for w in (True, False)]
             fb = ssd_bound(B, H, G, S, hd, N, chunk, dtype)
+            fc = ssd_bound(B, H, G, S, hd, N, chunk, dtype, cuda_cores=True)
             log(f"[extra] ssd_scan forward at mamba2's training shape "
                 f"{tag}: with its chunk states {fwd[0]:.5g} ms, without "
-                f"{fwd[1]:.5g} ms (bound without {fb[0]:.4g} ms, {fb[1]})")
+                f"{fwd[1]:.5g} ms (bound without {fb[0]:.4g} ms, {fb[1]}, "
+                f"3xTF32; fp32 CUDA-core bound {fc[0]:.4g} ms)")
+            with torch.no_grad():
+                log_passes(f"K4 fp32 forward {tag} with its chunk states",
+                           lambda: ssd._forward(*args, chunk,
+                                                with_states=True))
         else:
             extra(f"ssd_scan_bwd {tag} dstate={with_dstate}", ms, plain_ms,
                   b)
         del args, dy, states
     return rows
+
+
+def log_passes(label, fn, iters=10) -> None:
+    """An ``[extra]`` line: the device µs a call of each K4 pass that
+    ``fn`` launches (torch.profiler), so the chains read apart from the
+    passes around them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        m = re.search(r"\bssd_(fwd|bwd)_(\w+?)_kernel\b", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            us[m.group(2)] = us.get(m.group(2), 0.0) + \
+                e.time_range.elapsed_us() / iters
+    log(f"[extra] {label} passes, device us a call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in us.items())
+        + f"; all {sum(us.values()):.2f}")
 
 
 def log_timing() -> None:
@@ -1068,11 +1160,13 @@ def log_timing() -> None:
     HOST_PACED.clear()
 
 
-def ssd_bound(B, H, G, S, hd, N, chunk, dtype) -> tuple:
+def ssd_bound(B, H, G, S, hd, N, chunk, dtype, cuda_cores=False) -> tuple:
     """K4's bound: x, B_, C_, dt, A read once, y and the final state
     written once; the scores once per (batch, group) and chunk, M.X and
     the state update per head and chunk, and the inter-chunk term on
-    every chunk but the first (where the state is zero)."""
+    every chunk but the first (where the state is zero).  In fp32 the
+    products run as 3xTF32 (``tf32x3_bound``); with ``cuda_cores``, as
+    fp32 FMAs at the CUDA cores' rate (the first version's bound)."""
     esize = 2 if dtype == torch.bfloat16 else 4
     nbytes = (esize * (2 * B * H * S * hd + 2 * B * G * S * N)
               + 4 * (B * H * S + H + B * H * hd * N))
@@ -1082,6 +1176,8 @@ def ssd_bound(B, H, G, S, hd, N, chunk, dtype) -> tuple:
         pairs = ln * (ln + 1) // 2
         ops_ += 2 * B * G * pairs * N + 2 * B * H * (
             pairs * hd + ln * hd * N * (2 if s0 else 1))
+    if dtype == torch.float32 and not cuda_cores:
+        return tf32x3_bound(nbytes, ops_)
     return bound(nbytes, ops_, dtype)
 
 
@@ -1089,20 +1185,29 @@ def log_ssd_occupancy(hd, N, chunk) -> None:
     """K4's shared memory a block and blocks an SM, as the card reports
     them, at the serve shape's chunk length (S = 128) and a full chunk;
     fails unless two bf16 blocks of one head share an SM at S = 128 and
-    the wrapper's smem_bytes mirrors the kernel."""
-    from repro_torch.kernels.ssd_scan import occupancy, smem_bytes
-    for dtype in (torch.bfloat16, torch.float32):
-        for cs in (SEQ, chunk):
-            smem, blocks = occupancy(dtype, hd, N, cs)
-            log(f"[occupancy] K4 {dtype} hd={hd} N={N} chunk length {cs}: "
-                f"{smem} bytes of shared memory a block, {blocks} blocks "
-                "an SM")
-            if smem != smem_bytes(hd, N, cs, dtype):
-                raise AssertionError("smem_bytes does not mirror the K4 "
-                                     f"kernel: {smem} bytes")
-            if (dtype, cs) == (torch.bfloat16, SEQ) and blocks < 2:
-                raise AssertionError(f"K4 runs {blocks} block an SM at the "
-                                     "serve shape")
+    the wrapper's smem_bytes mirrors the kernel; for the fp32 forward each
+    of its passes, against ``fwd_plan``."""
+    from repro_torch.kernels import ssd_scan as ssd
+    for cs in (SEQ, chunk):
+        smem, blocks = ssd.occupancy(torch.bfloat16, hd, N, cs)
+        log(f"[occupancy] K4 {torch.bfloat16} hd={hd} N={N} chunk length "
+            f"{cs}: {smem} bytes of shared memory a block, {blocks} blocks "
+            "an SM")
+        if smem != ssd.smem_bytes(hd, N, cs, torch.bfloat16):
+            raise AssertionError("smem_bytes does not mirror the K4 "
+                                 f"kernel: {smem} bytes")
+        if cs == SEQ and blocks < 2:
+            raise AssertionError(f"K4 runs {blocks} block an SM at the "
+                                 "serve shape")
+        plan = ssd.fwd_plan(1, 1, 1, cs, hd, N, cs)
+        for i, name in enumerate(ssd.FWD_PASSES):
+            smem, blocks = ssd.occupancy(torch.float32, hd, N, cs, i)
+            log(f"[occupancy] K4 {torch.float32} pass {name} hd={hd} N={N} "
+                f"chunk length {cs}: {smem} bytes of shared memory a block "
+                f"of {plan.threads[i]} threads, {blocks} blocks an SM")
+            if smem != plan.smem[i]:
+                raise AssertionError(f"fwd_plan does not mirror K4's fp32 "
+                                     f"{name} pass: {smem} bytes")
 
 
 def log_segments(B, S, W) -> None:
@@ -2332,7 +2437,8 @@ def model_phase(arch, gen) -> dict:
 def trace_step(label, step) -> None:
     """One training step under torch.profiler: its wall time, the
     device's busy and idle share, the kernels launched, the device time
-    of the backward kernels (K2-bwd's four, K4-bwd's three, K5-bwd's),
+    of the backward kernels (K2-bwd's four, K4-bwd's eight passes,
+    K5-bwd's) and of K4's fp32 forward passes,
     and the top
     device items."""
     from torch.autograd import DeviceType
@@ -2350,7 +2456,8 @@ def trace_step(label, step) -> None:
         f"{len(kernels)} device kernels, device busy {busy:.1f} ms (idle "
         f"share {1 - busy / ms:.3f})")
     for name, pat in (("K2-bwd", r"\bbwd_(dot|dq|dkdv|reduce)_kernel\b"),
-                      ("K4-bwd", r"\bssd_bwd_(chain|chunk|reduce)_kernel\b"),
+                      ("K4-bwd", r"\bssd_bwd_\w+_kernel\b"),
+                      ("K4-f32", r"\bssd_fwd_\w+_kernel\b"),
                       ("K5-bwd", r"\brglru_bwd_kernel\b")):
         mine = [e for e in kernels if re.search(pat, e.name)]
         if not mine:

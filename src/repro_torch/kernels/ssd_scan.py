@@ -10,13 +10,21 @@ activations and nothing is copied; y is laid out as (B,S,H,hd) in memory
 and returned as its (B,H,S,hd) view.  Any S is taken: the last chunk may
 be short.
 
-The bfloat16 kernel runs its four products on the tensor cores from
-bf16 tiles copied by 16-byte ``cp.async``, so on the card every row of
-its x, B_ and C_ must start on 16 bytes and N must be a multiple of 8
-and at most 128 (the model's views pass: its ``xbc`` rows are 4352 bf16
-wide, and mamba2's N is 128).  The float32 kernel keeps fp32 CUDA-core
-math.  :func:`smem_bytes` mirrors each kernel's shared memory;
-:func:`occupancy` asks the card how many blocks of it share an SM.
+The bfloat16 kernel (the serve path) runs its four products on the
+tensor cores from bf16 tiles copied by 16-byte ``cp.async``, so on the
+card every row of its x, B_ and C_ must start on 16 bytes and N must be
+a multiple of 8 and at most 128 (the model's views pass: its ``xbc``
+rows are 4352 bf16 wide, and mamba2's N is 128).  :func:`smem_bytes`
+mirrors its shared memory; :func:`occupancy` asks the card how many
+blocks of it share an SM.
+
+The float32 kernel (training) is the training path's four passes, all
+products by 3xTF32 on the tensor cores: the scores C·Bᵀ once per
+(batch, group, chunk, 64 × 64 tile pair) for all the group's heads;
+each chunk's local state over (chunk, head, batch); the chain of
+chunk-entry states, elementwise; the outputs over (64-row tile, chunk,
+head, batch).  :func:`fwd_plan` gives their grids, shared memory and
+scratch; the launch takes its grids from it.
 
 Returns ``(y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) float32)``.
 On a CPU tensor the wrapper runs the plain version
@@ -27,13 +35,16 @@ Training: on a CUDA tensor under grad mode with an input that requires
 grad, :func:`ssd_scan` runs through :class:`SSDScan`, whose forward
 launches the same kernel with each chunk's entry state (B,H,n_chunks,
 hd,N) fp32 and saves the inputs and those states, and whose backward
-launches the backward kernels (:func:`ssd_scan_bwd`): a chain that
-carries the state's gradient right to left and writes each chunk's, a
-pass a (batch, head, chunk) that computes dx, ddt, the per-head dB_ and
-dC_ and a dA partial, and a pass that sums those over each group's
-heads (and dA over batch and chunk) in a fixed order.  :func:`bwd_plan`
-gives their grids, shared memory and scratch; the launch takes its
-grids from it.
+launches the backward's passes (:func:`ssd_scan_bwd`), on the same
+machinery: the scores; per (chunk, head, batch) the chain's local term
+and the inter-chunk term's d(cum); the dscores summed over the heads of
+each group (in ``nsplit`` splits, so that the grid fills the card), with
+each head's d(cum) terms; the chain of the state's gradient,
+elementwise; dx per (64-row tile, chunk, head, batch); dB_ and dC_ per
+(64-row tile, 64 columns of N, chunk, batch, group), the heads'
+inter-chunk terms one product over (head, hd); ddt per (chunk, head,
+batch) and dA over the heads.  :func:`bwd_plan` gives their grids,
+shared memory and scratch; the launch takes its grids from it.
 """
 from __future__ import annotations
 
@@ -48,61 +59,168 @@ from repro_torch.kernels.flash_attention import (DTYPES, _empty_like_layout,
 
 HEAD_DIMS = (16, 32, 64, 128)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
-_TILE = 64            # rows per tile in csrc/ssd_scan.cu (kT, kTj)
+_TILE = 64            # rows per tile in csrc/ssd_scan.cu (kTj; the training path's tiles)
 MAX_N_BF16 = 128      # the bfloat16 kernel holds C's rows over N in registers
+SMS = 132             # the H100's SMs: the backward's dscores pass splits a
+                      # group's heads until its grid fills two blocks an SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LP = ctypes.POINTER(ctypes.c_longlong)
-_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 6 + [_LP, _P]
-_OCC_ARGTYPES = [_I] * 4 + [_LP, ctypes.POINTER(ctypes.c_int)]
-_BWD_ARGTYPES = [_I, _I] + [_P] * 17 + [_I] * 7 + [_P, _LP, _P]
-BWD_THREADS = 256  # threads of every backward block (kThreads)
+_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 6 + [_LP, _P, _P, _P]
+_OCC_ARGTYPES = [_I] * 5 + [_LP, ctypes.POINTER(ctypes.c_int)]
+_BWD_ARGTYPES = [_I, _I] + [_P] * 14 + [_I] * 8 + [_P, _LP, _P]
+FWD_PASSES = ("scores", "state", "chain", "out")
+BWD_PASSES = ("scores", "local", "ds", "chain", "dx", "dbdc", "dt", "da")
+_FWD_THREADS = (128, 256, 256, 128)
+_BWD_THREADS = (128, 256, 128, 256, 128, 128, 256, 256)
+
+
+class TrainSmem(NamedTuple):
+    """Dynamic shared memory bytes of a block of each pass of the
+    training path (``train_smem`` in ``csrc/ssd_scan.cu``); the chains
+    and the dA pass take none."""
+    scores: int
+    fwd_state: int
+    fwd_out: int
+    local: int
+    dx: int
+    ds: int
+    dbdc: int
+    dt: int
+
+
+def _pad32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+def _tiles(cs: int):
+    """(tiles, rows padded to tiles, tile pairs jt <= it) of a chunk."""
+    nt = -(-cs // _TILE)
+    return nt, _TILE * nt, nt * (nt + 1) // 2
+
+
+def train_smem(hd: int, N: int, cs: int) -> TrainSmem:
+    """The training path's shared memory at (hd, N, chunk length cs):
+    fp32 tiles of 64 rows, N and hd padded to 32 (hd at least 32); rows
+    over N padded by 4 floats (8 where a product reads them down a
+    column), over hd by 8 (4); 64 x 64 score tiles by 4 (8)."""
+    PP, Np = max(hd, 32), _pad32(N)
+    cs64 = _tiles(cs)[1]
+    ln, lx = Np + 4, PP + 8
+    words = TrainSmem(
+        scores=2 * 64 * ln,
+        fwd_state=PP * ln + 64 * lx + 64 * (Np + 8) + 3 * cs64,
+        fwd_out=2 * cs64 + 64 + max(64 * ln + PP * ln,
+                                    2 * 64 * 68 + 2 * 64 * lx),
+        local=2 * PP * ln + 64 * ln + 64 * lx + PP // 32 * 64 + 2 * cs64,
+        dx=2 * cs64 + PP // 32 * 64 + 4 + max(64 * ln + PP * ln + 64 * lx,
+                                              2 * 64 * 72 + 2 * 64 * lx),
+        ds=64 * 68 + 2 * 64 * (PP + 4) + 3 * 64 + 4 * 64 + 4,
+        dbdc=128 + max(2 * 64 * (PP + 4) + 2 * PP * 72, 2 * 64 * 72),
+        dt=2 * cs64 + 16)
+    return TrainSmem(*(4 * w for w in words))
+
+
+class FwdPlan(NamedTuple):
+    """The float32 forward's launch plan.  ``cs``: the chunk length
+    (chunk cut to S); ``grids``: the passes' grids in ``FWD_PASSES``
+    order (scores: a tile pair a (chunk, batch·group); state: a (chunk,
+    head, batch); chain: 256 elements of (hd, N) a (head, batch); out: a
+    64-row tile of a (chunk, head, batch)); ``threads`` and ``smem``
+    (dynamic bytes) a block of each; ``scratch``: bytes of fp32 scratch
+    (the scores, the chunks' totals and, without ``with_states``, the
+    chunk-entry states)."""
+    cs: int
+    n_chunks: int
+    tiles: int
+    pairs: int
+    grids: tuple
+    threads: tuple
+    smem: tuple
+    scratch: int
+
+
+def fwd_plan(B: int, H: int, G: int, S: int, hd: int, N: int, chunk: int,
+             with_states: bool = True) -> FwdPlan:
+    """The grids, shared memory and scratch of the float32 forward's
+    passes (``fwd_grids`` and ``train_smem`` in ``csrc/ssd_scan.cu``)."""
+    cs = min(chunk, S)
+    nc = -(-S // cs)
+    nt, cs64, npairs = _tiles(cs)
+    sm = train_smem(hd, N, cs)
+    return FwdPlan(
+        cs=cs, n_chunks=nc, tiles=nt, pairs=npairs,
+        grids=((npairs, nc, B * G), (nc, H, B), (-(-hd * N // 256), H, B),
+               (nt * nc, H, B)),
+        threads=_FWD_THREADS, smem=(sm.scores, sm.fwd_state, 0, sm.fwd_out),
+        scratch=4 * (B * G * nc * cs64 * cs64 + B * H * nc
+                     + (0 if with_states else B * H * nc * hd * N)))
 
 
 class BwdPlan(NamedTuple):
     """The backward's launch plan.  ``cs``: the chunk length (chunk cut
-    to S); ``chain_grid``: a block a (head, batch); ``chunk_grid``: a
-    block a (chunk, head, batch); ``reduce_grid``: a thread an element
-    of (S, N) a (group, batch); ``chain_smem``, ``chunk_smem``: dynamic
-    shared memory bytes of a block; ``scratch``: bytes of fp32 scratch
-    (each chunk's dS_out, the per-head dB_ and dC_ partials, the dA
-    partials)."""
+    to S); ``nsplit``: the splits of each group's heads in the dscores
+    pass; ``grids``: the passes' grids in ``BWD_PASSES`` order (scores:
+    a tile pair a (chunk, batch·group); local: a (chunk, head, batch);
+    ds: a (tile pair, split) a (chunk, batch·group); chain: 256 elements
+    of (hd, N) a (head, batch); dx: a 64-row tile a (chunk, head,
+    batch); dbdc: a (64-row tile, 64 columns of N, dB or dC) a (chunk,
+    batch·group); dt: a (chunk, head, batch); da: one block);
+    ``threads`` and ``smem`` (dynamic bytes) a block of each;
+    ``scratch``: bytes of fp32 scratch (the scores, ``nsplit`` sums of
+    dscores, dS_out, cum, q and dw per row, the totals and ⟨G, S_in⟩
+    per chunk, the d(cum) row and column sums and paired dA terms per
+    tile pair, the dA partials)."""
     cs: int
     n_chunks: int
-    chain_grid: tuple
-    chunk_grid: tuple
-    reduce_grid: tuple
-    threads: int
-    chain_smem: int
-    chunk_smem: int
+    tiles: int
+    pairs: int
+    nsplit: int
+    grids: tuple
+    threads: tuple
+    smem: tuple
     scratch: int
 
 
 def bwd_plan(B: int, H: int, G: int, S: int, hd: int, N: int,
              chunk: int) -> BwdPlan:
     """The grids, shared memory and scratch of :func:`ssd_scan_bwd`'s
-    kernels (``chain_smem_floats`` and ``chunk_smem_floats`` in
-    ``csrc/ssd_scan.cu``).  The chain block holds the (hd, N) carry, a
-    C and a dy tile and dt and cum over the chunk; the chunk block the B
-    and x tiles of a j tile and its dB accumulator, a region that holds
-    either the (hd, N) S_in / dS_out or an i tile's C and dy with the
-    M, dscores and column-partial tiles, and five vectors over the
-    chunk; fp32 rows padded by one float."""
+    passes (``bwd_grids`` and ``train_smem`` in ``csrc/ssd_scan.cu``).
+    The dscores pass splits each group's heads into the fewest splits
+    that give it two blocks on each of the card's SMS SMs (at most one
+    head a split)."""
     cs = min(chunk, S)
     nc = -(-S // cs)
-    NP, PX, T = N + 1, hd + 1, _TILE
-    union = max(hd * NP, T * NP + T * PX + 2 * T * (T + 1) + 16 * T)
+    nt, cs64, npairs = _tiles(cs)
+    units = npairs * nc * B * G
+    nsplit = max(1, min(H // G, -(-2 * SMS // units)))
+    sm = train_smem(hd, N, cs)
+    sq, bhc = B * G * nc * cs64 * cs64, B * H * nc
     return BwdPlan(
-        cs=cs, n_chunks=nc, chain_grid=(H, B, 1), chunk_grid=(nc, H, B),
-        reduce_grid=(-(-S * N // BWD_THREADS), G, B), threads=BWD_THREADS,
-        chain_smem=4 * (hd * NP + T * NP + T * PX + 2 * cs),
-        chunk_smem=4 * (2 * T * NP + T * PX + union + 5 * cs + 16),
-        scratch=4 * (B * H * nc * hd * N + 2 * B * H * S * N + B * H * nc))
+        cs=cs, n_chunks=nc, tiles=nt, pairs=npairs, nsplit=nsplit,
+        grids=((npairs, nc, B * G), (nc, H, B), (npairs * nsplit, nc, B * G),
+               (-(-hd * N // 256), H, B), (nt * nc, H, B),
+               (nt * 2 * -(-N // 64), nc, B * G), (nc, H, B), (1, 1, 1)),
+        threads=_BWD_THREADS,
+        smem=(sm.scores, sm.local, sm.ds, 0, sm.dx, sm.dbdc, sm.dt, 0),
+        scratch=4 * ((1 + nsplit) * sq + bhc * hd * N + 3 * B * H * S
+                     + bhc * (3 + 129 * npairs)))
+
+
+def split_heads(H: int, G: int, nsplit: int):
+    """The heads each split of the backward's dscores pass sums, for
+    each group: ``[[(first, end), ...] for each group]``, as
+    ``ssd_bwd_ds_kernel`` cuts them (a split past the group's last head
+    is empty)."""
+    hg = H // G
+    hps = -(-hg // nsplit)
+    return [[(g * hg + min(sp * hps, hg), g * hg + min((sp + 1) * hps, hg))
+             for sp in range(nsplit)] for g in range(G)]
 
 
 def smem_bytes(hd: int, N: int, cs: int, dtype=torch.bfloat16) -> int:
     """Shared memory of one block of the kernel for ``dtype`` at chunk
-    length ``cs`` (``tc_smem_bytes`` and ``smem_floats`` in
+    length ``cs`` (``tc_smem_bytes`` and ``train_smem`` in
     ``csrc/ssd_scan.cu``).
 
     bfloat16: the fp32 (hd, N) state, rows padded by 8 floats; dt, the
@@ -111,17 +229,16 @@ def smem_bytes(hd: int, N: int, cs: int, dtype=torch.bfloat16) -> int:
     of two bf16 (B, x) tiles, rows padded by 8 elements, N padded to 16
     (each pass also stages its C rows and its y rows there).
 
-    float32: the state, C and B tiles, an x tile, a score tile and dt
-    and the decay, in fp32, rows padded by one float."""
+    float32: the largest block of the forward's passes
+    (:func:`train_smem`)."""
     if dtype == torch.bfloat16:
         npad = -(-N // 16) * 16
         rows = 128 if hd <= 64 else 64
         csp = -(-cs // rows) * rows
         return (4 * (hd * (npad + 8) + 3 * csp)
                 + 2 * 2 * _TILE * (npad + 8 + hd + 8))
-    NP = N + 1
-    return 4 * (hd * NP + 2 * _TILE * NP + _TILE * (hd + 1)
-                + _TILE * (_TILE + 1) + 2 * cs)
+    sm = train_smem(hd, N, cs)
+    return max(sm.scores, sm.fwd_state, sm.fwd_out)
 
 
 def _check(x, dt, A, B_, C_, chunk: int) -> None:
@@ -162,16 +279,23 @@ def _check(x, dt, A, B_, C_, chunk: int) -> None:
                          "C_ contiguous (stride 1)")
 
 
-def occupancy(dtype, hd: int, N: int, cs: int):
+def occupancy(dtype, hd: int, N: int, cs: int, pass_: int = 0):
     """(shared bytes, blocks an SM) of the kernel for ``dtype`` at
-    (hd, N, chunk length cs), as the card reports them."""
+    (hd, N, chunk length cs), as the card reports them: bfloat16's one
+    kernel (``pass_`` 0), or the float32 forward's pass ``pass_``
+    (``FWD_PASSES``)."""
     fn = build.function("ssd_scan", "ssd_scan_occupancy", _OCC_ARGTYPES)
     smem, blocks = ctypes.c_longlong(), ctypes.c_int()
-    err = fn(DTYPES[dtype], hd, N, cs, ctypes.byref(smem),
+    err = fn(DTYPES[dtype], hd, N, cs, pass_, ctypes.byref(smem),
              ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"ssd_scan occupancy query failed (error {err})")
     return smem.value, blocks.value
+
+
+def _grid_array(grids):
+    return (ctypes.c_int * (3 * len(grids)))(*(g for grid in grids
+                                              for g in grid))
 
 
 def _forward(x, dt, A, B_, C_, chunk: int, with_states: bool):
@@ -179,12 +303,18 @@ def _forward(x, dt, A, B_, C_, chunk: int, with_states: bool):
     None)."""
     Bb, H, S, hd = x.shape
     G, N = B_.shape[1], B_.shape[3]
+    scratch = grid = None
     if x.dtype == torch.bfloat16:
         if N % 8 or N > MAX_N_BF16:
             raise ValueError("the bfloat16 ssd_scan kernel needs N a "
                              f"multiple of 8 (16 bytes) and at most "
                              f"{MAX_N_BF16}; got {N}")
         check_aligned("ssd_scan", x, B_, C_, keys=("x", "B_", "C_"))
+    else:
+        plan = fwd_plan(Bb, H, G, S, hd, N, chunk, with_states)
+        scratch = torch.empty(plan.scratch // 4, dtype=torch.float32,
+                              device=x.device)
+        grid = _grid_array(plan.grids)
     fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     dt = dt.float()  # the model's dt is float32 already: no copy
     cs = min(chunk, S)
@@ -197,15 +327,21 @@ def _forward(x, dt, A, B_, C_, chunk: int, with_states: bool):
     strides = (ctypes.c_longlong * 15)(
         *x.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
         *y.stride()[:3])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(DTYPES[x.dtype], hd, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
              B_.data_ptr(), C_.data_ptr(), y.data_ptr(), state.data_ptr(),
              None if states is None else states.data_ptr(),
-             Bb, H, G, S, N, cs, strides, stream)
+             Bb, H, G, S, N, cs, strides,
+             None if scratch is None else scratch.data_ptr(),
+             None if grid is None else ctypes.cast(grid, ctypes.c_void_p),
+             _stream(x))
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (error {err})")
     ssd_scan.launches += 1
     return y, state, states
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 class SSDScan(torch.autograd.Function):
@@ -283,7 +419,7 @@ def ssd_scan_bwd(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int = 256,
     if states is None or states.dtype != torch.float32:
         raise ValueError("ssd_scan_bwd needs the forward's float32 chunk "
                          "states on the card")
-    if max(plan.chain_smem, plan.chunk_smem) > SMEM_LIMIT:
+    if max(plan.smem) > SMEM_LIMIT:
         raise ValueError(f"hd {hd}, N {N} and chunk {chunk} need more "
                          "shared memory than a backward block has")
     if not all(t.device == x.device for t in (dy, states) + (
@@ -291,6 +427,16 @@ def ssd_scan_bwd(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int = 256,
         raise ValueError("the inputs, dy, dstate and states must lie on "
                          "one device")
     build.refuse_grad("ssd_scan_bwd", x, dt, A, B_, C_, dy, dstate, states)
+    out = _backward(x, dt, A, B_, C_, dy, dstate, states, plan)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+def _backward(x, dt, A, B_, C_, dy, dstate, states, plan: BwdPlan):
+    """Launch the backward's passes on ``plan``: (dx, ddt, dA, dB_,
+    dC_)."""
+    Bb, H, S, hd = x.shape
+    G, N = B_.shape[1], B_.shape[3]
     dy = dy.to(x.dtype)
     if dy.stride(3) != 1:
         dy = dy.contiguous()
@@ -303,26 +449,19 @@ def ssd_scan_bwd(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int = 256,
     dA = torch.empty(H, dtype=torch.float32, device=x.device)
     scratch = torch.empty(plan.scratch // 4, dtype=torch.float32,
                           device=x.device)
-    n_so, n_p = Bb * H * plan.n_chunks * hd * N, Bb * H * S * N
-    d_so, d_bp, d_cp, d_ap = (scratch[o:o + n].data_ptr() for o, n in (
-        (0, n_so), (n_so, n_p), (n_so + n_p, n_p),
-        (n_so + 2 * n_p, Bb * H * plan.n_chunks)))
-    grid = (ctypes.c_int * 9)(*plan.chain_grid, *plan.chunk_grid,
-                              *plan.reduce_grid)
+    grid = _grid_array(plan.grids)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (x, dtf, B_, C_, dy, dx, dB, dC) for s in t.stride()[:3]))
     fn = build.function("ssd_scan", "ssd_scan_bwd", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(DTYPES[x.dtype], hd, x.data_ptr(), dtf.data_ptr(), A.data_ptr(),
              B_.data_ptr(), C_.data_ptr(), dy.data_ptr(), states.data_ptr(),
-             None if dstate is None else dstate.data_ptr(), d_so, d_bp, d_cp,
-             d_ap, dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+             None if dstate is None else dstate.data_ptr(),
+             scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), dA.data_ptr(), Bb, H, G, S, N, plan.cs,
-             plan.n_chunks, ctypes.cast(grid, ctypes.c_void_p), strides,
-             stream)
+             plan.n_chunks, plan.nsplit, ctypes.cast(grid, ctypes.c_void_p),
+             strides, _stream(x))
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed (error {err})")
-    ssd_scan_bwd.launches += 1
     return dx, ddt.to(dt.dtype), dA, dB, dC
 
 

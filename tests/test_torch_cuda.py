@@ -166,6 +166,9 @@ SSD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
     (1, 4, 1, 50, 16, 16, 256),      # the smallest mma tiles, one chunk
     (1, 8, 2, 75, 32, 32, 64),       # G 2, 8 heads; len 64 + 11
     (1, 2, 1, 600, 128, 24, 128),    # N 24 (padded to 32), hd 128
+    (1, 10, 1, 1024, 64, 128, 256),  # 10 heads: uneven head splits
+    (2, 10, 1, 1024, 64, 128, 256),
+    (1, 4, 1, 300, 128, 128, 256),   # hd 128 at G 1
 ])
 def test_ssd_kernel_matches_plain(gen, dtype, B, H, G, S, hd, N, chunk):
     args = _ssd_inputs(gen, B, H, G, S, hd, N, dtype)
@@ -1484,6 +1487,9 @@ SSD_BWD_SHAPES = [
     (1, 2, 1, 600, 128, 24, 128),    # N 24
     (1, 4, 1, 40, 16, 16, 32),       # the reduced config
     (1, 8, 4, 512, 32, 64, 128),     # four groups
+    (1, 10, 1, 1024, 64, 128, 256),  # 10 heads in 7 splits of 2: two empty
+    (2, 10, 1, 1024, 64, 128, 256),  # 10 heads in 4 splits: 3, 3, 3 and 1
+    (1, 4, 1, 300, 128, 128, 256),   # hd 128 at G 1
 ]
 
 
@@ -1553,10 +1559,17 @@ def test_ssd_grad_call_goes_through_bwd(gen):
             _close_scaled(g, w, torch.float32)
 
 
+def _bad_grid(i, fix):
+    """The plan's grids with pass i's grid changed by fix."""
+    return lambda g: g[:i] + (fix(g[i]),) + g[i + 1:]
+
+
 @pytest.mark.parametrize("field,bad", [
-    ("chunk_grid", lambda g: (g[0] - 1, g[1], g[2])),  # a chunk left out
-    ("chain_grid", lambda g: (g[0], g[1] + 1, g[2])),  # an empty batch row
-    ("reduce_grid", lambda g: (g[0] - 1, g[1], g[2])),  # columns left out
+    ("grids", _bad_grid(1, lambda g: (g[0] - 1, g[1], g[2]))),  # a chunk left out
+    ("grids", _bad_grid(3, lambda g: (g[0], g[1] + 1, g[2]))),  # an empty head row
+    ("grids", _bad_grid(5, lambda g: (g[0] - 1, g[1], g[2]))),  # columns left out
+    ("grids", _bad_grid(2, lambda g: (g[0] + 1, g[1], g[2]))),  # a split too many
+    ("nsplit", lambda n: n + 1),
     ("n_chunks", lambda n: n + 1)])
 def test_ssd_bwd_launch_refuses_a_plan_that_does_not_cover(
         gen, monkeypatch, field, bad):
@@ -1581,16 +1594,46 @@ def test_ssd_bwd_launch_refuses_a_plan_that_does_not_cover(
 
 
 def test_ssd_bwd_plan_mirrors_the_kernel(gen):
-    """The shared memory the backward kernels take, as they report it,
-    equals ``bwd_plan``'s at every head size."""
+    """The shared memory the training path's kernels take, as they report
+    it, equals ``train_smem``'s at every head size, and ``fwd_plan`` and
+    ``bwd_plan`` hand it to the passes."""
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels import ssd_scan as ssd
-    fn = build.function("ssd_scan", "ssd_scan_bwd_plan",
+    fn = build.function("ssd_scan", "ssd_scan_train_smem",
                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
     for hd in ssd.HEAD_DIMS:
-        for N, cs in ((128, 256), (24, 100), (64, 64)):
-            out = (ctypes.c_longlong * 2)()
+        for N, cs in ((128, 256), (24, 100), (64, 64), (136, 128)):
+            out = (ctypes.c_longlong * 8)()
             assert fn(hd, N, cs, ctypes.cast(out, ctypes.c_void_p)) == 0
-            p = ssd.bwd_plan(1, 1, 1, cs, hd, N, cs)
-            assert list(out) == [p.chain_smem, p.chunk_smem]
+            sm = ssd.train_smem(hd, N, cs)
+            assert list(out) == list(sm)
+            f = ssd.fwd_plan(1, 1, 1, cs, hd, N, cs)
+            b = ssd.bwd_plan(1, 1, 1, cs, hd, N, cs)
+            assert f.smem == (sm.scores, sm.fwd_state, 0, sm.fwd_out)
+            assert b.smem == (sm.scores, sm.local, sm.ds, 0, sm.dx, sm.dbdc,
+                              sm.dt, 0)
+
+
+@pytest.mark.parametrize("bad", [
+    _bad_grid(0, lambda g: (g[0] - 1, g[1], g[2])),  # a tile pair left out
+    _bad_grid(1, lambda g: (g[0], g[1] - 1, g[2])),  # a head left out
+    _bad_grid(3, lambda g: (g[0] - 1, g[1], g[2]))])  # a row tile left out
+def test_ssd_f32_launch_refuses_a_plan_that_does_not_cover(gen, monkeypatch,
+                                                          bad):
+    """The fp32 forward takes its grids from ``fwd_plan`` and refuses
+    ones that do not cover the shapes, launching nothing."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_inputs(gen, 1, 4, 1, 200, 32, 32, torch.float32)
+    plan = ssd.fwd_plan
+
+    def wrong(*a):
+        p = plan(*a)
+        return p._replace(grids=bad(p.grids))
+
+    monkeypatch.setattr(ssd, "fwd_plan", wrong)
+    before = ops.ssd_scan.launches
+    with pytest.raises(RuntimeError):
+        with torch.no_grad():
+            ops.ssd_scan(*args, chunk=64)
+    assert ops.ssd_scan.launches == before

@@ -15,8 +15,9 @@ the launch plan of the kernels.
 - Torch autograd of ``ssd_scan_ref`` equals ``ssd_scan_bwd_ref``, and
   ``ops.ssd_scan`` under autograd on the CPU keeps its ``grad_fn``.
 - ``ssd_scan.bwd_plan``: every (batch, head, chunk) is covered once,
-  and a block of either kernel fits the card's shared memory at every
-  head size.
+  and a block of every pass fits the card's shared memory at every head
+  size (``tests/test_torch_ssd_redesign.py`` holds the rest of the
+  plans).
 """
 import jax
 import jax.numpy as jnp
@@ -174,46 +175,53 @@ CARD_BWD = [(2, 64, 1, 1024, 64, 128, 256), (2, 64, 1, 1000, 64, 128, 256),
 
 @pytest.mark.parametrize("B,H,G,S,hd,N,chunk", CARD_BWD)
 def test_ssd_bwd_plan_covers_every_chunk_once(B, H, G, S, hd, N, chunk):
-    """The chain blocks cover every (batch, head) once; the chunk blocks
-    every (batch, head, chunk) once, and the chunks every step once,
-    none empty; the reduce blocks every (batch, group, step, n) once;
-    the scratch holds the chain's carries, the per-head dB and dC
-    partials and the dA partials."""
+    """The passes a block a (chunk, head, batch) (local, dt) cover every
+    (batch, head, chunk) once, and the chunks every step once, none
+    empty; the chain every element of (hd, N) a (head, batch) once; the
+    scores and dscores passes a block a tile pair (and split) of every
+    (batch, group, chunk); dA one block; the scratch holds the scores,
+    the dscores sums, dS_out, the per-row and per-chunk vectors and the
+    per-tile-pair d(cum) sums."""
     p = ssd.bwd_plan(B, H, G, S, hd, N, chunk)
-    assert p.chain_grid == (H, B, 1)
     nc, cs = p.n_chunks, p.cs
-    assert p.chunk_grid == (nc, H, B)
+    scores, local, ds, chain, dx, dbdc, dt, da = p.grids
+    assert local == dt == (nc, H, B)
     steps = np.zeros((B, H, S), dtype=np.int64)
-    for z in range(p.chunk_grid[2]):
-        for y in range(p.chunk_grid[1]):
-            for x in range(p.chunk_grid[0]):
+    for z in range(local[2]):
+        for y in range(local[1]):
+            for x in range(local[0]):
                 lo = x * cs
                 assert lo < S  # no empty chunk
                 steps[z, y, lo:min(S, lo + cs)] += 1
     assert (steps == 1).all()
-    seen = np.zeros((B, G, S * N), dtype=np.int64)
-    for z in range(p.reduce_grid[2]):
-        for y in range(p.reduce_grid[1]):
-            for x in range(p.reduce_grid[0]):
-                lo = x * p.threads
-                seen[z, y, lo:min(S * N, lo + p.threads)] += 1
-    assert (seen == 1).all()
-    assert p.scratch == 4 * (B * H * nc * hd * N + 2 * B * H * S * N
-                             + B * H * nc)
+    assert chain[1:] == (H, B) and chain[0] * 256 >= hd * N > (
+        chain[0] - 1) * 256
+    assert scores == (p.pairs, nc, B * G)
+    assert ds == (p.pairs * p.nsplit, nc, B * G)
+    assert dx == (p.tiles * nc, H, B) and da == (1, 1, 1)
+    assert dbdc == (p.tiles * 2 * -(-N // 64), nc, B * G)
+    assert p.tiles == -(-cs // 64) and p.pairs == p.tiles * (p.tiles + 1) // 2
+    sq = B * G * nc * (64 * p.tiles) ** 2
+    bhc = B * H * nc
+    assert p.scratch == 4 * ((1 + p.nsplit) * sq + bhc * hd * N
+                             + 3 * B * H * S + bhc * (3 + 129 * p.pairs))
 
 
 @pytest.mark.parametrize("hd", ssd.HEAD_DIMS)
 def test_ssd_bwd_smem_fits_at_every_head_size(hd):
-    """A chain or chunk block at N 128 and a chunk of 256 (mamba2's) fits
+    """Every backward block at N 128 and a chunk of 256 (mamba2's) fits
     the SM's shared memory at every head size, and so does every shape
-    the card's checks run; at mamba2's training shape the chunk kernel's
-    grid holds more blocks than the H100 has SMs."""
+    the card's checks run; at mamba2's training shape every pass a
+    block a (chunk, head, batch) or a tile of one, and the dscores pass,
+    hold more blocks than the H100 has SMs."""
     p = ssd.bwd_plan(1, 1, 1, 256, hd, 128, 256)
-    assert max(p.chain_smem, p.chunk_smem) <= ssd.SMEM_LIMIT
+    assert max(p.smem) <= ssd.SMEM_LIMIT
     for B, H, G, S, hd_, N, chunk in CARD_BWD:
         p = ssd.bwd_plan(B, H, G, S, hd_, N, chunk)
-        assert max(p.chain_smem, p.chunk_smem) <= ssd.SMEM_LIMIT
+        assert max(p.smem) <= ssd.SMEM_LIMIT
     s = get_config("mamba2-1.3b").ssm
     p = ssd.bwd_plan(2, 64, s.n_groups, 1024, s.head_dim, s.d_state,
                      s.chunk_size)
-    assert p.n_chunks == 4 and np.prod(p.chunk_grid) > H100_SMS
+    assert p.n_chunks == 4
+    for g in (p.grids[1], p.grids[2], p.grids[4]):
+        assert np.prod(g) > H100_SMS
