@@ -100,6 +100,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    a checkpoint restored onto fresh templates whose next step equals
    the un-restored one bit for bit; one more step under torch.profiler
    (``[trace]``); step ms, tokens/s and peak memory;
+4c. the mesh tooling (``[mesh ...]`` lines): the dry-run
+   (``launch/dryrun.py``) of each training cell on the ``meta`` device
+   at the training phase's B and S, its parameter and optimizer-state
+   bytes equal to what the training phase allocated and its kernels a
+   step to what the card launched, with its H100 roofline beside the
+   measured step; the sharded wrappers of K2, K3, K4 and K5
+   (``distributed/shardmap_ops.py``) at the main path's shapes on a
+   (1, 1) and a (2, 4) data x model mesh of the card, each held against
+   the unsharded kernel; ``fleet_steady`` on a four-cell ``cell`` mesh,
+   every epoch's picks, the spills and the attainment equal to the
+   unsharded run's; the counters zeroed just before the sharded calls
+   and the sharded fleet run and read just after;
 5. the batched selection on the qwen2 executor's profile store, each
    entry point with the counters zeroed just before and read just after
    and required to launch exactly its one kernel:
@@ -164,9 +176,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
-PEAK_OPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
-            torch.float32: 67e12}          # fp32 outside the tensor cores
 SEQ, BATCH, N_DECODE = 128, 4, 2
 N_REQUESTS = {"qwen2-1.5b": 24, "mamba2-1.3b": 12, "recurrentgemma-2b": 12,
               "moonshot-v1-16b-a3b": 12}
@@ -367,9 +376,13 @@ def wall_ms(fn, reps=7) -> float:
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations") of work at ``dtype``'s peak
+    (``kernels/cost.py`` with the H100's constants of
+    ``distributed/hlo.py``: bf16 on the tensor cores, fp32 outside
+    them)."""
+    from repro_torch.kernels import cost
+    return cost.bound(cost.Cost(
+        ops, nbytes, "bf16" if dtype == torch.bfloat16 else "fp32"))
 
 
 def check_scaled(name, got, want, tol) -> float:
@@ -477,7 +490,8 @@ def bwd_ptxas(logs) -> None:
     for lib, kern, want in (("flash_attention", "bwd_dq_kernel", 10),
                             ("flash_attention", "bwd_dkdv_kernel", 10),
                             ("rglru_scan", "rglru_bwd_kernel", 2)) + tuple(
-            ("ssd_scan", k, n) for k, n in SSD_TRAIN_KERNELS):
+            ("ssd_scan_bwd" if k.startswith("ssd_bwd") else "ssd_scan", k, n)
+            for k, n in SSD_TRAIN_KERNELS):
         entry = spill = None
         seen = 0
         for line in logs.get(lib, "").splitlines():
@@ -508,6 +522,7 @@ def bwd_ptxas(logs) -> None:
 def phase_kernels(ops, ref, policy_select, gen):
     """Each kernel against its plain version at the server's shapes."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     rows = {}
 
     def randn(*shape, dtype):
@@ -531,10 +546,7 @@ def phase_kernels(ops, ref, policy_select, gen):
             if (S, hd, dtype) != (SEQ, 128, torch.bfloat16):
                 continue
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-            esize = q.element_size()
-            pairs = S * (S + 1) // 2
-            b = bound(esize * (2 * q.numel() + 2 * k.numel()),
-                      4 * hd * pairs * B * H, dtype)
+            b = cost.bound(cost.flash_attention(q, k))
             rows["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -584,9 +596,7 @@ def phase_kernels(ops, ref, policy_select, gen):
             if (hd, dtype) != (128, torch.bfloat16):
                 continue
             live = int((pos.to(torch.int64) + 1).sum()) * KV
-            esize = q.element_size()
-            b = bound(esize * (2 * q.numel() + 2 * live * hd) + 4 * B,
-                      4 * G * hd * live, dtype)
+            b = cost.bound(cost.decode_attention(q, live))
             qs = q.reshape(B, H, 1, hd).contiguous()
             kc, vc = ck.contiguous(), cv.contiguous()
             mask = (torch.arange(C, device="cuda")[None, :]
@@ -723,7 +733,7 @@ def phase_kernels(ops, ref, policy_select, gen):
             f"max_abs_err={err:.3g} tol={TOL[dtype]}")
         if S != SEQ:
             continue
-        b = bound(4 * 3 * a.numel(), 2 * a.numel(), torch.float32)
+        b = cost.bound(cost.rglru_scan(a))
         rows["rglru_scan"] = dict(
             name="rglru_scan", route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu",
@@ -754,10 +764,6 @@ def ssd_args(randn, B, S, H, hd, N, G, dtype):
             Cm.transpose(1, 2))
 
 
-# The TF32 tensor-core rate (dense), what K2-bwd's fp32 body issues on.
-TF32_OPS = 495e12
-
-
 def flash_bwd_bound(q, k, causal, window) -> tuple:
     """K2's backward: q, k, v, o, dO and the lse read once, dq, dk, dv
     written once; the FA2 backward's five products (S, dP, dV, dK, dQ:
@@ -766,24 +772,8 @@ def flash_bwd_bound(q, k, causal, window) -> tuple:
     body as 3xTF32, three TF32 products each, at the TF32 rate (so the
     bound is the least time for what the body issues, and no run of it
     can read faster than its bound)."""
-    from repro_torch.kernels import ref
-    B, H, Sq, hd = q.shape
-    pairs = int(ref.attention_mask(Sq, k.shape[2], causal, window,
-                                   q.device).sum())
-    nbytes = (q.element_size() * 4 * (q.numel() + k.numel())
-              + 4 * B * H * Sq)
-    ops = 10 * hd * pairs * B * H
-    if q.dtype == torch.float32:
-        return tf32x3_bound(nbytes, ops)
-    return bound(nbytes, ops, q.dtype)
-
-
-def tf32x3_bound(nbytes: float, ops: float) -> tuple:
-    """The bound of an fp32 body that runs its products as 3xTF32: three
-    TF32 products a product at the TF32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * ops / TF32_OPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    from repro_torch.kernels import cost
+    return cost.bound(cost.flash_attention_bwd(q, k, causal, window))
 
 
 def sdpa_bwd_ms(q, k, v, dout, causal, window, label) -> float:
@@ -885,6 +875,7 @@ def backward_kernels(ops, ref, randn) -> dict:
     training shape, in bf16 at qwen2's and where recurrentgemma's window
     bites (S 4096), for K5-bwd at S 4096, and for K4-bwd
     (``ssd_backward``)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     log_bwd_plans()
     rows = {}
@@ -981,7 +972,7 @@ def backward_kernels(ops, ref, randn) -> dict:
             f"max|d| {err:.3g} (tol {BWD_TOL[dtype]}); two calls equal")
         if i not in (0, 4):
             continue
-        bb = bound(a.element_size() * 5 * a.numel(), 4 * a.numel(), dtype)
+        bb = cost.bound(cost.rglru_scan_bwd(a))
         row = dict(
             name="rglru_scan_bwd", route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu",
@@ -1009,30 +1000,15 @@ def backward_kernels(ops, ref, randn) -> dict:
 
 def ssd_bwd_bound(B, H, G, S, hd, N, chunk, dtype, dstate=False,
                   cuda_cores=False) -> tuple:
-    """K4's backward: x, dy, dt, A, B_, C_, the forward's chunk states
-    (and dstate) read once, dx, ddt, dA, dB_ and dC_ written once; per
-    chunk the scores C·Bᵀ once per (batch, group) over the causal pairs,
-    and per head dy·xᵀ, Mᵀ·dy, dscores·B and dscoresᵀ·C over the pairs,
-    the state update's G·B and Gᵀ·x over the rows, and on every chunk
-    but the first the inter-chunk dy·S_in and the chain's dyᵀ·C.  In
-    fp32 the products run as 3xTF32 (``tf32x3_bound``); with
-    ``cuda_cores``, as fp32 FMAs at the CUDA cores' rate (the first
+    """K4's backward (``kernels/cost.py``): x, dy, dt, A, B_, C_, the
+    forward's chunk states (and dstate) read once, dx, ddt, dA, dB_ and
+    dC_ written once, the chunked products; in fp32 as 3xTF32, with
+    ``cuda_cores`` as fp32 FMAs at the CUDA cores' rate (the first
     version's bound)."""
-    esize = 2 if dtype == torch.bfloat16 else 4
-    cs = min(chunk, S)
-    nc = -(-S // cs)
-    nbytes = (esize * (3 * B * H * S * hd + 4 * B * G * S * N)
-              + 4 * (2 * B * H * S + 2 * H + B * H * nc * hd * N
-                     + (B * H * hd * N if dstate else 0)))
-    ops_ = 0
-    for s0 in range(0, S, cs):
-        ln = min(cs, S - s0)
-        pairs = ln * (ln + 1) // 2
-        ops_ += 2 * B * G * pairs * N + 2 * B * H * (
-            2 * pairs * hd + 2 * pairs * N + ln * hd * N * (4 if s0 else 2))
-    if dtype == torch.float32 and not cuda_cores:
-        return tf32x3_bound(nbytes, ops_)
-    return bound(nbytes, ops_, dtype)
+    from repro_torch.kernels import cost
+    c = cost.ssd_scan_bwd(B, H, G, S, hd, N, chunk, dtype, dstate)
+    return cost.bound(c, "fp32" if cuda_cores and dtype == torch.float32
+                      else None)
 
 
 def ssd_backward(ops, ref, randn) -> dict:
@@ -1161,24 +1137,14 @@ def log_timing() -> None:
 
 
 def ssd_bound(B, H, G, S, hd, N, chunk, dtype, cuda_cores=False) -> tuple:
-    """K4's bound: x, B_, C_, dt, A read once, y and the final state
-    written once; the scores once per (batch, group) and chunk, M.X and
-    the state update per head and chunk, and the inter-chunk term on
-    every chunk but the first (where the state is zero).  In fp32 the
-    products run as 3xTF32 (``tf32x3_bound``); with ``cuda_cores``, as
-    fp32 FMAs at the CUDA cores' rate (the first version's bound)."""
-    esize = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (esize * (2 * B * H * S * hd + 2 * B * G * S * N)
-              + 4 * (B * H * S + H + B * H * hd * N))
-    ops_ = 0
-    for s0 in range(0, S, chunk):
-        ln = min(chunk, S - s0)
-        pairs = ln * (ln + 1) // 2
-        ops_ += 2 * B * G * pairs * N + 2 * B * H * (
-            pairs * hd + ln * hd * N * (2 if s0 else 1))
-    if dtype == torch.float32 and not cuda_cores:
-        return tf32x3_bound(nbytes, ops_)
-    return bound(nbytes, ops_, dtype)
+    """K4's bound (``kernels/cost.py``): x, B_, C_, dt, A read once, y
+    and the final state written once, the chunked products; in fp32 as
+    3xTF32, with ``cuda_cores`` as fp32 FMAs at the CUDA cores' rate
+    (the first version's bound)."""
+    from repro_torch.kernels import cost
+    c = cost.ssd_scan(B, H, G, S, hd, N, chunk, dtype)
+    return cost.bound(c, "fp32" if cuda_cores and dtype == torch.float32
+                      else None)
 
 
 def log_ssd_occupancy(hd, N, chunk) -> None:
@@ -1408,20 +1374,13 @@ def encdec_shapes(ops, ref, randn) -> None:
 
 
 def int8_bound(q, pos, KV, hd, write=False) -> tuple:
-    """K3-int8: the live slots' int8 k and v rows and their two fp32
-    scales read once, q read and the output written once, pos read; with
-    the write, also the new token's k and v read, their int8 rows and
-    scales written and the slots read, and the quantizer's ~4 operations
-    an element."""
-    B, G = q.shape[0], q.shape[2]
+    """K3-int8 (``kernels/cost.py``) over the live slots of ``pos``:
+    their int8 k and v rows and fp32 scales read once, q read and the
+    output written once, with the write the new token's quantize and
+    store."""
+    from repro_torch.kernels import cost
     live = int((pos.to(torch.int64) + 1).sum()) * KV
-    nbytes = live * (2 * hd + 2 * 4) + 2 * q.element_size() * q.numel() \
-        + 4 * pos.numel()
-    ops = 4 * G * hd * live
-    if write:
-        nbytes += B * KV * (2 * hd * q.element_size() + 2 * hd + 2 * 4) + 4 * B
-        ops += 8 * B * KV * hd
-    return bound(nbytes, ops, q.dtype)
+    return cost.bound(cost.decode_attention_int8(q, live, write))
 
 
 def int8_cache(randn, B, C, KV, hd, dtype):
@@ -1584,16 +1543,18 @@ def int8_decode(ops, ref, randn, gen) -> dict:
 
 
 def probs_bound(B, n) -> tuple:
-    """K1: the pool, the row bounds and the eligibility read once, the
-    probabilities written; ~12 fp32 operations a (request, model)."""
-    return bound(4 * (3 * n + 2 * B + 2 * B * n), 12 * B * n, torch.float32)
+    """K1 (``kernels/cost.py``): the pool, the row bounds and the
+    eligibility read once, the probabilities written; ~12 fp32
+    operations a (request, model)."""
+    from repro_torch.kernels import cost
+    return cost.bound(cost.modipick_probs(B, n))
 
 
 def fused_bound(B, n) -> tuple:
-    """The fused selection: pool and rows read once, picks written; ~20
-    fp32 operations a (request, model): Eq. 2, the window, Eq. 3-4, the
-    mass, the normalisation and the running sum."""
-    return bound(4 * (4 * n + 3 * B) + 4 * B, 20 * B * n, torch.float32)
+    """The fused selection (``kernels/cost.py``): pool and rows read
+    once, picks written; ~20 fp32 operations a (request, model)."""
+    from repro_torch.kernels import cost
+    return cost.bound(cost.fused_select(B, n))
 
 
 def charged_bound(args, kw, got) -> tuple:
@@ -1602,7 +1563,7 @@ def charged_bound(args, kw, got) -> tuple:
     ~20 fp32 operations a (request, model) for stages 1-3, and for each
     admitted request a rescan of the rows of the models its replica
     serves (one compare a candidate)."""
-    from repro_torch.kernels import policy_select
+    from repro_torch.kernels import cost, policy_select
     n, R, B = args[0].shape[0], args[6].shape[0], args[8].shape[0]
     lists = kw.get("cand_lists")  # or those the wrapper builds
     lists = (policy_select.candidate_lists(args[5]) if lists is None
@@ -1614,9 +1575,8 @@ def charged_bound(args, kw, got) -> tuple:
     rescan = np.array([row[mods[roff[r]:roff[r + 1]]].sum()
                        for r in range(R)])
     rep, admitted = got[3].cpu().numpy(), got[1].cpu().numpy()
-    nbytes = 4 * (5 * n + 2 * R + 4 * B + len(lists)) + 14 * B
-    return bound(nbytes, 20 * B * n + rescan[rep[admitted]].sum(),
-                 torch.float32)
+    return cost.bound(cost.charged_select(n, R, B, len(lists),
+                                          rescan[rep[admitted]].sum()))
 
 
 # The charged pass's chain: the steps of one request that depend on the
@@ -2574,6 +2534,10 @@ def train_phase(arch, ops) -> dict:
                        remat="full", opt_moments="fp32")
     step_fn = make_train_step(cfg, tcfg)
     opt = init_opt_state(params, "fp32", leaf_layout(cfg, params))
+    TRAINED[arch] = dict(
+        params=sum(t.nbytes for _, t in named_leaves(params)),
+        opt_state=opt.step.nbytes + sum(
+            t.nbytes for m in (opt.mu, opt.nu) for t in m.values()))
     release()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2605,6 +2569,8 @@ def train_phase(arch, ops) -> dict:
     if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
         raise AssertionError(f"{label} the loss did not fall: {losses}")
     step_s = float(np.median(times[1:]))
+    TRAINED[arch].update(step_ms=step_s * 1e3, calls={
+        k: counts[k] // TRAIN_STEPS for k in want})
     log(f"{label} losses " + " ".join(f"{x:.5f}" for x in losses)
         + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
         f"first {times[0] * 1e3:.1f} ms), {B * S / step_s:.1f} tokens/s; "
@@ -2656,6 +2622,190 @@ def train_phase(arch, ops) -> dict:
     del fresh, fresh_opt
     release()
     return counts
+
+
+# What train_phase allocated and measured, for the [mesh] phase's
+# dry-run: arch → parameter and optimizer-state bytes, the step's ms and
+# the kernels launched a step.
+TRAINED = {}
+# The sharded wrappers' meshes (data x model) over the one card, and the
+# fleet's cell mesh: fleet_steady's four cells, one a block.
+MESH_SHAPES = ((1, 1), (2, 4))
+FLEET_MESH_CELLS = 4
+
+
+def mesh_phase(ops, randn) -> dict:
+    """The mesh tooling on the card (``[mesh ...]`` lines):
+
+    - the dry-run (``launch/dryrun.py``) of each ``TRAIN`` cell on the
+      ``meta`` device at the training phase's B and S, fp32 parameters
+      and moments: its parameter and optimizer-state bytes must equal
+      what the training phase allocated, exactly, and its kernels a step
+      what the card launched; its H100 roofline beside the measured
+      step;
+    - the sharded kernel wrappers (``distributed/shardmap_ops.py``) at
+      the main path's shapes (K2 qwen2, K3, K4 mamba2 serve, K5) on a
+      (1, 1) and a (2, 4) data x model mesh of the one card, each held
+      against the unsharded kernel to the smoke's tolerance;
+    - ``fleet_steady`` with ``mesh=`` a four-cell ``cell`` mesh of the
+      card: every epoch's picks, the spills and the attainment equal to
+      the unsharded run's, bit for bit.
+
+    The counters are zeroed just before the sharded calls and the
+    sharded fleet run and read just after; returns those launches."""
+    from math import prod
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import shardmap_ops as SH
+    from repro_torch.fleet import frontend
+    from repro_torch.fleet.engine import FleetEngine
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.scenario import get_scenario
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(ops.launch_counts(), 0)
+
+    single = dryrun.make_dryrun_mesh("single")
+    for arch, tr in TRAIN.items():
+        B, S = tr["B"], tr["S"]
+        shape = ShapeConfig(f"train_b{B}_s{S}", S, B, "train")
+        res = dryrun.run_cell(arch, shape.name, single, "single",
+                              shape=shape, param_dtype=torch.float32,
+                              grad_accum=1, verbose=False)
+        got = res["memory"]["argument_bytes_by_role"]
+        done = TRAINED[arch]
+        if (got["params"], got["opt_state"]) != (done["params"],
+                                                 done["opt_state"]):
+            raise AssertionError(
+                f"[mesh dryrun {arch}] counts {got['params']} parameter "
+                f"and {got['opt_state']} optimizer-state bytes; the "
+                f"training phase allocated {done['params']} and "
+                f"{done['opt_state']}")
+        calls = {k: v for k, v in done["calls"].items() if v}
+        if res["cost"]["kernel_calls"] != calls:
+            raise AssertionError(f"[mesh dryrun {arch}] kernels a step "
+                                 f"{res['cost']['kernel_calls']}, the card "
+                                 f"launched {calls}")
+        ro, c = res["roofline"], res["cost"]
+        step = max(ro["compute_s"], ro["memory_s"]) * 1e3
+        log(f"[mesh dryrun {arch}] B={B} S={S} fp32: parameter bytes "
+            f"{got['params']} and optimizer-state bytes {got['opt_state']} "
+            f"equal the training phase's; kernels a step {calls} equal "
+            f"the card's; H100 roofline: FLOPs {ro['hlo_flops']:.6g} "
+            f"(aten {c['aten_flops']:.6g}, kernels "
+            f"{c['kernel_flops']:.6g}), bytes {ro['hlo_bytes']:.6g}, "
+            f"compute {ro['compute_s'] * 1e3:.6g} ms, memory "
+            f"{ro['memory_s'] * 1e3:.6g} ms ({ro['dominant']}), model "
+            f"FLOPs {ro['model_flops']:.6g} (useful "
+            f"{ro['useful_flops_ratio']:.4g}, mfu_bound "
+            f"{ro['mfu_bound']:.4g}); measured step {done['step_ms']:.6g} "
+            f"ms, bound / step {step / done['step_ms']:.4g}; dry-run "
+            f"{res['timing']['run_s']:.1f}s")
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = [make_mesh(sh, ("data", "model"), [dev] * prod(sh))
+              for sh in MESH_SHAPES]
+    B, H, KV, hd = BATCH, 12, 2, 128
+    bf = torch.bfloat16
+    q = randn(B, SEQ, H, hd, dtype=bf).transpose(1, 2)
+    k = randn(B, SEQ, KV, hd, dtype=bf).transpose(1, 2)
+    v = randn(B, SEQ, KV, hd, dtype=bf).transpose(1, 2)
+    C, G = SEQ + 16, H // KV
+    qd = randn(B, 1, H + 2 * KV, hd, dtype=bf)[:, :, :H].reshape(B, KV, G, hd)
+    ck = randn(B, C, KV, hd, dtype=bf).permute(0, 2, 1, 3)
+    cv = randn(B, C, KV, hd, dtype=bf).permute(0, 2, 1, 3)
+    pos = torch.randint(SEQ, C, (B,), generator=randn.gen, device="cuda",
+                        dtype=torch.int32)
+    sargs = ssd_args(randn, BATCH, SEQ, 64, 64, 128, 1, bf)
+    a = torch.sigmoid(randn(BATCH, SEQ, 2560, dtype=torch.float32)) * 0.98
+    b = randn(BATCH, SEQ, 2560, dtype=torch.float32) * 0.1
+    cases = (  # name, unsharded, sharded on a mesh, tolerance, scaled
+        ("flash_attention", lambda: ops.flash_attention(q, k, v),
+         lambda m: SH.sharded_flash_attention(q, k, v, m), TOL[bf], False),
+        ("decode_attention", lambda: ops.decode_attention(qd, ck, cv, pos),
+         lambda m: SH.sharded_decode_attention(qd, ck, cv, pos, m), TOL[bf],
+         False),
+        ("ssd_scan", lambda: ops.ssd_scan(*sargs, chunk=256),
+         lambda m: SH.sharded_ssd_scan(*sargs, m, chunk=256), SSD_TOL[bf],
+         True),
+        ("rglru_scan", lambda: ops.rglru_scan(a, b),
+         lambda m: SH.sharded_rglru_scan(a, b, m), TOL[torch.float32],
+         False))
+    wants = {name: unsharded() for name, unsharded, _, _, _ in cases}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for name, _, sharded, tol, scaled in cases:
+        for m in meshes:
+            got = sharded(m)
+            outs = got if isinstance(got, tuple) else (got,)
+            want = wants[name]
+            want = want if isinstance(want, tuple) else (want,)
+            hold = check_scaled if scaled else check
+            err = max(hold(f"sharded {name} on {m}", g, w, tol)
+                      for g, w in zip(outs, want))
+            log(f"[mesh sharded] {name} on {m}: max "
+                f"{'err of max|y|' if scaled else 'abs err'} {err:.3g} "
+                f"against the unsharded kernel (tol {tol})")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {name: sum(m.size for m in meshes) for name, *_ in cases}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"[mesh sharded] launches {counts}, want "
+                             f"{want} and nothing else")
+    log(f"[mesh sharded] launches {want}: one a device of each mesh")
+    for key, c in counts.items():
+        total[key] += c
+
+    sc = on_backend(get_scenario("fleet_steady"), "cuda")
+    n_cells = len(sc.deployment.fleet.cells)
+    if n_cells != FLEET_MESH_CELLS:
+        raise AssertionError(f"fleet_steady has {n_cells} cells")
+    cell_mesh = make_mesh((n_cells,), ("cell",), [dev] * n_cells)
+    picks, runs = {}, {}
+    select = frontend.select_fleet
+    for label, mesh in (("unsharded", None), ("sharded", cell_mesh)):
+        picks[label] = []
+
+        def recorded(*args, _out=picks[label], **kw):
+            out = select(*args, **kw)
+            _out.append(out.copy())
+            return out
+
+        frontend.select_fleet = recorded
+        try:
+            if mesh is not None:
+                ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[label] = FleetEngine(sc, mesh=mesh).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            frontend.select_fleet = select
+    counts = ops.launch_counts()
+    epochs = len(picks["sharded"])
+    if counts != {k: n_cells * epochs * (k == "stacked_select")
+                  for k in counts}:
+        raise AssertionError(f"[mesh fleet_steady] launches {counts}, want "
+                             f"{n_cells} stacked_select an epoch")
+    same = len(picks["unsharded"]) == epochs and all(
+        np.array_equal(x, y) for x, y in zip(picks["unsharded"],
+                                             picks["sharded"]))
+    keys = ("sla_attainment", "mean_accuracy", "mean_latency")
+    res = {label: r.as_scenario_result() for label, r in runs.items()}
+    got = {k: getattr(res["sharded"], k) for k in keys}
+    want = {k: getattr(res["unsharded"], k) for k in keys}
+    for k in ("spill_rate", "locality", "n_spilled"):
+        got[k], want[k] = getattr(runs["sharded"], k), getattr(
+            runs["unsharded"], k)
+    if not same or got != want:
+        raise AssertionError(f"[mesh fleet_steady] sharded {got} (picks "
+                             f"equal: {same}), unsharded {want}")
+    log(f"[mesh fleet_steady] on {cell_mesh}: {epochs} epochs, every "
+        "epoch's picks equal the unsharded run's, and " + " ".join(
+            f"{k}={v:.6g}" for k, v in got.items())
+        + f"; launches={counts['stacked_select']} wall_s={wall:.4g}")
+    total["stacked_select"] += counts["stacked_select"]
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f}s")
+    return total
 
 
 def release() -> None:
@@ -3430,14 +3580,13 @@ def stacked_inputs(policy_select, gen, form, P, n, B, shifts, seed):
 
 
 def stacked_bound(args, kw) -> tuple:
-    """The stacked selection: the pool rows (mu, sigma, acc, rank, the
-    shifts) and per request its row, bounds and uniform read once, its
-    pick and flag written; ~20 fp32 operations a (request, model)."""
-    mu, acc, row = args[0], args[2], args[4]
-    B, n = row.shape[0], mu.shape[1]
-    shifts = 0 if kw.get("shifts") is None else n
-    nbytes = 4 * (2 * mu.numel() + 2 * acc.numel() + shifts) + 21 * B
-    return bound(nbytes, 20 * B * n, torch.float32)
+    """The stacked selection (``kernels/cost.py``): the pool rows (mu,
+    sigma, acc, rank, the shifts) and per request its row, bounds and
+    uniform read once, its pick and flag written; ~20 fp32 operations a
+    (request, model)."""
+    from repro_torch.kernels import cost
+    return cost.bound(cost.stacked_select(args[0], args[2], args[4],
+                                          kw.get("shifts")))
 
 
 def stacked_kernels(ops, ref, policy_select, gen) -> None:
@@ -3681,6 +3830,13 @@ def main() -> int:
         for name, c in train_phase(arch, ops).items():
             launches[name] += c
 
+    # 4c. the mesh tooling: the dry-run, the sharded wrappers, the fleet
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    randn.gen = gen
+    for name, c in mesh_phase(ops, randn).items():
+        launches[name] += c
+
     # 5. the batched selection entry points on the executor's store
     counts, selection_rows = main_selection(ex, ops, ref, policy_select)
     log_timing()
@@ -3700,8 +3856,8 @@ def main() -> int:
         row["launches"] = launches[name]
 
     # 7. premodel and the fleet through the stacked selection kernel
-    launches["stacked_select"], rows["stacked_select"] = stacked_phase(
-        ops, ref, policy_select, gen)
+    n, rows["stacked_select"] = stacked_phase(ops, ref, policy_select, gen)
+    launches["stacked_select"] += n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if not row["launches"] > 0:

@@ -222,6 +222,19 @@ class ModelConfig:
             cfg = replace(cfg, vlm=VLMConfig(n_image_tokens=16))
         return cfg
 
+    def with_padded_heads(self, multiple: int) -> "ModelConfig":
+        """Pad query heads up to a multiple so attention head-shards over a
+        TP axis that doesn't divide the native head count (the same trick
+        as vocab padding: spend a little extra compute to unlock even
+        sharding).  KV heads are left as-is (small, replicated)."""
+        padded = _ceil_to(self.n_heads, multiple)
+        if padded == self.n_heads or padded > self.n_heads * 1.34:
+            # only worth it when the extra attention FLOPs stay ≤ ~1/3
+            # (qwen2 12→16, phi4 24→32; not whisper 6→16 or rg 10→16)
+            return self
+        return replace(self, n_heads=padded, head_dim=self.resolved_head_dim,
+                       name=self.name + f"-hpad{padded}")
+
     def scaled(self, width_mult: float, depth_mult: float = 1.0,
                name: str = "") -> "ModelConfig":
         """Scale width/depth — used to build ModiPick accuracy/latency pools.

@@ -8,13 +8,13 @@ lanes (``PAD_MU`` — never eligible; ``PAD_RANK`` — never wins the
 stage-1 argmin; σ 0, accuracy 1), stacked on a leading cell axis and
 uploaded once.  The stacked snapshot is frozen against one set of
 ``ProfileTable`` snapshots — rebuild (cheap) when any cell's profiles
-move, exactly like ``ProfileTable.device_pool()``.  The cell mesh of the
-reference (``select_fleet(mesh=...)`` under ``shard_map``) is not
-ported: every cell is judged on one device.
+move, exactly like ``ProfileTable.device_pool()``.  With a cell mesh
+(``select_fleet(mesh=...)``) the cells are judged in blocks, one a
+device of the mesh (``distributed.shardmap_ops.sharded_fleet_select``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,14 +64,20 @@ def stack_cell_tables(tables: Sequence, device="cuda") -> StackedPools:
 
 
 def select_fleet(stacked: StackedPools, t_u, t_l, *, gamma: float = 1.0,
-                 seed: int = 0) -> np.ndarray:
+                 seed: int = 0, mesh: Optional[object] = None) -> np.ndarray:
     """Every cell's judgment of every pending request in one launch.
 
     ``t_u``/``t_l``: (C, B) budget bounds — row ``c`` is what request
     ``b``'s budget *would be* if served by cell ``c`` (home rows carry
     no RTT; remote rows already subtract it).  Returns (C, B) int32
     picks, −1 where cell ``c`` has no eligible variant for request
-    ``b`` — the frontend's viability matrix."""
+    ``b`` — the frontend's viability matrix.
+
+    With a ``mesh`` whose ``cell`` (or ``data``) axis divides C, the
+    call runs sharded over it
+    (``distributed.shardmap_ops.sharded_fleet_select``): one launch a
+    device on its block of cells, on the same uniforms, so the same
+    picks.  Otherwise it is the single launch."""
     t_u = np.asarray(t_u, dtype=np.float32)
     t_l = np.asarray(t_l, dtype=np.float32)
     if t_u.shape != t_l.shape or t_u.ndim != 2 or t_u.shape[0] != stacked.C:
@@ -79,4 +85,4 @@ def select_fleet(stacked: StackedPools, t_u, t_l, *, gamma: float = 1.0,
                          f"t_u {t_u.shape}, t_l {t_l.shape}")
     return select_fleet_stacked(stacked.mu, stacked.sigma, stacked.acc,
                                 stacked.rank, t_u, t_l, gamma=gamma,
-                                seed=seed)
+                                seed=seed, mesh=mesh)

@@ -161,15 +161,17 @@ class FleetResult:
 
 
 class FleetEngine:
-    """Run one fleet scenario end to end, every cell's selection on
-    one device (the reference's cell mesh, ``mesh=``, is not ported)."""
+    """Run one fleet scenario end to end.  With a ``mesh`` (a cell
+    mesh, ``launch/mesh.py``), each epoch's selection runs sharded over
+    it (``fleet.device.select_fleet``)."""
 
-    def __init__(self, scenario: Scenario):
+    def __init__(self, scenario: Scenario, *, mesh=None):
         fleet = scenario.deployment.fleet
         if fleet is None:
             raise ValueError(f"scenario {scenario.name!r} has no FleetSpec")
         self.scenario = scenario
         self.fleet: FleetSpec = fleet
+        self.mesh = mesh
         self.frontend = FleetFrontend(scenario)
         self.cells = [cell_view(scenario, c) for c in fleet.cells]
         self.gamma = float(scenario.policy.kwargs.get("gamma", 1.0))
@@ -295,7 +297,7 @@ class FleetEngine:
             plan = self.frontend.plan(
                 erids, plan_load, stacked, cap_req=cap_req,
                 gamma=self.gamma,
-                seed=sc.seed + _PLAN_SEED_STRIDE * e)
+                seed=sc.seed + _PLAN_SEED_STRIDE * e, mesh=self.mesh)
 
             cell_results: List[Optional[LoadSimResult]] = [None] * C
             n_assigned = np.zeros(C, dtype=np.int64)

@@ -142,20 +142,22 @@ class FleetFrontend:
 
     def plan(self, rids, load_ms, stacked: StackedPools, *,
              cap_req: Optional[np.ndarray] = None, gamma: float = 1.0,
-             seed: int = 0) -> SpillPlan:
+             seed: int = 0, mesh=None) -> SpillPlan:
         """Place one epoch's pending requests.
 
         ``rids``: (B,) global request ids; ``load_ms``: (C,) per-cell
         load signal (previous window's mean queue wait); ``cap_req``:
         (C,) estimated per-window serving capacity in requests
         (``np.inf``/None = unknown — the engine learns it from observed
-        throughput); ``stacked``: the cells' pooled profile snapshots.
+        throughput); ``stacked``: the cells' pooled profile snapshots;
+        ``mesh``: a cell mesh for ``select_fleet``.
         """
         rids = np.asarray(rids)
         home = self.home_of_requests(rids)
         load_ms = np.asarray(load_ms, dtype=np.float64)
         t_u, t_l = self.budget_matrix(home, load_ms)
-        picks = select_fleet(stacked, t_u, t_l, gamma=gamma, seed=seed)
+        picks = select_fleet(stacked, t_u, t_l, gamma=gamma, seed=seed,
+                             mesh=mesh)
         assigned = home.copy()
         if self.spill and self.n_cells > 1:
             # Structural viability: can the cell serve at ZERO load?

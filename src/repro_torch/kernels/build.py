@@ -2,9 +2,9 @@
 
 Each source under ``repro_torch/csrc/`` is compiled on its own by
 ``nvcc`` into a shared library with a plain C interface, and loaded with
-``ctypes``.  A library's file name carries a digest of its source and
-flags, so an edited source is rebuilt and a stale library is never
-loaded.  Builds go to ``build/kernels/`` at the root of the checkout
+``ctypes``.  A library's file name carries a digest of its source, the
+headers of ``csrc/`` it includes and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Builds go to ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``); nothing is compiled when a module is
 imported, only at a kernel's first launch or when :func:`build` is
 called.
@@ -14,16 +14,21 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+from re import MULTILINE, compile as regex
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "policy_select")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "ssd_scan_bwd",
+           "rglru_scan", "policy_select")
+# --split-compile=0: nvcc optimizes a source's device functions on all of
+# the host's cores (the SSD scan's backward, 37 instantiations, builds in
+# half the time; ptxas reports the same registers and spills).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 # nvcc's output for each library built by this process (``-Xptxas -v``
 # lists every kernel's registers, shared memory and spills).
@@ -39,8 +44,25 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+_INCLUDE = regex(rb'^#include "([^"]+)"', MULTILINE)
+
+
+def _source_bytes(path: Path, seen=None) -> bytes:
+    """A source and, after it, every header of ``csrc/`` it includes
+    (``#include "..."``), recursively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(path.name)
+    src = path.read_bytes()
+    out = src
+    for inc in _INCLUDE.findall(src):
+        name = inc.decode()
+        if name not in seen:
+            out += _source_bytes(CSRC / name, seen)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}.{digest[:16]}.so"
 

@@ -33,7 +33,9 @@ dtype), and has its own split plan (:func:`split_plan_int8`).
 
 On a CPU tensor each wrapper runs its plain version
 (``ref.decode_attention_ref``, ``ref.decode_attention_int8_ref``); on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises; on ``meta`` tensors (the
+dry-run) it records the kernel's cost and returns the output empty,
+inside ``cost.counting()`` only.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
                                                  check_aligned)
 
@@ -176,6 +178,14 @@ def _launch(symbol, argtypes, q, k, v, pos, window, plan=split_plan,
     return out
 
 
+def _meta(name, c, q):
+    """On ``meta`` tensors: record the kernel's cost ``c``, with every
+    slot of the cache read (pos has no values there), and return the
+    output empty."""
+    cost.record(name, c)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def decode_attention(q, k, v, pos, *, window: int = 0):
     """q: (B,KV,G,hd) new-token queries grouped per KV head; k, v:
     (B,KV,S,hd) cache with the new token's k/v already written; pos:
@@ -185,6 +195,9 @@ def decode_attention(q, k, v, pos, *, window: int = 0):
     _check(q, k, v, pos, window)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, window=window)
+    if q.device.type == "meta":
+        return _meta("decode_attention", cost.decode_attention(
+            q, q.shape[0] * k.shape[1] * k.shape[2]), q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention has no path for {q.device}")
     build.refuse_grad("decode_attention", q, k, v)
@@ -240,6 +253,10 @@ def decode_attention_int8(q, k, v, k_scale, v_scale, pos, *,
         return ref.decode_attention_int8_ref(q, k, v, k_scale, v_scale, pos,
                                              window=window, k_new=k_new,
                                              v_new=v_new, slot=slot)
+    if q.device.type == "meta":
+        return _meta("decode_attention_int8", cost.decode_attention_int8(
+            q, q.shape[0] * k.shape[1] * k.shape[2],
+            write=k_new is not None), q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8 has no path for {q.device}")
     build.refuse_grad("decode_attention_int8", q, k_new, v_new)

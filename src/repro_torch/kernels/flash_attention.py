@@ -13,7 +13,9 @@ row of its q, k and v must start on 16 bytes (:func:`check_aligned`).
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.flash_attention_ref``); on a CUDA tensor it launches the kernel
-or raises.
+or raises.  On ``meta`` tensors (the dry-run) it records the kernel's
+cost (``kernels/cost.py``) and returns empty outputs, inside
+``cost.counting()`` only.
 
 Training: on a CUDA tensor under grad mode with an input that requires
 grad, :func:`flash_attention` runs through :class:`FlashAttention`, an
@@ -34,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -149,16 +151,21 @@ def check_aligned(name: str, q, k, v, keys=("q", "k", "v")) -> None:
 
 
 def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
-    """Launch the forward kernel: (out, lse or None)."""
-    if q.dtype == torch.bfloat16:
-        check_aligned("flash_attention", q, k, v)
-    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    """Launch the forward kernel: (out, lse or None).  On ``meta``
+    tensors, record its cost and return the outputs empty."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.is_meta:
+        cost.record("flash_attention",
+                    cost.flash_attention(q, k, causal, window, with_lse))
+        return out, lse
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q, k, v)
+    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -197,7 +204,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention has no path for {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window)
@@ -244,10 +251,14 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
                                            causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd has no path for {q.device}")
     if not (o.device == dout.device == lse.device == q.device):
         raise ValueError("q, k, v, o, lse and dout must lie on one device")
+    if q.is_meta:
+        cost.record("flash_attention_bwd",
+                    cost.flash_attention_bwd(q, k, causal, window))
+        return tuple(_empty_like_layout(t) for t in (q, k, v))
     build.refuse_grad("flash_attention_bwd", q, k, v, o, dout)
     dout = dout.to(q.dtype)
     if dout.stride(3) != 1:

@@ -3,7 +3,10 @@
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its hand-written kernel for a tensor on the card (or raises);
 it adds one to its ``launches`` count each time it launches the kernel,
-and nowhere else.  ``flash_attention``, ``ssd_scan`` and ``rglru_scan``
+and nowhere else.  On ``meta`` tensors, inside ``cost.counting()`` (the
+dry-run, ``launch/dryrun.py``), it records its kernel's cost
+(``kernels/cost.py``) and returns empty outputs; elsewhere ``meta``
+raises.  ``flash_attention``, ``ssd_scan`` and ``rglru_scan``
 have backward kernels (``flash_attention_bwd``, ``ssd_scan_bwd``,
 ``rglru_scan_bwd``, counted on their own), which autograd launches on
 the card; every other wrapper raises under grad mode on an input that
@@ -11,7 +14,9 @@ requires grad (``build.refuse_grad``), the backward wrappers too.
 All kernels are CUDA C++ for ``sm_90a``, one source each under
 ``csrc/``, built with ``nvcc`` and bound with ``ctypes``
 (``kernels/build.py``); the four selection kernels share one source, and
-each backward kernel its forward's.
+each backward kernel its forward's, but for the SSD scan's, which
+has its own (``csrc/ssd_scan_bwd.cu``, sharing ``csrc/ssd_train.cuh``
+with the forward) so that the two build in parallel.
 
 | wrapper            | kernel                          | replaces (reference ``kernels/``)            |
 | ------------------ | ------------------------------- | -------------------------------------------- |
@@ -20,7 +25,7 @@ each backward kernel its forward's.
 | ``decode_attention`` | ``csrc/decode_attention.cu``  | ``decode_attention.py`` ``_decode_kernel``       |
 | ``decode_attention_int8`` | ``csrc/decode_attention.cu`` | the reference's int8-cache decode step (``models/attention.py``: quantize and write the new token, dequantize, einsums) |
 | ``ssd_scan``         | ``csrc/ssd_scan.cu``          | ``ssd_scan.py`` ``_ssd_kernel``                  |
-| ``ssd_scan_bwd``     | ``csrc/ssd_scan.cu``          | the reference's XLA autodiff of ``ssd_chunked`` (``models/ssm.py``) |
+| ``ssd_scan_bwd``     | ``csrc/ssd_scan_bwd.cu``      | the reference's XLA autodiff of ``ssd_chunked`` (``models/ssm.py``) |
 | ``rglru_scan``       | ``csrc/rglru_scan.cu``        | ``rglru_scan.py`` ``_rglru_kernel``              |
 | ``rglru_scan_bwd``   | ``csrc/rglru_scan.cu``        | the reference's XLA autodiff of ``rglru_scan_xla`` (``models/rglru.py``) |
 | ``modipick_probs``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_probs_kernel``           |

@@ -39,7 +39,9 @@ ValueError.
 
 Each wrapper runs its plain PyTorch version (``kernels/ref.py``) for
 tensors on the CPU and launches its kernel for tensors on the card (or
-raises), and counts its launches.
+raises), and counts its launches; for ``meta`` tensors it records the
+kernel's cost (``kernels/cost.py``) and returns empty outputs, inside
+``cost.counting()`` only.
 
 The uniforms are an input: ``uniforms`` draws them from a generator kept
 per device and reseeded from the caller's numpy stream, as the
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 EPS = 1e-9
 # Padded-lane sentinels of the fleet's stacked pools: a model this slow
@@ -103,7 +105,7 @@ def _check_f32(name, xs, device) -> None:
         raise ValueError(f"{name} operands must lie on one device")
     if any(not x.is_contiguous() for x in xs):
         raise ValueError(f"{name} operands must be contiguous")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name} has no path for {device}")
 
 
@@ -243,9 +245,12 @@ def modipick_probs(mu, sigma, acc, t_u, t_l, elig, *, gamma: float = 1.0):
     if elig.device.type == "cpu":
         return ref.policy_probs_ref(mu, sigma, acc, t_u, t_l, elig,
                                     gamma=gamma, eps=EPS)
+    out = torch.empty((B, n), dtype=torch.float32, device=elig.device)
+    if elig.is_meta:
+        cost.record("modipick_probs", cost.modipick_probs(B, n))
+        return out
     build.refuse_grad("modipick_probs", mu, sigma, acc, t_u, t_l, elig)
     _check_fits("modipick_probs", "probs", n, elig.device)
-    out = torch.empty((B, n), dtype=torch.float32, device=elig.device)
     if B:
         _launch("modipick_probs_fwd", _PROBS_ARGS, elig.device,
                 mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
@@ -278,9 +283,12 @@ def fused_select(mu, sigma, acc, rank, t_u, t_l, r01, *,
     if mu.device.type == "cpu":
         return ref.fused_select_ref(mu, sigma, acc, rank, t_u, t_l, r01,
                                     gamma=gamma, eps=EPS, pad_rank=PAD_RANK)
+    out = torch.empty(B, dtype=torch.int32, device=mu.device)
+    if mu.is_meta:
+        cost.record("fused_select", cost.fused_select(B, n))
+        return out
     build.refuse_grad("fused_select", mu, sigma, acc, rank, t_u, t_l, r01)
     _check_fits("fused_select", "select", n, mu.device)
-    out = torch.empty(B, dtype=torch.int32, device=mu.device)
     if B:
         _launch("fused_select_fwd", _FUSED_ARGS, mu.device,
                 mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
@@ -404,6 +412,8 @@ def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
     elif mu.device.type == "cuda":
         cand_lists = candidate_lists(cand_mask)
         nnz = (cand_lists.numel() - n - R - 2) // 2
+    elif mu.is_meta:  # no values: every (model, replica) pair
+        nnz = n * R
     else:
         nnz = int(cand_mask.sum())
     need, limit = charged_smem(n, R, mu.device, nnz)
@@ -421,9 +431,13 @@ def charged_select(mu, sigma, acc, rank, mu_charge, cand_mask, speed,
         return ChargedOut(torch.stack((out[0], out[3],
                                        out[4].view(torch.int32))),
                           torch.stack((out[1], out[2])).view(torch.uint8))
-    build.refuse_grad("charged_select", *f32)
     ints = torch.empty((3, B), dtype=torch.int32, device=mu.device)
     flags = torch.empty((2, B), dtype=torch.uint8, device=mu.device)
+    if mu.is_meta:  # no rescan counted: it depends on the admissions
+        cost.record("charged_select", cost.charged_select(
+            n, R, B, n + R + 2 + 2 * nnz))
+        return ChargedOut(ints, flags)
+    build.refuse_grad("charged_select", *f32)
     if B:
         _launch("charged_select_fwd", _CHARGED_ARGS, mu.device,
                 mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
@@ -478,10 +492,14 @@ def stacked_select(mu, sigma, acc, rank, row, t_u, t_l, r01, *,
     if mu.device.type == "cpu":
         return ref.stacked_select_ref(mu, sigma, acc, rank, row, t_u, t_l,
                                       r01, eps=EPS, pad_rank=PAD_RANK, **kw)
-    build.refuse_grad("stacked_select", *f32)
-    _check_fits("stacked_select", "select", n, mu.device)
     picks = torch.empty(B, dtype=torch.int32, device=mu.device)
     has = torch.empty(B, dtype=torch.uint8, device=mu.device)
+    if mu.is_meta:
+        cost.record("stacked_select",
+                    cost.stacked_select(mu, acc, row, shifts))
+        return picks, has.view(torch.bool)
+    build.refuse_grad("stacked_select", *f32)
+    _check_fits("stacked_select", "select", n, mu.device)
     if B:
         _launch("stacked_select_fwd", _STACKED_ARGS, mu.device,
                 mu.data_ptr(), sigma.data_ptr(), acc.data_ptr(),
@@ -662,7 +680,8 @@ def cell_uniforms(seed: int, C: int, n: int, device) -> torch.Tensor:
 
 
 def select_fleet_stacked(mu, sig, acc, rank, t_u, t_l, *,
-                         gamma: float = 1.0, seed: int = 0) -> np.ndarray:
+                         gamma: float = 1.0, seed: int = 0,
+                         mesh=None) -> np.ndarray:
     """All cells' pending batches in one launch.
 
     ``mu/sig/acc/rank``: (C, npad) stacked pool operands on one device
@@ -671,13 +690,23 @@ def select_fleet_stacked(mu, sig, acc, rank, t_u, t_l, *,
     Returns (C, B) int32 numpy picks, −1 where cell c has no eligible
     model for request b.  Each cell draws its own row of
     :func:`cell_uniforms` at the bucketed length, as the reference draws
-    one PRNG fold a cell."""
+    one PRNG fold a cell.  With a ``mesh`` whose ``cell`` (or ``data``)
+    axis divides C, the cells are judged in blocks, one a device
+    (``distributed.shardmap_ops.sharded_fleet_select``), on the same
+    uniforms: the same picks."""
     C, B = np.shape(t_u)
     dev = mu.device
     tu, tl = _upload((np.ravel(t_u), np.ravel(t_l)), dev)
+    r01 = cell_uniforms(seed, C, _bucket(B, BLOCK_B), dev)[:, :B]
+    ax = None if mesh is None else next(
+        (a for a in ("cell", "data") if a in mesh.shape), None)
+    if ax is not None and C % mesh.shape[ax] == 0:
+        from repro_torch.distributed.shardmap_ops import sharded_fleet_select
+        return sharded_fleet_select(mu, sig, acc, rank, tu.view(C, B),
+                                    tl.view(C, B), r01, mesh,
+                                    gamma=gamma).cpu().numpy()
     row = torch.from_numpy(np.repeat(np.arange(C, dtype=np.int32), B)
                            ).to(dev)
-    r01 = cell_uniforms(seed, C, _bucket(B, BLOCK_B), dev)[:, :B]
     picks, _ = stacked_select(mu, sig, acc, rank, row, tu, tl,
                               r01.reshape(-1), gamma=gamma)
     return picks.view(C, B).cpu().numpy()

@@ -13,7 +13,8 @@ segment's carry-in, and each thread re-walks its segment from it.
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.rglru_scan_ref``); on a CUDA tensor it launches the kernel or
-raises.
+raises; on ``meta`` tensors (the dry-run) it records the kernel's cost
+and returns h empty, inside ``cost.counting()`` only.
 
 Training: on a CUDA tensor under grad mode with an input that requires
 grad, :func:`rglru_scan` runs through :class:`RGLRUScan`, whose forward
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.decode_attention import H100_SMS, _sm_count
 from repro_torch.kernels.flash_attention import DTYPES
 
@@ -97,10 +98,13 @@ def _check(a, b) -> None:
 
 
 def _forward(a, b):
-    fn = build.function("rglru_scan", "rglru_scan_fwd", _ARGTYPES)
     B, S, W = a.shape
-    seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))
     h = torch.empty((B, S, W), dtype=a.dtype, device=a.device)
+    if a.is_meta:
+        cost.record("rglru_scan", cost.rglru_scan(a))
+        return h
+    fn = build.function("rglru_scan", "rglru_scan_fwd", _ARGTYPES)
+    seg, _ = segment_plan(B, S, W, _sm_count(a.device.index))
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), h.data_ptr(),
              B, S, W, seg, *a.stride()[:2], *b.stride()[:2],
@@ -133,7 +137,7 @@ def rglru_scan(a, b):
     _check(a, b)
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan has no path for {a.device}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return RGLRUScan.apply(a, b)
@@ -155,10 +159,14 @@ def rglru_scan_bwd(a, h, dh):
                          f"{tuple(a.shape)}")
     if a.device.type == "cpu":
         return ref.rglru_scan_bwd_ref(a, h, dh)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan_bwd has no path for {a.device}")
     if dh.device != a.device:
         raise ValueError("a, h and dh must lie on one device")
+    if a.is_meta:
+        cost.record("rglru_scan_bwd", cost.rglru_scan_bwd(a))
+        return (torch.empty(a.shape, dtype=a.dtype, device=a.device),
+                torch.empty(a.shape, dtype=a.dtype, device=a.device))
     build.refuse_grad("rglru_scan_bwd", a, h, dh)
     dh = dh.to(a.dtype)
     if dh.stride(2) != 1:

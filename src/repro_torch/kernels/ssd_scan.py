@@ -29,7 +29,8 @@ scratch; the launch takes its grids from it.
 Returns ``(y (B,H,S,hd) in x.dtype, final state (B,H,hd,N) float32)``.
 On a CPU tensor the wrapper runs the plain version
 (``ref.ssd_scan_ref``); on a CUDA tensor it launches the kernel or
-raises.
+raises; on ``meta`` tensors (the dry-run) it records the kernel's cost
+and returns its outputs empty, inside ``cost.counting()`` only.
 
 Training: on a CUDA tensor under grad mode with an input that requires
 grad, :func:`ssd_scan` runs through :class:`SSDScan`, whose forward
@@ -53,7 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import (DTYPES, _empty_like_layout,
                                                  check_aligned)
 
@@ -77,7 +78,7 @@ _BWD_THREADS = (128, 256, 128, 256, 128, 128, 256, 256)
 
 class TrainSmem(NamedTuple):
     """Dynamic shared memory bytes of a block of each pass of the
-    training path (``train_smem`` in ``csrc/ssd_scan.cu``); the chains
+    training path (``train_smem`` in ``csrc/ssd_train.cuh``); the chains
     and the dA pass take none."""
     scores: int
     fwd_state: int
@@ -143,7 +144,8 @@ class FwdPlan(NamedTuple):
 def fwd_plan(B: int, H: int, G: int, S: int, hd: int, N: int, chunk: int,
              with_states: bool = True) -> FwdPlan:
     """The grids, shared memory and scratch of the float32 forward's
-    passes (``fwd_grids`` and ``train_smem`` in ``csrc/ssd_scan.cu``)."""
+    passes (``fwd_grids`` in ``csrc/ssd_scan.cu``, ``train_smem`` in
+    ``csrc/ssd_train.cuh``)."""
     cs = min(chunk, S)
     nc = -(-S // cs)
     nt, cs64, npairs = _tiles(cs)
@@ -185,7 +187,8 @@ class BwdPlan(NamedTuple):
 def bwd_plan(B: int, H: int, G: int, S: int, hd: int, N: int,
              chunk: int) -> BwdPlan:
     """The grids, shared memory and scratch of :func:`ssd_scan_bwd`'s
-    passes (``bwd_grids`` and ``train_smem`` in ``csrc/ssd_scan.cu``).
+    passes (``bwd_grids`` in ``csrc/ssd_scan_bwd.cu``, ``train_smem`` in
+    ``csrc/ssd_train.cuh``).
     The dscores pass splits each group's heads into the fewest splits
     that give it two blocks on each of the card's SMS SMs (at most one
     head a split)."""
@@ -300,15 +303,27 @@ def _grid_array(grids):
 
 def _forward(x, dt, A, B_, C_, chunk: int, with_states: bool):
     """Launch the forward kernel: (y, final state, chunk-entry states or
-    None)."""
+    None).  On ``meta`` tensors, record its cost and return them
+    empty."""
     Bb, H, S, hd = x.shape
     G, N = B_.shape[1], B_.shape[3]
+    if x.dtype == torch.bfloat16 and (N % 8 or N > MAX_N_BF16):
+        raise ValueError("the bfloat16 ssd_scan kernel needs N a "
+                         f"multiple of 8 (16 bytes) and at most "
+                         f"{MAX_N_BF16}; got {N}")
+    cs = min(chunk, S)
+    y = torch.empty((Bb, S, H, hd), dtype=x.dtype,
+                    device=x.device).transpose(1, 2)
+    state = torch.empty((Bb, H, hd, N), dtype=torch.float32,
+                        device=x.device)
+    states = (torch.empty((Bb, H, -(-S // cs), hd, N), dtype=torch.float32,
+                          device=x.device) if with_states else None)
+    if x.is_meta:
+        cost.record("ssd_scan", cost.ssd_scan(Bb, H, G, S, hd, N, chunk,
+                                              x.dtype))
+        return y, state, states
     scratch = grid = None
     if x.dtype == torch.bfloat16:
-        if N % 8 or N > MAX_N_BF16:
-            raise ValueError("the bfloat16 ssd_scan kernel needs N a "
-                             f"multiple of 8 (16 bytes) and at most "
-                             f"{MAX_N_BF16}; got {N}")
         check_aligned("ssd_scan", x, B_, C_, keys=("x", "B_", "C_"))
     else:
         plan = fwd_plan(Bb, H, G, S, hd, N, chunk, with_states)
@@ -317,13 +332,6 @@ def _forward(x, dt, A, B_, C_, chunk: int, with_states: bool):
         grid = _grid_array(plan.grids)
     fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
     dt = dt.float()  # the model's dt is float32 already: no copy
-    cs = min(chunk, S)
-    y = torch.empty((Bb, S, H, hd), dtype=x.dtype,
-                    device=x.device).transpose(1, 2)
-    state = torch.empty((Bb, H, hd, N), dtype=torch.float32,
-                        device=x.device)
-    states = (torch.empty((Bb, H, -(-S // cs), hd, N), dtype=torch.float32,
-                          device=x.device) if with_states else None)
     strides = (ctypes.c_longlong * 15)(
         *x.stride()[:3], *dt.stride(), *B_.stride()[:3], *C_.stride()[:3],
         *y.stride()[:3])
@@ -377,7 +385,7 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 256):
     _check(x, dt, A, B_, C_, chunk)
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan has no path for {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, B_, C_)):
@@ -414,7 +422,7 @@ def ssd_scan_bwd(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int = 256,
     if x.device.type == "cpu":
         return ref.ssd_scan_bwd_ref(x, dt, A, B_, C_, dy, dstate,
                                     chunk=chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan_bwd has no path for {x.device}")
     if states is None or states.dtype != torch.float32:
         raise ValueError("ssd_scan_bwd needs the forward's float32 chunk "
@@ -426,6 +434,13 @@ def ssd_scan_bwd(x, dt, A, B_, C_, dy, dstate=None, *, chunk: int = 256,
             () if dstate is None else (dstate,))):
         raise ValueError("the inputs, dy, dstate and states must lie on "
                          "one device")
+    if x.is_meta:
+        cost.record("ssd_scan_bwd", cost.ssd_scan_bwd(
+            Bb, H, G, S, hd, N, chunk, x.dtype, dstate is not None))
+        return (_empty_like_layout(x),
+                torch.empty((Bb, H, S), dtype=dt.dtype, device=x.device),
+                torch.empty(H, dtype=torch.float32, device=x.device),
+                _empty_like_layout(B_), _empty_like_layout(C_))
     build.refuse_grad("ssd_scan_bwd", x, dt, A, B_, C_, dy, dstate, states)
     out = _backward(x, dt, A, B_, C_, dy, dstate, states, plan)
     ssd_scan_bwd.launches += 1
@@ -452,7 +467,7 @@ def _backward(x, dt, A, B_, C_, dy, dstate, states, plan: BwdPlan):
     grid = _grid_array(plan.grids)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (x, dtf, B_, C_, dy, dx, dB, dC) for s in t.stride()[:3]))
-    fn = build.function("ssd_scan", "ssd_scan_bwd", _BWD_ARGTYPES)
+    fn = build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
     err = fn(DTYPES[x.dtype], hd, x.data_ptr(), dtf.data_ptr(), A.data_ptr(),
              B_.data_ptr(), C_.data_ptr(), dy.data_ptr(), states.data_ptr(),
              None if dstate is None else dstate.data_ptr(),

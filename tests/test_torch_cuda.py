@@ -1442,12 +1442,15 @@ def test_rglru_grad_call_goes_through_bwd(gen):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "recurrentgemma-2b",
-                                  "whisper-tiny", "mamba2-1.3b"])
+                                  "whisper-tiny", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b", "internvl2-2b"])
 def test_reduced_train_step_kernel_path_matches_plain_path(gen, arch):
     """A reduced model's loss and every gradient on the card, kernel
     path against plain path, fp32, 1e-4 of each leaf's max |gradient|;
     K2's, K4's and K5's backward kernels launch once per layer that runs
-    them (mamba2's S 40 over chunks of 32: a ragged second chunk)."""
+    them (mamba2's S 40 over chunks of 32: a ragged second chunk;
+    moonshot's MoE under autograd; internvl2's K2-bwd behind its image
+    prefix)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import api
     from repro_torch.models import model as M

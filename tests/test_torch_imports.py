@@ -50,10 +50,15 @@ def test_port_package_is_not_empty():
             "fleet/__init__.py", "fleet/spec.py", "fleet/device.py",
             "fleet/frontend.py", "fleet/engine.py", "models/moe.py",
             "serving/batcher.py", "models/api.py",
-            "configs/whisper_tiny.py", "configs/internvl2_2b.py"} <= names
+            "configs/whisper_tiny.py", "configs/internvl2_2b.py",
+            "launch/mesh.py", "launch/dryrun.py", "distributed/sharding.py",
+            "distributed/policy.py", "distributed/compression.py",
+            "distributed/hlo.py", "distributed/shardmap_ops.py",
+            "core/gpu_pool.py", "kernels/cost.py",
+            "models/templates.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
-        "rglru_scan.cu", "policy_select.cu"}
+        "ssd_scan_bwd.cu", "rglru_scan.cu", "policy_select.cu"}
 
 
 def test_no_library_attention_or_compile_in_port():

@@ -6,7 +6,7 @@ CPU: its launch plans, its numerics, and its decomposition.
   of the dscores pass's splits cover each group once and never cross a
   group, every block fits the card's shared memory at every head size,
   and the scratch is what the kernels carve from it.
-- 3xTF32 (``split_tf32`` and ``mma_3xtf32`` in ``csrc/ssd_scan.cu``)
+- 3xTF32 (``split_tf32`` and ``mma_3xtf32`` in ``csrc/ssd_train.cuh``)
   emulated bit for bit in torch on the products of one chunk at
   mamba2-1.3b's training shape: the fp32 operands split by bits, the
   tensor core's TF32 inputs (13 low bits ignored), its sums truncated
