@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.profiles import ProfileStore, ProfileTable
 
 EPS = 1e-9
@@ -205,13 +206,16 @@ class ModiPick(Policy):
         tab = store.table()
         t_u = t_budget
         t_l = t_u - self.t_threshold
-        base_idx = self._base_index(tab, t_u, t_l)
+        with obs.span("policy.base"):
+            base_idx = self._base_index(tab, t_u, t_l)
         if base_idx is None:
             # best-effort fallback: fastest model (§3.3.1)
             return SelectionTrace(chosen=tab.names[tab.fastest], fallback=True)
-        idxs = self._eligible_indices(tab, base_idx, t_u, t_l)
-        probs = self._probs_indices(tab, idxs, t_u, t_l)
-        pick = int(rng.choice(len(idxs), p=probs))
+        with obs.span("policy.window"):
+            idxs = self._eligible_indices(tab, base_idx, t_u, t_l)
+        with obs.span("policy.draw"):
+            probs = self._probs_indices(tab, idxs, t_u, t_l)
+            pick = int(rng.choice(len(idxs), p=probs))
         return SelectionTrace(chosen=tab.names[idxs[pick]],
                               base=tab.names[base_idx],
                               eligible=tuple(tab.names[i] for i in idxs),

@@ -19,6 +19,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+from repro_torch import obs
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "ssd_scan_bwd",
@@ -71,28 +73,31 @@ def build(names: Iterable[str] = SOURCES, *, force: bool = False) -> None:
     """Compile every named source whose library is missing (every one
     with ``force``): one ``nvcc`` per source, all started together.
     Raises with the compiler's output if any fails."""
+    todo = [(name, library_path(name)) for name in names]
+    todo = [(name, out) for name, out in todo if force or not out.exists()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists() and not force:
-            continue
-        nvcc = nvcc or _nvcc()
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, out))
+    nvcc = _nvcc()
     failed = []
-    for name, proc, tmp, out in jobs:
-        log = proc.communicate()[0]
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
+    with obs.span("kernels.build"):
+        jobs = []
+        for name, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, proc, tmp, out))
+        for name, proc, tmp, out in jobs:
+            log = proc.communicate()[0]
+            BUILD_LOGS[name] = log
+            if proc.returncode != 0:
+                failed.append(
+                    f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 

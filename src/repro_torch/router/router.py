@@ -63,6 +63,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import policy_vec
 from repro_torch.core.policy import ModiPick, Policy, budget
 from repro_torch.core.profiles import ProfileStore
@@ -305,7 +306,8 @@ class Router:
                      else self.store)
         select = (self.policy.select_traced if self.trace_detail
                   else self.policy.select_lean)
-        trace = select(sel_store, b0, rng)
+        with obs.span("policy.select"):
+            trace = select(sel_store, b0, rng)
         self.store.mark_selected(trace.chosen)
         mid = self.store.table().index[trace.chosen]
         return (mid, trace.fallback,

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.netmodel import NetworkModel
 from repro_torch.core.policy import Policy
 from repro_torch.core.profiles import ModelProfile, ProfileStore
@@ -44,6 +45,7 @@ class RequestResult:
     w_queue_ms: float = 0.0     # queue-wait estimate charged at selection
     admitted: bool = True       # False: shed by router-side admission
     reject_reason: str = ""
+    waited_ms: float = 0.0      # waited before execute; counted in t_e2e_ms
 
 
 @dataclass
@@ -109,19 +111,29 @@ class PoolExecutor:
                 self.store.observe(v.name, ms)
 
     def execute(self, tokens: np.ndarray, t_sla: float,
-                n_decode: int = 2) -> RequestResult:
+                n_decode: int = 2, waited_ms: float = 0.0) -> RequestResult:
+        """Route and serve one request.  ``waited_ms`` is the time it
+        already waited before this call (an open loop's queue): its e2e
+        counts it beside the round trip and the service."""
+        with obs.span("executor.request", ident=len(self.results)):
+            return self._execute(tokens, t_sla, n_decode, waited_ms)
+
+    def _execute(self, tokens, t_sla, n_decode, waited_ms) -> RequestResult:
         t_input = float(self.network.sample(self.rng, 1)[0])
         request = InferenceRequest(rid=len(self.results), t_sla_ms=t_sla,
                                    t_input_ms=t_input)
-        dec = self.router.route(request, self.rng, w_queue_fn=self.w_queue)
+        with obs.span("router.route"):
+            dec = self.router.route(request, self.rng,
+                                    w_queue_fn=self.w_queue)
         if not dec.admitted:
             # Shed before any model ran: the downlink never happens, but
             # the uplink was already spent — charge it and score a miss.
             res = RequestResult(
                 variant="", t_input_ms=t_input, t_infer_ms=0.0,
-                t_e2e_ms=t_input, t_sla_ms=t_sla, met_sla=False,
+                t_e2e_ms=t_input + waited_ms, t_sla_ms=t_sla, met_sla=False,
                 quality=0.0, w_queue_ms=dec.budget.w_queue_ms,
-                admitted=False, reject_reason=dec.reject_reason)
+                admitted=False, reject_reason=dec.reject_reason,
+                waited_ms=waited_ms)
             self.results.append(res)
             return res
         name = dec.variant
@@ -142,13 +154,14 @@ class PoolExecutor:
                 t2 = self.by_name[fast.name].run(tokens, n_decode)
                 t_infer = min(t_infer, detect + t2)
                 hedged = True
-        self.store.observe(name, t_infer)
-        e2e = 2.0 * t_input + t_infer
+        with obs.span("profiles.observe"):
+            self.store.observe(name, t_infer)
+        e2e = 2.0 * t_input + waited_ms + t_infer
         res = RequestResult(
             variant=name, t_input_ms=t_input, t_infer_ms=t_infer,
             t_e2e_ms=e2e, t_sla_ms=t_sla, met_sla=e2e <= t_sla,
             quality=v.quality, hedged=hedged,
-            w_queue_ms=dec.budget.w_queue_ms)
+            w_queue_ms=dec.budget.w_queue_ms, waited_ms=waited_ms)
         self.results.append(res)
         return res
 

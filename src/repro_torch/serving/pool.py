@@ -16,6 +16,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -55,21 +56,26 @@ class Variant:
         kernels launch asynchronously, and without it the measured time
         would be the launch time, not the inference time the profiles
         feed ModiPick."""
-        t0 = time.perf_counter()
-        tok = torch.as_tensor(tokens, device=self.device)
-        cache, logits = M.prefill(self.cfg, self.params, {"tokens": tok},
-                                  self.cache_len)
-        B, S = tokens.shape
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        nxt = torch.argmax(logits, dim=-1)
-        for _ in range(n_decode):
-            logits, cache = M.decode_step(self.cfg, self.params, cache, nxt,
-                                          pos)
+        with obs.span("variant.run"):
+            t0 = time.perf_counter()
+            with obs.span("variant.upload"):
+                tok = torch.as_tensor(tokens, device=self.device)
+            with obs.span("model.prefill", device=self.device):
+                cache, logits = M.prefill(self.cfg, self.params,
+                                          {"tokens": tok}, self.cache_len)
+            B, S = tokens.shape
+            pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
             nxt = torch.argmax(logits, dim=-1)
-            pos = pos + 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return (time.perf_counter() - t0) * 1e3
+            for _ in range(n_decode):
+                with obs.span("model.decode", device=self.device):
+                    logits, cache = M.decode_step(self.cfg, self.params,
+                                                  cache, nxt, pos)
+                    nxt = torch.argmax(logits, dim=-1)
+                pos = pos + 1
+            with obs.span("variant.sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            return (time.perf_counter() - t0) * 1e3
 
 
 def scaled_family(base: ModelConfig, *, widths=(0.25, 0.5, 1.0),

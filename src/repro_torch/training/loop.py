@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import TokenStream, to_device
 from repro_torch.device import resolve_device
@@ -63,13 +64,18 @@ class TrainLoop:
         for step in range(start, n_steps):
             if self.fail_at_step is not None and step == self.fail_at_step:
                 raise RuntimeError(f"injected failure at step {step}")
-            batch = to_device(next(stream), dev)
-            self._sync(dev)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-            self._sync(dev)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            metrics["step_time_s"] = time.perf_counter() - t0
+            host = next(stream)
+            with obs.span("train.step", ident=step):
+                with obs.span("train.batch"):
+                    batch = to_device(host, dev)
+                with obs.span("train.sync"):
+                    self._sync(dev)
+                t0 = time.perf_counter()
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+                with obs.span("train.sync"):
+                    self._sync(dev)
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                metrics["step_time_s"] = time.perf_counter() - t0
             if on_step:
                 on_step(step, metrics)
             if step % self.log_every == 0:

@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.api import make_forward_loss
@@ -39,9 +40,11 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):
     loss_fn = make_forward_loss(mcfg, remat=tcfg.remat != "none")
 
     def single(params, opt_state: OptState, batch):
-        loss, metrics, grads = loss_and_grads(loss_fn, params, batch)
-        params, opt_state, om = adamw_update(
-            tcfg, params, grads, opt_state, leaf_layout(mcfg, params))
+        with obs.span("train.grads"):
+            loss, metrics, grads = loss_and_grads(loss_fn, params, batch)
+        with obs.span("train.optimizer"):
+            params, opt_state, om = adamw_update(
+                tcfg, params, grads, opt_state, leaf_layout(mcfg, params))
         return params, opt_state, {**metrics, **om, "total_loss": loss}
 
     if tcfg.grad_accum <= 1:
@@ -58,13 +61,15 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=next(iter(acc.values())).device)
         for i in range(k):
-            loss, _, grads = loss_and_grads(
-                loss_fn, params, {name: x[i] for name, x in micro.items()})
+            with obs.span("train.grads"):
+                loss, _, grads = loss_and_grads(
+                    loss_fn, params, {name: x[i] for name, x in micro.items()})
             for path, g in grads.items():
                 acc[path] = acc[path] + g.to(torch.float32) / k
             loss_sum = loss_sum + loss / k
-        params, opt_state, om = adamw_update(
-            tcfg, params, acc, opt_state, leaf_layout(mcfg, params))
+        with obs.span("train.optimizer"):
+            params, opt_state, om = adamw_update(
+                tcfg, params, acc, opt_state, leaf_layout(mcfg, params))
         return params, opt_state, {**om, "total_loss": loss_sum,
                                    "loss": loss_sum}
 

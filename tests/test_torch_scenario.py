@@ -197,5 +197,7 @@ def test_executor_from_scenario_matches_reference():
     _, want = run(J, JExecutor)
     assert isinstance(ex.router.admission, SlaAwareAdmission)
     assert ex.queue_aware and ex.seed == 1
+    # the port's results also carry the wait before execute (none here)
+    assert all(r.pop("waited_ms") == 0.0 for r in got)
     assert got == want
     assert {r["variant"] for r in got} <= {"small", "large"}
