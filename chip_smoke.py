@@ -86,7 +86,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    phase 3; each request's logits, step by step, held to 1e-4 of their
    max |logit| against the request run alone, teacher-forced on its
    tokens (``[batcher ...]`` lines);
-4b. training at full width (``[train <arch>]`` lines): qwen2-1.5b at
+4b. the fused AdamW (``ops.adamw``, ``[adamw]`` lines) over qwen2-1.5b's
+   leaves at full size in fp32: p, m and v bit for bit the plain step's
+   without clipping, two calls' norms equal, its time, the plain step's
+   and the byte bound (its kernels-line row); then
+   training at full width (``[train <arch>]`` lines): qwen2-1.5b at
    B 4, S 1024, recurrentgemma-2b at B 2, S 1024 and mamba2-1.3b at B 2,
    S 1024, fp32 parameters and moments, remat "full", through
    ``make_train_step``: the first step's loss and every gradient on the
@@ -96,7 +100,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the peak memory of that step with and without remat; 5 steps on one
    repeated batch (the loss must fall), the launch counters zeroed just
    before and read just after (K2's, K4's and K5's backward kernels
-   once per attention / SSD / RG-LRU layer a step, no other kernel);
+   once per attention / SSD / RG-LRU layer a step, the fused AdamW's
+   launches once a step, no other kernel);
    a checkpoint restored onto fresh templates whose next step equals
    the un-restored one bit for bit; one more step under torch.profiler
    (``[trace]``); step ms, tokens/s and peak memory;
@@ -2398,9 +2403,8 @@ def trace_step(label, step) -> None:
     """One training step under torch.profiler: its wall time, the
     device's busy and idle share, the kernels launched, the device time
     of the backward kernels (K2-bwd's four, K4-bwd's eight passes,
-    K5-bwd's) and of K4's fp32 forward passes,
-    and the top
-    device items."""
+    K5-bwd's), of K4's fp32 forward passes and of the fused AdamW's
+    kernels, and the top device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2418,7 +2422,8 @@ def trace_step(label, step) -> None:
     for name, pat in (("K2-bwd", r"\bbwd_(dot|dq|dkdv|reduce)_kernel\b"),
                       ("K4-bwd", r"\bssd_bwd_\w+_kernel\b"),
                       ("K4-f32", r"\bssd_fwd_\w+_kernel\b"),
-                      ("K5-bwd", r"\brglru_bwd_kernel\b")):
+                      ("K5-bwd", r"\brglru_bwd_kernel\b"),
+                      ("AdamW", r"\badamw_\w+_kernel\b")):
         mine = [e for e in kernels if re.search(pat, e.name)]
         if not mine:
             continue
@@ -2430,6 +2435,105 @@ def trace_step(label, step) -> None:
     log(f"{label} [trace] top device self time: " + "; ".join(
         f"{e.key} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
         for e in top))
+
+
+# AdamW's kernels-line shape: qwen2-1.5b's leaves at full size, fp32.
+ADAMW_ARCH = "qwen2-1.5b"
+
+
+def adamw_phase(ops, ref) -> dict:
+    """The fused AdamW (``ops.adamw``) over ``ADAMW_ARCH``'s leaves at
+    full size in fp32, its kernels-line row: p, m and v bit for bit the
+    plain step's (``ref.adamw_ref``) after a step without clipping and a
+    step with clipping active (clip 1.0, as the training cells step; the
+    plain step takes the clip scale the finish kernel wrote), and the
+    norm to rel 1e-6 (its sum runs in another order); two calls on the
+    same gradients give the same norm's bits; the kernel's time (with
+    clipping), the plain step's, the byte bound and the launches a call
+    (``[adamw]`` lines)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.kernels import cost
+    from repro_torch.models import templates
+    from repro_torch.models.convert import named_leaves
+    release()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    shapes = [t.shape for _, t in named_leaves(templates.empty(
+        templates.param_template(get_config(ADAMW_ARCH), torch.float32)))]
+
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    ps = [randn(sh, 0.02) for sh in shapes]
+    gs = [randn(sh, 1e-4) for sh in shapes]
+    ms = [randn(sh, 1e-3) for sh in shapes]
+    vs = [randn(sh, 1e-3).square_() for sh in shapes]
+    decay = [len(sh) >= 2 for sh in shapes]
+    n = sum(p.numel() for p in ps)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    bc1, bc2, lr = (torch.tensor(x, device="cuda")
+                    for x in (0.19, 0.0975, 3e-4))
+
+    def fused_step(clip):
+        return ops.adamw(ps, gs, ms, vs, decay, bc1, bc2, lr,
+                         grad_clip=clip, **hyper)
+    plain = [[x.clone() for x in xs] for xs in (ps, ms, vs)]
+    before = ops.launch_counts()["adamw"]
+    errs, scales = [], []
+    for clip in (0.0, 1.0):
+        got = fused_step(clip)
+        scale = fused.clip_scale_of(got)
+        want = ref.adamw_ref(plain[0], gs, plain[1], plain[2], decay, bc1,
+                             bc2, lr, grad_clip=clip, scale=scale, **hyper)
+        torch.cuda.synchronize()
+        differ = [i for i, xs in enumerate(zip(ps, ms, vs))
+                  if not all(torch.equal(a.view(torch.int32),
+                                         b.view(torch.int32))
+                             for a, b in zip(xs, (plain[0][i], plain[1][i],
+                                                  plain[2][i])))]
+        if differ:
+            raise AssertionError(f"adamw (clip {clip}): {len(differ)} of "
+                                 f"{len(ps)} leaves differ from the plain "
+                                 "step's bits")
+        errs.append(abs(float(got) - float(want)) / float(want))
+        scales.append(float(scale))
+        if not errs[-1] <= 1e-6:
+            raise AssertionError(f"adamw: norm {float(got)} against the "
+                                 f"plain step's {float(want)}")
+    if not (scales[0] == 1.0 and scales[1] < 1.0):
+        raise AssertionError(f"adamw: clip scales {scales}; the second "
+                             "step should clip")
+    per_call = (ops.launch_counts()["adamw"] - before) // 2
+    err = max(errs)
+    del plain
+    release()
+    again = fused_step(1.0), fused_step(1.0)
+    if not torch.equal(again[0].view(1).view(torch.int32),
+                       again[1].view(1).view(torch.int32)):
+        raise AssertionError("adamw: two calls give different norms")
+    b = cost.bound(cost.adamw(ps, gs, decay))
+    row = dict(name="adamw", route="cuda",
+               source="src/repro_torch/csrc/adamw.cu",
+               replaces="none: the reference's jnp AdamW step under jit, "
+                        "src/repro/training/optimizer.py:105 "
+                        "(adamw_update)",
+               max_abs_err=0.0,
+               ms=time_ms(lambda: fused_step(1.0), iters=20, warmup=2,
+                          label="adamw kernel"),
+               plain_ms=time_ms(lambda: ref.adamw_ref(
+                   ps, gs, ms, vs, decay, bc1, bc2, lr, grad_clip=1.0,
+                   **hyper), iters=3, warmup=1),
+               bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log(f"[adamw] {ADAMW_ARCH} fp32: {len(ps)} leaves, {n} parameters, "
+        f"{len(fused.chunk_table([p.numel() for p in ps]))} chunks; p, m "
+        f"and v bit for bit the plain step's after a step without clipping "
+        f"and one clipped at scale {scales[1]:.6g}, norm rel err "
+        f"{err:.3g}; two calls' norms equal; {per_call} launches a call; "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / row['ms']:.1f}% of it")
+    del ps, gs, ms, vs
+    release()
+    return row
 
 
 def train_phase(arch, ops) -> dict:
@@ -2444,13 +2548,15 @@ def train_phase(arch, ops) -> dict:
     checkpoint restored onto fresh templates (loss and every parameter
     equal bit for bit).  The launch counters are zeroed just before the
     steps and read just after: K2's, K4's and K5's backward kernels
-    launch once per attention / SSD / RG-LRU layer a step, and no other
-    kernel launches.  Returns the counts."""
+    launch once per attention / SSD / RG-LRU layer a step, the fused
+    AdamW its launches of one call a step, and no other kernel
+    launches.  Returns the counts."""
     import shutil
     from dataclasses import replace
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.kernels.adamw import launches as fused_launches
     from repro_torch.models import api
     from repro_torch.models import model as M
     from repro_torch.models.convert import leaf_layout, named_leaves
@@ -2553,7 +2659,9 @@ def train_phase(arch, ops) -> dict:
     log(f"{label} launches over {TRAIN_STEPS} steps " + json.dumps(counts))
     # remat: a superblock's forward runs again in backward, the tail's not
     stacked = cfg.block_kinds[:cfg.n_superblocks * len(cfg.pattern)]
-    want = {"flash_attention_bwd": n_attn * TRAIN_STEPS,
+    want = {"adamw": fused_launches([p.numel() for _, p in
+                                     named_leaves(params)]) * TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * TRAIN_STEPS,
             "ssd_scan_bwd": n_ssd * TRAIN_STEPS,
             "rglru_scan_bwd": n_rglru * TRAIN_STEPS,
             "flash_attention": (n_attn + sum(
@@ -2570,7 +2678,9 @@ def train_phase(arch, ops) -> dict:
         raise AssertionError(f"{label} the loss did not fall: {losses}")
     step_s = float(np.median(times[1:]))
     TRAINED[arch].update(step_ms=step_s * 1e3, calls={
-        k: counts[k] // TRAIN_STEPS for k in want})
+        k: counts[k] // TRAIN_STEPS for k in want},
+        adamw_launches=fused_launches([p.numel() for _, p in
+                                       named_leaves(params)]))
     log(f"{label} losses " + " ".join(f"{x:.5f}" for x in losses)
         + f"; step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
         f"first {times[0] * 1e3:.1f} ms), {B * S / step_s:.1f} tokens/s; "
@@ -2680,8 +2790,13 @@ def mesh_phase(ops, randn) -> dict:
                 f"and {got['opt_state']} optimizer-state bytes; the "
                 f"training phase allocated {done['params']} and "
                 f"{done['opt_state']}")
+        # the dry-run records the fused AdamW's calls, the card counts
+        # the launches: a call launches adamw_launches kernels
         calls = {k: v for k, v in done["calls"].items() if v}
-        if res["cost"]["kernel_calls"] != calls:
+        dry = dict(res["cost"]["kernel_calls"])
+        if "adamw" in dry:
+            dry["adamw"] *= done["adamw_launches"]
+        if dry != calls:
             raise AssertionError(f"[mesh dryrun {arch}] kernels a step "
                                  f"{res['cost']['kernel_calls']}, the card "
                                  f"launched {calls}")
@@ -3825,7 +3940,8 @@ def main() -> int:
         launches[name] += c
     release()
 
-    # 4b. training at full width: forward and backward kernels
+    # 4b. training at full width: forward and backward kernels, AdamW
+    rows["adamw"] = adamw_phase(ops, ref)
     for arch in TRAIN:
         for name, c in train_phase(arch, ops).items():
             launches[name] += c
@@ -3875,7 +3991,7 @@ def main() -> int:
     order = ("flash_attention", "decode_attention", "decode_attention_int8",
              "ssd_scan", "rglru_scan", "modipick_probs", "fused_select",
              "charged_select", "stacked_select", "flash_attention_bwd",
-             "rglru_scan_bwd", "ssd_scan_bwd")
+             "rglru_scan_bwd", "ssd_scan_bwd", "adamw")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

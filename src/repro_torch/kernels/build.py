@@ -24,7 +24,7 @@ from repro_torch import obs
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "ssd_scan_bwd",
-           "rglru_scan", "policy_select")
+           "rglru_scan", "policy_select", "adamw")
 # --split-compile=0: nvcc optimizes a source's device functions on all of
 # the host's cores (the SSD scan's backward, 37 instantiations, builds in
 # half the time; ptxas reports the same registers and spills).

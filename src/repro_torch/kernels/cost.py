@@ -174,6 +174,19 @@ def rglru_scan_bwd(a) -> Cost:
     return Cost(4 * a.numel(), a.element_size() * 5 * a.numel(), "fp32")
 
 
+def adamw(params, grads, decay) -> Cost:
+    """AdamW over every leaf: p, m and v read and written once, g read
+    twice (the global norm, then the update): 2·esize(p) + 2·esize(g) +
+    16 bytes a parameter; a square and an add for the norm, 15 fp32
+    operations for the update and 2 more where the leaf decays."""
+    nbytes = flops = 0
+    for p, g, d in zip(params, grads, decay):
+        n = p.numel()
+        nbytes += n * (2 * p.element_size() + 2 * g.element_size() + 16)
+        flops += n * (17 + (2 if d else 0))
+    return Cost(float(flops), float(nbytes), "fp32")
+
+
 # ----------------------------------------------------------------------
 # The selection kernels (fp32 on the CUDA cores)
 # ----------------------------------------------------------------------
@@ -245,6 +258,11 @@ class counting:
 
     def __exit__(self, *exc) -> None:
         _STATE.tally = self._prev
+
+
+def is_counting() -> bool:
+    """Whether a :func:`counting` block is open in this thread."""
+    return getattr(_STATE, "tally", None) is not None
 
 
 def record(name: str, c: Cost) -> None:

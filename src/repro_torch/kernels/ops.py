@@ -32,12 +32,20 @@ with the forward) so that the two build in parallel.
 | ``fused_select``     | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_fused_select`` (jnp)     |
 | ``charged_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_charged_step`` under ``lax.scan`` |
 | ``stacked_select``   | ``csrc/policy_select.cu``     | ``policy_select.py`` ``_classed_select``, ``fleet_select_body`` (jnp) |
+| ``adamw``            | ``csrc/adamw.cu``             | none: the reference's jnp AdamW step under jit (``training/optimizer.py`` ``adamw_update``) |
+
+``adamw`` launches several kernels a call (a norm and a step a group of
+leaves, one finish), each counted; the dry-run records one call.
+``reset_launch_counts`` also zeroes ``adamw.UPDATES``, the elements
+AdamW updated by path.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
 
+from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels.adamw import adamw
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -50,7 +58,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 WRAPPERS = (flash_attention, decode_attention, decode_attention_int8,
             ssd_scan, rglru_scan, modipick_probs, fused_select,
             charged_select, stacked_select, flash_attention_bwd,
-            rglru_scan_bwd, ssd_scan_bwd)
+            rglru_scan_bwd, ssd_scan_bwd, adamw)
 # The wrappers whose kernel has a backward kernel on the card: under grad
 # mode they run their autograd Functions, and refuse_grad never sees them.
 DIFFERENTIABLE = (flash_attention, ssd_scan, rglru_scan)
@@ -82,3 +90,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    adamw_mod.UPDATES.update(fused=0, eager=0)

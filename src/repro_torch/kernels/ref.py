@@ -472,3 +472,60 @@ def rglru_scan_bwd_ref(a, h, dh):
     da = torch.stack(da[::-1], dim=1)
     db = torch.stack(db[::-1], dim=1)
     return da.to(a.dtype), db.to(a.dtype)
+
+
+# ----------------------------------------------------------------------
+# AdamW: the reference's step (``repro/training/optimizer.py``), op for op
+# ----------------------------------------------------------------------
+ADAM_ROWS = 1 << 24  # elements of a big leaf one plain update takes at a time
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """√(Σ x²) over an iterable of tensors, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in leaves))
+
+
+def clip_scale(gnorm, grad_clip: float):
+    """min(1, clip / (‖g‖ + 1e-9)) as a 0-dim tensor, or 1.0 without
+    clipping."""
+    if grad_clip <= 0:
+        return 1.0
+    return torch.clamp_max(torch.full_like(gnorm, grad_clip)
+                           / (gnorm + 1e-9), 1.0)
+
+
+def adam_ref(p, g, m, v, decay: bool, scale, bc1, bc2, lr, *, b1: float,
+             b2: float, eps: float, weight_decay: float) -> None:
+    """The reference's update of one leaf (or rows of one): m, v and p
+    written in place, op for op the reference's rounding.  ``scale`` is
+    the clip scale; ``bc1``, ``bc2`` the bias corrections."""
+    g = g.to(torch.float32) * scale
+    m.mul_(b1).add_((1.0 - b1) * g)
+    v.mul_(b2).add_((1.0 - b2) * g * g)
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    if decay:
+        delta = delta + weight_decay * p.to(torch.float32)
+    p.copy_(p.to(torch.float32) - lr * delta)
+
+
+def adamw_ref(params, grads, mu, nu, decay, bc1, bc2, lr, *, b1: float,
+              b2: float, eps: float, weight_decay: float,
+              grad_clip: float, scale=None) -> torch.Tensor:
+    """One AdamW step over lists of leaves (fp32 moments), in place: the
+    global norm of ``grads``, the clip scale, then :func:`adam_ref` on
+    each leaf, a big leaf some rows at a time so that its fp32
+    transients stay bounded.  ``scale``, where given, is the clip scale
+    to step with in place of the one from the norm (another
+    implementation's, to compare the two at equal scale).  Returns the
+    norm."""
+    gnorm = global_norm(grads)
+    if scale is None:
+        scale = clip_scale(gnorm, grad_clip)
+    for p, g, m, v, d in zip(params, grads, mu, nu, decay):
+        rows = max(1, ADAM_ROWS // max(1, p[0].numel()))
+        for r in range(0, p.shape[0], rows):
+            sl = slice(r, r + rows)
+            adam_ref(p[sl], g[sl], m[sl], v[sl], d, scale, bc1, bc2, lr,
+                     b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    return gnorm

@@ -23,8 +23,25 @@ parameter layout (``models/convert.py``, :func:`leaf_layout`):
 
 The state is keyed by leaf path (``models.convert.named_leaves``).
 :func:`adamw_update` writes the new parameters and fp32 moments into
-their tensors in place (the reference donates its buffers), a big leaf
-some rows at a time, so a step holds no second copy of the state.
+their tensors in place (the reference donates its buffers), so a step
+holds no second copy of the state.  It takes one of two paths, by the
+leaves' device and the moments' type:
+
+- fused: fp32 moments on the card, or on ``meta`` inside
+  ``cost.counting()`` (the dry-run): the hand-written multi-tensor
+  kernels (``kernels/adamw.py``), one pass over p, g, m and v for every
+  leaf after a global norm on the card, or on ``meta`` their recorded
+  cost.  The wrapper raises a TypeError for leaves the kernels do not
+  take, rather than step them another way;
+- eager: CPU tensors, int8 moments and ``meta`` outside the dry-run's
+  count: the plain step (``kernels/ref.py`` ``adamw_ref``), a big leaf
+  some rows at a time, int8 moments dequantized and quantized again
+  around it.
+
+Both compute the same arithmetic; at equal clip scale the fused path's
+p, m and v are the eager path's bits, and only the norm's sum runs in
+another order.  :func:`update_counts` says how many elements each path
+updated.
 """
 from __future__ import annotations
 
@@ -34,6 +51,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.kernels import adamw as fused
+from repro_torch.kernels import cost
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import global_norm
 from repro_torch.models.convert import LeafLayout, named_leaves
 
 
@@ -112,9 +133,6 @@ def _dq8_log(s: Dict[str, torch.Tensor], segments=None) -> torch.Tensor:
     return torch.where(lg <= _LOG_FLOOR + 1e-6, 0.0, v)
 
 
-_CHUNK = 1 << 24  # elements of a big leaf the fp32 update takes at a time
-
-
 def _segments_of(layout, path):
     if layout is None or len(layout[path].segments) == 1:
         return None
@@ -163,10 +181,16 @@ def lr_schedule(cfg: TrainConfig, step) -> torch.Tensor:
     return cfg.learning_rate * warm * decay
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """√(Σ x²) over an iterable of tensors, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+def decays(p, lay: Optional[LeafLayout]) -> bool:
+    """Whether a leaf decays: the reference decays its matrices and every
+    leaf of a layer it stacks (``lay.stacked``)."""
+    return p.dim() >= 2 or (lay is not None and lay.stacked)
+
+
+def update_counts() -> Dict[str, int]:
+    """Elements :func:`adamw_update` updated on the fused and the eager
+    path since the last ``kernels.ops.reset_launch_counts()``."""
+    return dict(fused.UPDATES)
 
 
 def adamw_update(cfg: TrainConfig, params, grads: Dict[str, torch.Tensor],
@@ -178,53 +202,48 @@ def adamw_update(cfg: TrainConfig, params, grads: Dict[str, torch.Tensor],
     leaves the reference stacks (they decay) and the segments of fused
     leaves (int8 moments); without it every leaf is one unstacked
     segment, as a plain tree is in the reference.  The parameters and
-    fp32 moments are updated in place (the caller's state is consumed,
-    as the reference's is donated); returns (params, new state,
-    {"grad_norm", "lr"})."""
+    moments are updated in place (the caller's state is consumed, as the
+    reference's is donated); returns (params, new state,
+    {"grad_norm", "lr"}), both 0-dim tensors on the leaves' device."""
     leaves = named_leaves(params)
+    paths = [path for path, _ in leaves]
+    ps = [p for _, p in leaves]
+    gs = [grads[path] for path in paths]
+    ms = [state.mu[path] for path in paths]
+    vs = [state.nu[path] for path in paths]
+    decay = [decays(p, None if layout is None else layout[path])
+             for path, p in leaves]
     step = state.step + 1
-    gnorm = global_norm(grads[path] for path, _ in leaves)
-    clip_scale = (torch.clamp_max(torch.full_like(gnorm, cfg.grad_clip)
-                                  / (gnorm + 1e-9), 1.0)
-                  if cfg.grad_clip > 0 else 1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.full_like(stepf, b1), stepf)
     bc2 = 1.0 - torch.pow(torch.full_like(stepf, b2), stepf)
     lr = lr_schedule(cfg, step)
+    hyper = dict(b1=b1, b2=b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    n = sum(p.numel() for p in ps)
 
-    def adam(p, g, m, v, decay):
-        """The reference's update of one leaf (or rows of one), m, v and
-        p written in place, op for op the reference's rounding."""
-        g = g.to(torch.float32) * clip_scale
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * g * g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if decay:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * delta)
-
-    new_mu, new_nu = {}, {}
+    dev = ps[0].device.type
+    int8 = isinstance(ms[0], dict)
     with torch.no_grad():
-        for path, p in leaves:
-            m, v, g = state.mu[path], state.nu[path], grads[path]
-            # decoupled weight decay on the leaves the reference decays:
-            # its matrices, and every leaf of a layer it stacks
-            decay = p.dim() >= 2 or (layout is not None
-                                     and layout[path].stacked)
-            if isinstance(m, dict):
+        if not int8 and (dev == "cuda"
+                         or (dev == "meta" and cost.is_counting())):
+            gnorm = fused.adamw(ps, gs, ms, vs, decay, bc1, bc2, lr,
+                                grad_clip=cfg.grad_clip, **hyper)
+            fused.UPDATES["fused"] += n
+        elif not int8:
+            gnorm = ref.adamw_ref(ps, gs, ms, vs, decay, bc1, bc2, lr,
+                                  grad_clip=cfg.grad_clip, **hyper)
+            fused.UPDATES["eager"] += n
+        else:
+            gnorm = global_norm(gs)
+            scale = ref.clip_scale(gnorm, cfg.grad_clip)
+            for i, (path, p) in enumerate(leaves):
                 segs = _segments_of(layout, path)
-                m, v = _dq8(m, segs), _dq8_log(v, segs)
-                adam(p, g, m, v, decay)
-                m, v = _q8(m, segs), _q8_log(v, segs)
-            else:
-                # rows at a time: the fp32 transients of a big leaf (the
-                # embedding) stay bounded, as the reference maps its big
-                # stacked leaves layer by layer
-                step_rows = max(1, _CHUNK // max(1, p[0].numel()))
-                for r in range(0, p.shape[0], step_rows):
-                    sl = slice(r, r + step_rows)
-                    adam(p[sl], g[sl], m[sl], v[sl], decay)
-            new_mu[path], new_nu[path] = m, v
-    return params, OptState(step, new_mu, new_nu), {"grad_norm": gnorm,
+                m, v = _dq8(ms[i], segs), _dq8_log(vs[i], segs)
+                ref.adam_ref(p, gs[i], m, v, decay[i], scale, bc1, bc2, lr,
+                             **hyper)
+                ms[i], vs[i] = _q8(m, segs), _q8_log(v, segs)
+            fused.UPDATES["eager"] += n
+    return params, OptState(step, dict(zip(paths, ms)),
+                            dict(zip(paths, vs))), {"grad_norm": gnorm,
                                                     "lr": lr}

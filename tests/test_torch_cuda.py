@@ -1157,6 +1157,12 @@ def _grad_case(name):
                                     torch.ones(4, 3, **f)), {}
     if name == "fused_select":
         return ops.fused_select, (*pool(3), r(4), r(4), r(4)), {}
+    if name == "adamw":
+        z = lambda *shape: torch.zeros(*shape, **f)  # noqa: E731
+        return ops.adamw, ([r(3, 5), r(7)], [r(3, 5), r(7)],
+                           [z(3, 5), z(7)], [z(3, 5), z(7)], [True, False],
+                           z(()) + 0.1, z(()) + 0.05, z(()) + 1e-3), \
+            dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
     if name == "charged_select":
         return ops.charged_select, (*pool(3), r(3),
                                     torch.ones(3, 2, dtype=torch.bool, **f),
@@ -1182,7 +1188,9 @@ def test_wrappers_refuse_inputs_that_require_grad(gen, name):
     with torch.no_grad():
         fn(*args, **kw)
     torch.cuda.synchronize()
-    assert ops.launch_counts()[name] == before[name] + 1
+    # the fused AdamW launches a norm, a finish and a step pass a call
+    assert ops.launch_counts()[name] == before[name] + (
+        3 if name == "adamw" else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -95,7 +95,8 @@ def test_dryrun_full_size_cell(arch, shape):
     assert roof["dominant"] in ("compute", "memory")
     kernels = {"long_500k": {}, "decode_32k": {"decode_attention": 8},
                "train_4k": {"flash_attention": 4 * 28,
-                            "flash_attention_bwd": 2 * 28}}[shape]
+                            "flash_attention_bwd": 2 * 28,
+                            "adamw": 1}}[shape]
     assert res["cost"]["kernel_calls"] == kernels
 
 
@@ -180,6 +181,7 @@ def _meta_calls():
     a = _m(2, 40, 24)
     mu, B_ = _m(5), 7
     f = lambda *s: _m(*s)  # noqa: E731
+    sc = torch.empty((), device="meta")
     return [
         ("flash_attention", lambda: ops.flash_attention(q, k, k, window=16),
          cost.flash_attention(q, k, True, 16), [(2, 4, 64, 32)]),
@@ -222,10 +224,16 @@ def _meta_calls():
             f(B_), f(B_)),
          cost.stacked_select(f(2, 5), mu, _m(7, dtype=torch.int32)),
          [(7,), (7,)]),
+        ("adamw", lambda: ops.adamw(
+            [_m(3, 5, dtype=bf), mu], [f(3, 5), mu], [f(3, 5), mu],
+            [f(3, 5), mu], [True, False], sc, sc, sc, b1=0.9, b2=0.95,
+            eps=1e-8, weight_decay=0.1, grad_clip=1.0),
+         cost.adamw([_m(3, 5, dtype=bf), mu], [f(3, 5), mu], [True, False]),
+         [()]),
     ]
 
 
-@pytest.mark.parametrize("case", range(12))
+@pytest.mark.parametrize("case", range(13))
 def test_wrapper_on_meta_records_its_cost(case):
     name, call, want, shapes = _meta_calls()[case]
     wrapper = getattr(ops, name)

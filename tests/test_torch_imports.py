@@ -58,7 +58,7 @@ def test_port_package_is_not_empty():
             "models/templates.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
-        "ssd_scan_bwd.cu", "rglru_scan.cu", "policy_select.cu"}
+        "ssd_scan_bwd.cu", "rglru_scan.cu", "policy_select.cu", "adamw.cu"}
 
 
 def test_no_library_attention_or_compile_in_port():

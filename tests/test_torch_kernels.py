@@ -420,6 +420,10 @@ def test_cpu_path_launches_nothing():
     ssd = (torch.zeros(1, 2, 5, 16), torch.zeros(1, 2, 5), torch.zeros(2),
            torch.zeros(1, 1, 5, 8), torch.zeros(1, 1, 5, 8))
     ops.ssd_scan_bwd(*ssd, torch.zeros(1, 2, 5, 16), chunk=4)
+    one = torch.ones(())
+    ops.adamw([torch.ones(3, 2)], [torch.ones(3, 2)], [torch.zeros(3, 2)],
+              [torch.zeros(3, 2)], [True], one, one, one, b1=0.9, b2=0.95,
+              eps=1e-8, weight_decay=0.1, grad_clip=1.0)
     # under grad the CPU path is the plain version's own autograd
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.flash_attention(*leaves).sum().backward()
@@ -433,7 +437,8 @@ def test_cpu_path_launches_nothing():
                                    "modipick_probs": 0, "fused_select": 0,
                                    "charged_select": 0, "stacked_select": 0,
                                    "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0, "ssd_scan_bwd": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan_bwd": 0,
+                                   "adamw": 0}
 
 
 def test_plain_versions_are_the_reference_twins():
