@@ -1,12 +1,18 @@
-"""What both references share: fp32 matmuls with TF32 off, the RMSNorm,
-and the fp8 product that the control puts in the program's place."""
+"""What every reference shares: fp32 matmuls with TF32 off, the RMSNorm,
+the fp8 product that the control puts in the program's place, and the
+parts of the weights' layout that lie outside the layers (the embedding,
+the final norm and the untied head)."""
 from __future__ import annotations
 
 import contextlib
+from typing import Callable, List, Tuple
 
 import torch
 
 FP8_MAX = 448.0  # float8_e4m3fn
+
+# (logical name, program path, index into the program leaf)
+Spec = List[Tuple[str, str, tuple]]
 
 
 @contextlib.contextmanager
@@ -62,3 +68,35 @@ def rms(x, scale, eps):
     x = x.float()
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) \
         * (1.0 + scale.float())
+
+
+def padded_vocab(v: dict) -> int:
+    """The program's embedding rows: the vocabulary padded to 256."""
+    return -(-v["vocab_size"] // 256) * 256
+
+
+def model_leaves(v: dict, init: dict, layer_leaves: Callable) -> list:
+    """(path, shape, std or a rule name) of every program leaf, in the
+    order they are drawn: the embedding, ``layer_leaves(v, init, i)`` of
+    each layer, the final norm and an untied head."""
+    d, V = v["hidden_size"], padded_vocab(v)
+    out = [("embed", (V, d), init["embed_std"])]
+    for i in range(v["num_hidden_layers"]):
+        out += layer_leaves(v, init, i)
+    out.append(("final_norm", (d,), init["norm_scale_std"]))
+    if not v.get("tie_word_embeddings", True):
+        out.append(("lm_head", (d, V), init["linear_std"]))
+    return out
+
+
+def model_spec(v: dict, layer_spec: Callable) -> Spec:
+    """Each logical leaf: its name, the program leaf it lies in and where
+    in that leaf; ``layer_spec(v, i)`` gives layer i's."""
+    V = v["vocab_size"]
+    out: Spec = [("embed", "embed", (slice(0, V),))]
+    for i in range(v["num_hidden_layers"]):
+        out += layer_spec(v, i)
+    out.append(("final_norm", "final_norm", ()))
+    if not v.get("tie_word_embeddings", True):
+        out.append(("lm_head", "lm_head", (slice(None), slice(0, V))))
+    return out

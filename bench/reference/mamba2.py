@@ -5,13 +5,73 @@ depthwise causal conv over x | B | C, then SiLU; dt = softplus(dt +
 dt_bias), A = −exp(A_log); the SSD recurrence h_t = exp(dt·A)·h +
 dt·B⊗x, y = C·h, computed exactly by the chunked state-space-duality
 form of the paper's listing; y + D·x; the gated RMSNorm of y·silu(z);
-the output projection.  No cache, no kernels."""
+the output projection.  No cache, no kernels.  Also the family's
+weights' layout: the program leaves in draw order and where each logical
+leaf lies in them."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .common import exact_fp32, mm, rms
+from .common import Spec, exact_fp32, mm, model_leaves, model_spec, rms
+
+
+def layer_kinds(v) -> list:
+    return ["ssd"] * v["num_hidden_layers"]
+
+
+def _widths(v):
+    """(d_inner, SSD heads, n_groups × d_state) of a layer."""
+    c = v["ssm"]
+    di = c["expand"] * v["hidden_size"]
+    return di, di // c["head_dim"], c["n_groups"] * c["d_state"]
+
+
+def layer_leaves(v, init, i) -> list:
+    """(path, shape, std or a rule name) of an SSD layer's program leaves
+    in draw order: ``w_in`` = z | x | B | C | dt side by side."""
+    p, d, g = f"layers/{i}/", v["hidden_size"], init["norm_scale_std"]
+    di, H, n = _widths(v)
+    W = v["ssm"]["conv_width"]
+    conv_std = 1.0 / math.sqrt(3.0 * W)  # U(±1/√W): fan_in W
+    return [(p + "norm1", (d,), g),
+            (p + "ssd/w_in", (d, 2 * di + 2 * n + H),
+             1.0 / math.sqrt(3.0 * d)),
+            (p + "ssd/conv_w", (W, di + 2 * n), conv_std),
+            (p + "ssd/conv_b", (di + 2 * n,), conv_std),
+            (p + "ssd/A_log", (H,), "A_log"),
+            (p + "ssd/D", (H,), "one"),
+            (p + "ssd/dt_bias", (H,), "dt_bias"),
+            (p + "ssd/norm_z", (di,), g),
+            (p + "ssd/out_proj", (di, d),
+             1.0 / math.sqrt(3.0 * di) / math.sqrt(v["num_hidden_layers"]))]
+
+
+def layer_spec(v, i) -> Spec:
+    p, q, all_ = f"layers.{i}.", f"layers/{i}/", slice(None)
+    di, H, n = _widths(v)
+    cuts = {"z": (0, di), "x": (di, 2 * di), "B": (2 * di, 2 * di + n),
+            "C": (2 * di + n, 2 * di + 2 * n),
+            "dt": (2 * di + 2 * n, 2 * di + 2 * n + H)}
+    out: Spec = [(p + "norm1", q + "norm1", ())]
+    for k, (lo, hi) in cuts.items():
+        out.append((p + "in_" + k, q + "ssd/w_in", (all_, slice(lo, hi))))
+    for k, (lo, hi) in (("x", (0, di)), ("B", (di, di + n)),
+                        ("C", (di + n, di + 2 * n))):
+        out.append((p + "conv_" + k, q + "ssd/conv_w", (all_, slice(lo, hi))))
+        out.append((p + "convb_" + k, q + "ssd/conv_b", (slice(lo, hi),)))
+    return out + [(p + k, q + "ssd/" + k, ())
+                  for k in ("A_log", "D", "dt_bias", "norm_z", "out_proj")]
+
+
+def leaves(v, init) -> list:
+    return model_leaves(v, init, layer_leaves)
+
+
+def spec(v) -> Spec:
+    return model_spec(v, layer_spec)
 
 
 def segsum(a):
@@ -53,7 +113,9 @@ def ssd(x, dt, A, B, C, chunk):
     return y.reshape(b, c * chunk, h, p)[:, :T]
 
 
-def layer(v, W, i, x, mm=mm):
+def layer(v, W, i, x, positions, mm=mm):
+    """x + the SSD mixer of layer ``i``; x: (B, T, d) fp32.  ``positions``
+    is every family's argument; the recurrence has no use for it."""
     p = f"layers.{i}."
     s, eps = v["ssm"], v["rms_norm_eps"]
     b, T, d = x.shape
@@ -98,5 +160,5 @@ def logits(v, W, tokens, last: int, mm=mm):
     with exact_fp32():
         x = embed(W, tokens)
         for i in range(v["num_hidden_layers"]):
-            x = layer(v, W, i, x, mm)
+            x = layer(v, W, i, x, None, mm)
         return head(v, W, x[:, -last:], mm)

@@ -3,15 +3,65 @@ embedding, per layer RMSNorm → GQA causal attention with q/k/v biases
 and half-split RoPE (θ from the config) → residual, RMSNorm → SwiGLU MLP
 → residual, final RMSNorm, the tied or untied head.  No cache, no
 kernels: the whole sequence at once, attention in blocks of query rows
-so that its scores fit."""
+so that its scores fit.  Also the family's weights' layout: the program
+leaves in draw order and where each logical leaf lies in them."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import exact_fp32, mm, rms
+from .common import Spec, exact_fp32, mm, model_leaves, model_spec, rms
 
 Q_BLOCK = 512
+
+
+def layer_kinds(v) -> list:
+    return ["attn"] * v["num_hidden_layers"]
+
+
+def layer_leaves(v, init, i) -> list:
+    """(path, shape, std) of an attention layer's program leaves in draw
+    order: ``wqkv`` = q | k | v side by side."""
+    p, d, g, s = f"layers/{i}/", v["hidden_size"], init["norm_scale_std"], \
+        init["linear_std"]
+    H, KV, hd, f = (v["num_attention_heads"], v["num_key_value_heads"],
+                    v["head_dim"], v["intermediate_size"])
+    return [(p + "norm1", (d,), g),
+            (p + "wqkv", (d, (H + 2 * KV) * hd), s),
+            (p + "bqkv", ((H + 2 * KV) * hd,), init["bias_std"]),
+            (p + "wo", (H * hd, d), s),
+            (p + "norm2", (d,), g),
+            (p + "mlp/wi", (d, f), s),
+            (p + "mlp/wg", (d, f), s),
+            (p + "mlp/wo", (f, d), s)]
+
+
+def layer_spec(v, i) -> Spec:
+    p, q, all_ = f"layers.{i}.", f"layers/{i}/", slice(None)
+    H, KV, hd = v["num_attention_heads"], v["num_key_value_heads"], \
+        v["head_dim"]
+    a, b = H * hd, (H + KV) * hd
+    c = b + KV * hd
+    return [(p + "norm1", q + "norm1", ()),
+            (p + "wq", q + "wqkv", (all_, slice(0, a))),
+            (p + "wk", q + "wqkv", (all_, slice(a, b))),
+            (p + "wv", q + "wqkv", (all_, slice(b, c))),
+            (p + "bq", q + "bqkv", (slice(0, a),)),
+            (p + "bk", q + "bqkv", (slice(a, b),)),
+            (p + "bv", q + "bqkv", (slice(b, c),)),
+            (p + "wo", q + "wo", ()),
+            (p + "norm2", q + "norm2", ()),
+            (p + "gate", q + "mlp/wi", ()),
+            (p + "up", q + "mlp/wg", ()),
+            (p + "down", q + "mlp/wo", ())]
+
+
+def leaves(v, init) -> list:
+    return model_leaves(v, init, layer_leaves)
+
+
+def spec(v) -> Spec:
+    return model_spec(v, layer_spec)
 
 
 def rope(x, positions, theta):

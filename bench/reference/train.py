@@ -12,24 +12,18 @@ from typing import Dict, List
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import mamba2, qwen2
+from . import load
 from .common import exact_fp32, tf32
-
-MODELS = {"qwen2": qwen2, "mamba2": mamba2}
 
 
 def loss(family: str, v: dict, W: Dict[str, torch.Tensor], tokens,
          targets):
     """Mean next-token cross-entropy (fp32) of ``tokens`` (B, S)."""
-    m = MODELS[family]
+    m = load(family)
     x = m.embed(W, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for i in range(v["num_hidden_layers"]):
-        if family == "qwen2":
-            x = checkpoint(m.layer, v, W, i, x, positions,
-                           use_reentrant=False)
-        else:
-            x = checkpoint(m.layer, v, W, i, x, use_reentrant=False)
+        x = checkpoint(m.layer, v, W, i, x, positions, use_reentrant=False)
     logits = m.head(v, W, x)
     return torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())

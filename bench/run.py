@@ -14,6 +14,20 @@ per-layer metrics and the trace's breakdown.  The last line of standard output i
 object; the numbers compared with the reference, each beside its limit,
 are the last lines of standard error.
 
+A configuration of a new family enters by new files alone, each found
+by a name: the configuration, ``bench/configs/<name>.json``, whose
+``"family"`` names the family; its plain reference,
+``bench/reference/<family>.py`` (the weights' layout, the layer kinds
+and the fp32 forward, see ``bench/reference/__init__.py``); its program
+side, ``bench/families/<family>.py`` (the port's ``ModelConfig``, the
+model FLOPs and the tests' cut, see ``bench/families/__init__.py``); a
+traffic mix where the cell needs a new one; the limits of each cell,
+``bench/cells/<workload>.json``; and the entries of ``configs`` and
+``workloads`` in ``BENCHMARK.json``.  A ``model_config`` change adds
+all of these and edits no file that is here.  A family of a layer kind
+the harness has (``"attn"``, ``"ssd"``) takes that kind's leaves and
+forward from the family that has it.
+
 Refuses to run without the CUDA cards the cell asks for, and refuses to
 print a result if JAX or the JAX package was loaded.
 """

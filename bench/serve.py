@@ -28,13 +28,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from . import system, weights
-from .reference import mamba2 as ref_mamba2
-from .reference import qwen2 as ref_qwen2
+from . import reference, system, weights
 from .reference.common import mm, mm_fp8
 from .trace import Tracer, span
 
-REFS = {"qwen2": ref_qwen2, "mamba2": ref_mamba2}
 REF_BLOCK = 4         # sequences the reference runs together
 CHECK_REQUESTS = 48   # requests of a window the reference reads
 TRACE_REQUESTS = 40   # requests a traced run profiles after its window
@@ -322,7 +319,7 @@ def gaps_of(cfg: dict, toks, tokens: Dict[int, List[int]],
     matmul; ``rank`` (the control) picks, in place of the served token,
     the token that its own logits put first."""
     fam = cfg["family"]
-    ref = REFS[fam]
+    ref = reference.load(fam)
     dtype = getattr(torch, cfg["serve_dtype"])
     out: List[float] = []
     for idx, v in enumerate(cfg["variants"]):

@@ -7,12 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from bench import serve, system, train, weights
-from bench.reference import mamba2 as ref_mamba2
-from bench.reference import qwen2 as ref_qwen2
+from bench import reference, serve, system, train, weights
 from bench.tests import tiny
-
-REFS = {"qwen2": ref_qwen2, "mamba2": ref_mamba2}
 
 
 @pytest.mark.parametrize("family", ["qwen2", "mamba2"])
@@ -38,7 +34,7 @@ def test_reference_matches_prefill_and_decode(family, index):
             nxt, pos = lg.argmax(-1), pos + 1
             seq.append(nxt)
     full = torch.cat([toks, torch.stack(seq[:-1], 1)], dim=1)
-    want = REFS[family].logits(v, W, full, steps + 1)
+    want = reference.load(family).logits(v, W, full, steps + 1)
     got = torch.stack(got, 1)
     scale = want.abs().max()
     assert float((got - want).abs().max()) <= 1e-4 * float(scale)
@@ -62,7 +58,7 @@ def test_serve_gaps_are_zero_for_the_references_own_tokens():
     v = cfg["variants"][0]
     _, W = weights.make("qwen2", v, cfg["init"], 9, 0, torch.bfloat16, "cpu")
     toks = serve.prompts(v["vocab_size"], 2, 24, 9)
-    lg = ref_qwen2.logits(v, W, torch.tensor(toks), 1)
+    lg = reference.load("qwen2").logits(v, W, torch.tensor(toks), 1)
     tokens = {0: [int(lg[0, 0].argmax())], 1: [int(lg[1, 0].argmax())]}
     gaps = serve.gaps_of(cfg, toks, tokens, {0: v["name"], 1: v["name"]}, 9,
                          "cpu")

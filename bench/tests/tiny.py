@@ -5,6 +5,8 @@ import copy
 import json
 from pathlib import Path
 
+from bench import families
+
 BENCH = Path(__file__).resolve().parent.parent
 
 
@@ -13,17 +15,17 @@ def load(kind: str, name: str) -> dict:
 
 
 def config(family: str) -> dict:
+    """``configs/<family>-pool.json`` cut to the CPU tests' size: two
+    layers, widths of 64 to 192, a vocabulary of 300, and the family's
+    own cut (``tiny`` of ``bench/families/<family>.py``)."""
     c = load("configs", f"{family}-pool")
+    cut = families.load(family).tiny
     c["init"]["embed_std"] = 1.0   # logits that spread at this width
     for i, v in enumerate(c["variants"]):
         v["num_hidden_layers"] = 2
         v["hidden_size"] = 64 * (i + 1)
         v["vocab_size"] = 300
-        if family == "qwen2":
-            v.update(num_attention_heads=4, num_key_value_heads=2,
-                     head_dim=(16, 32, 32)[i], intermediate_size=96 * (i + 1))
-        else:
-            v["ssm"] = dict(v["ssm"], d_state=16, head_dim=16, chunk_size=16)
+        cut(v, i)
     return c
 
 

@@ -134,7 +134,9 @@ def train_step_flops(v: dict, B: int, S: int) -> float:
     """Model FLOPs of one training step (forward and backward, no
     recomputation): 6 × parameters × tokens, plus for attention layers
     the score and value products, 4·hd operations a visible (query, key)
-    pair and head forward, three times that for the step."""
+    pair and head forward, three times that for the step.  A model of
+    one layer kind, attention or SSD: the count of Qwen2's and Mamba-2's
+    family modules (``bench/families/``)."""
     flops = 6.0 * param_count(v) * B * S
     if "ssm" not in v:
         attn = 4.0 * v["head_dim"] * v["num_attention_heads"] \
@@ -143,12 +145,10 @@ def train_step_flops(v: dict, B: int, S: int) -> float:
     return flops
 
 
-def mfu_pct(ctx) -> float:
-    """Model FLOPs of a run's window over window × the bf16 peak, in %."""
-    t = ctx["traffic"]
-    flops = ctx["steps"] * train_step_flops(ctx["variant"], t["batch"],
-                                            t["seq_len"])
-    return 100.0 * flops / (ctx["window_s"] * PEAK_FLOPS_BF16)
+def mfu_pct(flops: float, seconds: float) -> float:
+    """Model FLOPs done in ``seconds`` over seconds × the bf16 peak, in
+    %."""
+    return 100.0 * flops / (seconds * PEAK_FLOPS_BF16)
 
 
 # ----------------------------------------------------------------------
